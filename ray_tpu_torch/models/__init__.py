@@ -1,0 +1,6 @@
+"""Models of the port: the flagship decoder LM (dense, inference)."""
+
+from ray_tpu_torch.models.transformer import (TransformerConfig, forward,
+                                              init_params, params_from_jax)
+
+__all__ = ["TransformerConfig", "forward", "init_params", "params_from_jax"]

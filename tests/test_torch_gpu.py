@@ -1,0 +1,90 @@
+"""Tests of the port that need an NVIDIA card (marker `gpu`); without one
+they skip. They import neither JAX nor `ray_tpu`, so they also run where
+only PyTorch is installed:
+
+    python -m pytest --noconftest tests/test_torch_gpu.py -q -m gpu
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from ray_tpu_torch.kernels import flash_attn
+from ray_tpu_torch.models import TransformerConfig, forward, init_params
+from ray_tpu_torch.serve.engine import TransformerEngineModel
+
+pytestmark = pytest.mark.gpu
+
+# float32: the kernel and its plain version differ only in summation order.
+# bf16: 8 mantissa bits, rounded at different magnitudes on the two sides.
+F32_TOL = 1e-4
+BF16_TOL = 2e-2
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("shape,dtype,tol", [
+    ((2, 256, 3, 64), torch.float32, F32_TOL),
+    ((1, 384, 2, 128), torch.float32, F32_TOL),
+    ((2, 256, 3, 128), torch.bfloat16, BF16_TOL),
+    ((1, 128, 4, 64), torch.bfloat16, BF16_TOL),
+])
+def test_flash_kernel_matches_plain(card, shape, dtype, tol):
+    gen = torch.Generator(device=card).manual_seed(0)
+    q, k, v = (torch.randn(shape, generator=gen, device=card).to(dtype)
+               for _ in range(3))
+    before = flash_attn.launches
+    o, lse = flash_attn.flash_attn_fwd(q, k, v, return_lse=True)
+    torch.cuda.synchronize()
+    assert flash_attn.launches == before + 1
+    assert o.dtype == dtype and o.is_contiguous()
+    o_ref, lse_ref = flash_attn.flash_attn_fwd_plain(q, k, v,
+                                                     return_lse=True)
+    diff = (o.float() - o_ref.float()).abs()
+    assert bool((diff <= tol + tol * o_ref.float().abs()).all())
+    assert (lse - lse_ref).abs().max().item() <= 1e-4
+
+
+def test_flash_kernel_reads_qkv_views_through_strides(card):
+    gen = torch.Generator(device=card).manual_seed(1)
+    qkv = torch.randn((2, 256, 3, 2, 64), generator=gen, device=card)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    o, _ = flash_attn.flash_attn_fwd(q, k, v)
+    o_ref, _ = flash_attn.flash_attn_fwd_plain(q, k, v)
+    assert (o - o_ref).abs().max().item() <= F32_TOL
+
+
+def test_flash_kernel_rejects_misaligned_views(card):
+    x = torch.zeros((1, 128, 2, 66), device=card)[..., 1:65]
+    with pytest.raises(ValueError, match="strides"):
+        flash_attn.flash_attn_fwd(x, x, x)
+
+
+def test_forward_and_engine_prefill_on_card_match_cpu(card):
+    """A small model on the card (flash path, S 256) against the same
+    weights on the CPU (the kernel's plain version)."""
+    cfg = TransformerConfig(vocab_size=64, d_model=128, n_layers=2,
+                            n_heads=1, d_ff=256, max_seq_len=256,
+                            dtype=torch.float32)
+    cpu = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gpu = {"embed": cpu["embed"].to(card), "ln_f": cpu["ln_f"].to(card),
+           "layers": [{k: t.to(card) for k, t in lp.items()}
+                      for lp in cpu["layers"]]}
+    tokens = np.random.default_rng(0).integers(0, 64, (1, 256))
+    before = flash_attn.launches
+    got = forward(gpu, tokens, cfg).cpu()
+    assert flash_attn.launches == before + cfg.n_layers
+    want = forward(cpu, tokens, cfg, device="cpu")
+    assert (got - want).abs().max().item() <= 1e-3
+    prompt = tokens[0, :130].tolist()
+    g_logits, g_kv = TransformerEngineModel(gpu, cfg).prefill(prompt)
+    c_logits, c_kv = TransformerEngineModel(cpu, cfg,
+                                            device="cpu").prefill(prompt)
+    assert g_kv.device.type == "cuda"
+    assert np.abs(g_logits - c_logits).max() <= 1e-3
+    assert (g_kv.cpu() - c_kv).abs().max().item() <= 1e-3

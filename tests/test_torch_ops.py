@@ -1,0 +1,180 @@
+"""The port's ops (`ray_tpu_torch.ops`, `ray_tpu_torch.kernels`) against the
+JAX package's on the same inputs.
+
+Inputs come from numpy and go through both frameworks on the CPU. The port's
+flash attention runs its kernel's plain version here (CPU tensors); it is
+held against the real Pallas TPU kernel run in interpret mode. The CUDA
+kernel itself is tested on the card by `tests/test_torch_gpu.py`.
+"""
+
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from ray_tpu.models.transformer import _rmsnorm as jax_rmsnorm
+from ray_tpu.ops.rotary import apply_rotary as jax_apply_rotary
+from ray_tpu.ops.rotary import rotary_freqs as jax_rotary_freqs
+from ray_tpu_torch.kernels import flash_attn
+from ray_tpu_torch.models.transformer import _rmsnorm
+from ray_tpu_torch.ops.rotary import apply_rotary, rotary_freqs
+
+# The packages' `ops` re-export the `attention` function under the
+# submodule's name, so the modules are imported by path.
+jax_attention = importlib.import_module("ray_tpu.ops.attention")
+torch_attention = importlib.import_module("ray_tpu_torch.ops.attention")
+
+F32_TOL = 1e-5
+# bf16 keeps 8 mantissa bits: probabilities and outputs round at 2^-8
+# relative on both sides, at the same places (p cast to v's dtype).
+BF16_TOL = 2e-2
+
+
+def _qkv(seed, shape, dtype=np.float32):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(shape).astype(dtype) for _ in range(3)]
+
+
+def _t(a, dtype=torch.float32):
+    return torch.from_numpy(np.asarray(a, np.float32)).to(dtype)
+
+
+@pytest.mark.parametrize("positions", [
+    None,
+    [0, 3, 5, 7, 9, 11],        # inside the table
+    [14, 15, 16, 17, 40, 2],    # past max_len=16: clamped like JAX
+])
+def test_rotary_matches_jax(positions):
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 6, 3, 8)).astype(np.float32)
+    cos, sin = rotary_freqs(8, 16)
+    jcos, jsin = jax_rotary_freqs(8, 16)
+    np.testing.assert_allclose(cos.numpy(), np.asarray(jcos), atol=F32_TOL)
+    np.testing.assert_allclose(sin.numpy(), np.asarray(jsin), atol=F32_TOL)
+    pos_t = None if positions is None else torch.tensor(positions)
+    pos_j = None if positions is None else jnp.asarray(positions)
+    got = apply_rotary(_t(x), cos, sin, pos_t)
+    want = jax_apply_rotary(jnp.asarray(x), jcos, jsin, pos_j)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=F32_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_matches_jax(dtype):
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((2, 5, 32)).astype(np.float32)
+    scale = rng.standard_normal(32).astype(np.float32)
+    tdt = getattr(torch, dtype)
+    got = _rmsnorm(_t(x, tdt), _t(scale)).float().numpy()
+    want = jax_rmsnorm(jnp.asarray(x, getattr(jnp, dtype)),
+                       jnp.asarray(scale))
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    np.testing.assert_allclose(got, np.asarray(want, np.float32),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("causal,positions", [
+    (True, None), (False, None), (True, [4, 5, 6, 7, 8, 9, 10, 11])])
+def test_plain_attention_matches_jax(causal, positions):
+    q, k, v = _qkv(2, (2, 8, 3, 16))
+    pos_t = None if positions is None else torch.tensor(positions)
+    pos_j = None if positions is None else jnp.asarray(positions)
+    got = torch_attention.plain_attention(_t(q), _t(k), _t(v),
+                                          causal=causal, positions=pos_t)
+    want = jax_attention.plain_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        positions=pos_j)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=F32_TOL)
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((1, 128, 2, 64), "float32"),
+    ((1, 256, 2, 128), "float32"),
+    ((1, 256, 2, 64), "bfloat16"),
+    ((1, 128, 2, 128), "bfloat16"),
+])
+def test_flash_attention_matches_pallas_kernel(shape, dtype):
+    """The port's flash function (its plain version, on the CPU) against
+    the Pallas TPU kernel in interpret mode on the same inputs."""
+    q, k, v = _qkv(3, shape)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    with pltpu.force_tpu_interpret_mode():
+        want = jax_attention.flash_attention_tpu(
+            jnp.asarray(q, jdt), jnp.asarray(k, jdt), jnp.asarray(v, jdt))
+    want = np.asarray(want.astype(jnp.float32))
+    launches = flash_attn.launches
+    got = torch_attention.flash_attention(_t(q, tdt), _t(k, tdt), _t(v, tdt))
+    assert got.dtype == tdt and got.shape == shape
+    assert flash_attn.launches == launches   # the CPU runs no kernel
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    np.testing.assert_allclose(got.float().numpy(), want, atol=tol)
+
+
+def test_flash_plain_logsumexp():
+    q, k, v = _qkv(4, (2, 128, 2, 64))
+    o, lse = flash_attn.flash_attn_fwd(_t(q), _t(k), _t(v), return_lse=True)
+    scores = np.einsum("bqhd,bkhd->bhqk", q, k) / 8.0
+    scores = np.where(np.tril(np.ones((128, 128), bool)), scores, -np.inf)
+    mx = scores.max(-1, keepdims=True)
+    want = (mx + np.log(np.exp(scores - mx).sum(-1, keepdims=True)))[..., 0]
+    assert lse.shape == (2, 2, 128) and lse.dtype == torch.float32
+    np.testing.assert_allclose(lse.numpy(), want, atol=F32_TOL, rtol=F32_TOL)
+    o_plain, none = flash_attn.flash_attn_fwd(_t(q), _t(k), _t(v))
+    assert none is None
+    np.testing.assert_array_equal(o.numpy(), o_plain.numpy())
+
+
+@pytest.mark.parametrize("s,d", [
+    (128, 64), (128, 128), (256, 256), (384, 128), (128, 96), (100, 128),
+    (64, 64), (128, 32), (512, 192)])
+def test_flash_eligible_matches_jax_rule(s, d, monkeypatch):
+    """The port's eligibility is the JAX rule on shapes; the JAX rule
+    also asks for a TPU backend, which is taken as present here."""
+    monkeypatch.setattr(jax_attention.jax, "default_backend",
+                        lambda: "tpu")
+    x = np.zeros((1, s, 2, d), np.float32)
+    assert torch_attention._flash_eligible(torch.from_numpy(x)) == \
+        jax_attention._flash_eligible(x)
+
+
+def test_attention_dispatch_routes_like_jax(monkeypatch):
+    calls = []
+    real = torch_attention.flash_attention
+    monkeypatch.setattr(torch_attention, "flash_attention",
+                        lambda *a: calls.append(1) or real(*a))
+    q, k, v = (_t(a) for a in _qkv(5, (1, 128, 2, 64)))
+    out = torch_attention.attention(q, k, v)
+    assert calls == [1]
+    ref = torch_attention.plain_attention(q, k, v)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=F32_TOL)
+    # Explicit positions, non-causal or an ineligible shape: plain path.
+    torch_attention.attention(q, k, v, positions=torch.arange(128))
+    torch_attention.attention(q, k, v, causal=False)
+    torch_attention.attention(q[:, :100], k[:, :100], v[:, :100])
+    assert calls == [1]
+    with pytest.raises(NotImplementedError, match="Parallel layer"):
+        torch_attention.attention(q, k, v, manual_sp=True)
+
+
+def test_flash_wrapper_rejects_what_the_kernel_cannot_take():
+    q, k, v = (_t(a) for a in _qkv(6, (1, 128, 2, 64)))
+    with pytest.raises(ValueError, match="shape"):
+        flash_attn.flash_attn_fwd(q, k[:, :, :1], v)
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        flash_attn.flash_attn_fwd(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="head_dim"):
+        x = torch.zeros(1, 128, 2, 96)
+        flash_attn.flash_attn_fwd(x, x, x)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        x = torch.zeros(1, 192, 2, 64)
+        flash_attn.flash_attn_fwd(x, x, x)
+    with pytest.raises(ValueError, match="strides"):
+        x = torch.zeros(1, 128, 64, 2).transpose(2, 3)
+        flash_attn.flash_attn_fwd(x, x, x)
+    # Views of a fused QKV projection are taken as they are.
+    qkv = torch.zeros(1, 128, 3, 2, 64)
+    o, _ = flash_attn.flash_attn_fwd(qkv[:, :, 0], qkv[:, :, 1],
+                                     qkv[:, :, 2])
+    assert o.shape == (1, 128, 2, 64) and o.is_contiguous()

@@ -24,6 +24,21 @@ result line:
    the same requests on an engine of its own; the flash kernel must be
    launched by the prefills, and each request's prefill logits, first token
    and greedy continuation are held against a no-cache float32 forward.
+6. backward kernels: K2 (dK, dV) and K3 (dQ) against their plain versions
+   at the shapes the train step gives them and a few more, with error,
+   time, plain time, bound and, as a yardstick for the pair, the backward
+   of one `scaled_dot_product_attention` call;
+7. gradients: `lm_loss` gradients at the flagship width (bf16, 2 x 1024
+   tokens) through the kernels and through plain attention, each against a
+   float32 plain-attention reference; the kernel path must be about as
+   close to it as the plain path is, on every leaf;
+8. train: bench.py's configuration and batch (bf16, remat with
+   "save_attn_qkv", AdamW 1e-4, 16 x 1024 tokens) for 1 warm-up and 10
+   timed steps on one fixed random batch: tokens/s, MFU, peak memory and
+   kernel launches per step; every loss must be finite, the last below the
+   first, and K1, K2 and K3 must each run once per layer per step. One
+   more step runs under `torch.profiler`, which splits the card's time
+   over its kernels.
 
 Then it prints a `{"kernels": [...]}` line and, last, the result line
 `{"ok": true, "device": {...}}`. It imports nothing of JAX or of `ray_tpu`.
@@ -84,6 +99,36 @@ KERNEL_SHAPES = [
 ]
 # The engine's largest bucket.
 MAIN_SHAPE = ((1, 1024, 12, 128), "float32", "contiguous")
+# K2 and K3: the train step's shape (bf16, bench.py's batch; q and k come
+# out of the rotary embedding, v is a view of the fused QKV projection, so
+# "qkv" is the stricter layout), the serving width in both types, and D 64.
+BWD_SHAPES = [
+    ((1, 1024, 12, 128), "float32", "contiguous"),
+    ((1, 1024, 12, 128), "bfloat16", "contiguous"),
+    ((16, 1024, 12, 128), "bfloat16", "qkv"),
+    ((1, 1024, 12, 64), "bfloat16", "contiguous"),
+]
+MAIN_BWD_SHAPE = ((16, 1024, 12, 128), "bfloat16", "qkv")
+# K2/K3 against their plain versions, (atol, rtol) plus, in bf16,
+# `bwd_flip_bound`. float32: summation order only. bf16: both sides round p
+# and ds where the TPU kernel does, so they differ by float32 noise, which
+# can move a bf16 output by one ulp (at most 2^-7 of it) or flip the
+# rounding of a p or ds term.
+BWD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-5, 2.0 ** -7)}
+# Flipped roundings of p or ds allowed per output row in bf16: a flip needs
+# the two sides' float32 values to straddle a rounding boundary, some 1e-5
+# of elements.
+BWD_FLIPS_PER_ROW = 2
+# bench.py's train step.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 1024, 10
+GRAD_BATCH = 2
+# bf16 gradients: both attention paths round at 8 mantissa bits, at
+# different places, so each is held against a float32 reference and the
+# kernel path must be about as close to it as the plain path is, leaf by
+# leaf, with wqkv split into its q, k and v parts, which dQ, dK and dV
+# each reach alone (this implies it on whole leaves, on the worst leaf and
+# on the mean). tools/grad_faults.py reads what it catches.
+GRAD_ERR_RATIO = 1.25
 
 
 class PhaseError(RuntimeError):
@@ -369,6 +414,415 @@ def phase_engine(params, cfg, card: str):
     return launches
 
 
+def bwd_bounds(shape, dtype: str, power_w: float):
+    """{kernel: (bound_ms, bound_ms at the power limit, what sets it)} for
+    K2 (4 B H S (S+1) D operations; q, k, v, dO read, dk, dv written, plus
+    lse and di in float32) and K3 (3 B H S (S+1) D; q, k, v, dO read, dq
+    written, plus lse and di)."""
+    b, s, h, d = shape
+    esize = 4 if dtype == "float32" else 2
+    derate = max(1.0, FULL_POWER_W / power_w) if power_w > 0 else 1.0
+    out = {}
+    for name, n_products, n_tensors in (("dkv", 4, 6), ("dq", 3, 5)):
+        flops = n_products * b * h * s * (s + 1) * d
+        nbytes = n_tensors * b * s * h * d * esize + 2 * b * h * s * 4
+        t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+        bound = max(t_ops, t_bytes) * 1e3
+        out[name] = (bound, bound * derate,
+                     "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+def bwd_flip_bound(q, k, v, do, lse, di):
+    """[B, S, H, D] bounds on what one flipped bf16 rounding of p or ds can
+    do to (dq, dk, dv): a flip changes one term of a row's sum by one ulp
+    of p or ds (at most 2^-7 of it) times the other factor, so dV[key] moves
+    by at most 2^-7 max_q p[q, key] max_q |dO[q]|, dK[key] by 2^-7 max_q
+    |ds[q, key]| max_q |q[q]|, and dQ[q] by 2^-7 max_key |ds[q, key]|
+    max_key |k[key]|."""
+    import torch
+
+    s = q.shape[1]
+    scale = q.shape[-1] ** -0.5
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    p = torch.exp(scores - lse[..., None]).masked_fill(~mask, 0.0)
+    del scores
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    ds = (p * (dp - di[..., None]) * scale).abs()
+    del dp
+    ulp = 2.0 ** -7
+
+    def col(t, dim):
+        return t.amax(dim).transpose(1, 2)[..., None]
+
+    dq = ulp * col(ds, 3) * k.float().abs().amax(1, keepdim=True)
+    dk = ulp * col(ds, 2) * q.float().abs().amax(1, keepdim=True)
+    dv = ulp * col(p, 2) * do.float().abs().amax(1, keepdim=True)
+    return dq, dk, dv
+
+
+def bwd_errors(q, k, v, do, lse, di, dq, dk, dv):
+    """{"dq"|"dk"|"dv": (max abs error, worst diff/tol, worst diff/tol
+    without the flip term)} of (dq, dk, dv) against the plain versions on
+    the same inputs, under BWD_TOL (plus, in bf16, BWD_FLIPS_PER_ROW x
+    `bwd_flip_bound`)."""
+    from ray_tpu_torch.kernels import flash_attn
+
+    ref_dk, ref_dv = flash_attn.flash_attn_bwd_dkv_plain(q, k, v, do, lse,
+                                                         di)
+    ref_dq = flash_attn.flash_attn_bwd_dq_plain(q, k, v, do, lse, di)
+    dtype = str(q.dtype).removeprefix("torch.")
+    atol, rtol = BWD_TOL[dtype]
+    flips = ((None,) * 3 if dtype == "float32" else
+             bwd_flip_bound(q, k, v, do, lse, di))
+    errs = {}
+    for name, got, ref, flip in (("dq", dq, ref_dq, flips[0]),
+                                 ("dk", dk, ref_dk, flips[1]),
+                                 ("dv", dv, ref_dv, flips[2])):
+        diff = (got.float() - ref.float()).abs()
+        tol = atol + rtol * ref.float().abs()
+        over_plain = 0.0
+        if flip is not None:
+            over_plain = (diff / tol).max().item()
+            tol = tol + BWD_FLIPS_PER_ROW * flip
+        errs[name] = (diff.max().item(), (diff / tol).max().item(),
+                      over_plain)
+    return errs
+
+
+def phase_bwd_kernels(card: str, power_w: float):
+    import torch
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.kernels import flash_attn
+
+    rows = {}
+    for shape, dtype, layout in BWD_SHAPES:
+        dt = getattr(torch, dtype)
+        gen = torch.Generator(device="cuda").manual_seed(100 + len(rows))
+        b, s, h, d = shape
+        if layout == "qkv":
+            q, k, v = torch.randn((b, s, 3, h, d), generator=gen,
+                                  device="cuda").to(dt).unbind(2)
+        else:
+            q, k, v = (torch.randn(shape, generator=gen,
+                                   device="cuda").to(dt)
+                       for _ in range(3))
+        do = torch.randn(shape, generator=gen, device="cuda").to(dt)
+        o, lse = flash_attn.flash_attn_fwd(q, k, v, return_lse=True)
+        di = flash_attn.attention_di(o, do)
+        dk, dv = flash_attn.flash_attn_bwd_dkv(q, k, v, do, lse, di)
+        dq = flash_attn.flash_attn_bwd_dq(q, k, v, do, lse, di)
+        torch.cuda.synchronize()
+        errs = bwd_errors(q, k, v, do, lse, di, dq, dk, dv)
+        atol, rtol = BWD_TOL[dtype]
+        bounds = bwd_bounds(shape, dtype, power_w)
+        times = {
+            "dkv": cuda_ms(lambda: flash_attn.flash_attn_bwd_dkv(
+                q, k, v, do, lse, di), 10),
+            "dq": cuda_ms(lambda: flash_attn.flash_attn_bwd_dq(
+                q, k, v, do, lse, di), 10)}
+        plain = {
+            "dkv": cuda_ms(lambda: flash_attn.flash_attn_bwd_dkv_plain(
+                q, k, v, do, lse, di), 3, warmup=1),
+            "dq": cuda_ms(lambda: flash_attn.flash_attn_bwd_dq_plain(
+                q, k, v, do, lse, di), 3, warmup=1)}
+        torch.cuda.empty_cache()
+        qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_()
+                      for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        dot = do.transpose(1, 2)
+        library_ms = cuda_ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True), 10)
+        del out
+        for kname, parts in (("dkv", ("dk", "dv")), ("dq", ("dq",))):
+            err = max(errs[p][0] for p in parts)
+            worst = max(errs[p][1] for p in parts)
+            bound, derated, bound_by = bounds[kname]
+            rows[(kname, shape, dtype, layout)] = dict(
+                max_abs_err=err, ms=times[kname], plain_ms=plain[kname],
+                bound_ms=bound, bound_ms_at_power_limit=derated,
+                bound_by=bound_by, library_ms=library_ms,
+                worst_diff_over_tol=worst)
+            note = ""
+            if dtype == "bfloat16":
+                note = (f" + {BWD_FLIPS_PER_ROW} x bwd_flip_bound; without "
+                        f"it: worst diff/tol "
+                        f"{max(errs[p][2] for p in parts):.3f}")
+            print(f"kernel flash_attn_bwd_{kname} {dtype} {list(shape)} "
+                  f"{layout}: max_abs_err {err:.3e} (tol {atol:g} + "
+                  f"{rtol:g}|ref|{note}; worst diff/tol {worst:.3f}) "
+                  f"kernel_ms {times[kname]:.4f} plain_ms "
+                  f"{plain[kname]:.4f} library_ms (SDPA backward, K2+K3 "
+                  f"pair) {library_ms:.4f} bound_us {bound * 1e3:.2f} "
+                  f"({bound_by}; {derated * 1e3:.2f} at the power limit) "
+                  f"[{card}]", flush=True)
+            check(worst <= 1, f"flash_attn_bwd_{kname} {dtype} "
+                  f"{list(shape)} {layout} disagrees with its plain "
+                  f"version: max_abs_err {err:.3e}, worst diff/tol "
+                  f"{worst:.3f}")
+        print(f"kernel flash_attn_bwd K2+K3 {dtype} {list(shape)} {layout}:"
+              f" kernels_ms {times['dkv'] + times['dq']:.4f} library_ms "
+              f"{library_ms:.4f} [{card}]", flush=True)
+        del q, k, v, do, o, lse, di, dk, dv, dq, qt, kt, vt, dot
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _leaves(params):
+    return [params["embed"], params["ln_f"]] + [
+        t for lp in params["layers"] for t in lp.values()]
+
+
+def _leaf_names(params):
+    return ["embed", "ln_f"] + [
+        f"layers.{i}.{key}" for i, lp in enumerate(params["layers"])
+        for key in lp]
+
+
+def _split_qkv(names, tensors):
+    """(names, tensors) with each wqkv [D, 3, H hd] split into its q, k
+    and v parts: dQ and dK reach only their own part."""
+    out_names, out = [], []
+    for name, t in zip(names, tensors):
+        if name.endswith(".wqkv"):
+            out_names += [f"{name}.{p}" for p in "qkv"]
+            out += list(t.unbind(1))
+        else:
+            out_names.append(name)
+            out.append(t)
+    return out_names, out
+
+
+def grad_errors(params, cfg):
+    """`lm_loss` gradients (bf16, GRAD_BATCH x TRAIN_SEQ tokens) through the
+    kernels and through plain attention, each leaf's relative L2 distance
+    to a float32 plain-attention reference, and the K1, K2, K3 launches of
+    the kernel path."""
+    from dataclasses import replace
+
+    import torch
+
+    from ray_tpu_torch.kernels import flash_attn
+    from ray_tpu_torch.models import lm_loss
+    from ray_tpu_torch.models.transformer import _token_nll, backbone
+
+    leaves = _leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    tokens = torch.randint(0, cfg.vocab_size, (GRAD_BATCH, TRAIN_SEQ + 1),
+                           generator=gen, device="cuda")
+    positions = torch.arange(TRAIN_SEQ, device="cuda")
+
+    def plain_loss(c):
+        # lm_loss with explicit positions, which take plain attention.
+        x = backbone(params, tokens[:, :-1], c, positions)
+        logits = torch.einsum("bsd,vd->bsv", x, params["embed"].to(c.dtype))
+        return _token_nll(logits, tokens[:, 1:])
+
+    try:
+        flash_attn.launches = flash_attn.dkv_launches = 0
+        flash_attn.dq_launches = 0
+        loss_k = lm_loss(params, {"tokens": tokens}, cfg)
+        g_kernel = torch.autograd.grad(loss_k, leaves)
+        torch.cuda.synchronize()
+        counts = (flash_attn.launches, flash_attn.dkv_launches,
+                  flash_attn.dq_launches)
+        loss_p = plain_loss(cfg)
+        g_plain = torch.autograd.grad(loss_p, leaves)
+        loss_r = plain_loss(replace(cfg, dtype=torch.float32))
+        g_ref = torch.autograd.grad(loss_r, leaves)
+        check(flash_attn.dkv_launches == counts[1],
+              "the plain-attention gradient launched a kernel")
+    finally:
+        for t in leaves:
+            t.requires_grad_(False)
+
+    def rel(g, r):
+        return ((g.float() - r).norm() / r.norm()).item()
+
+    names = _leaf_names(params)
+    part_names, ref_parts = _split_qkv(names, g_ref)
+    return dict(
+        losses=(loss_k.item(), loss_p.item(), loss_r.item()),
+        names=names, part_names=part_names,
+        err_k=[rel(g, r) for g, r in zip(g_kernel, g_ref)],
+        err_p=[rel(g, r) for g, r in zip(g_plain, g_ref)],
+        part_k=[rel(g, r) for g, r in zip(
+            _split_qkv(names, g_kernel)[1], ref_parts)],
+        part_p=[rel(g, r) for g, r in zip(
+            _split_qkv(names, g_plain)[1], ref_parts)],
+        finite=all(bool(torch.isfinite(g).all()) for g in g_kernel),
+        counts=counts)
+
+
+def grad_summary(err_k, err_p, names):
+    """(worst leaf index, its kernel/plain ratio, mean kernel, mean plain,
+    whether every leaf is within GRAD_ERR_RATIO)."""
+    ratios = [a / b for a, b in zip(err_k, err_p)]
+    worst = max(range(len(names)), key=ratios.__getitem__)
+    return (worst, ratios[worst], sum(err_k) / len(err_k),
+            sum(err_p) / len(err_p), ratios[worst] <= GRAD_ERR_RATIO)
+
+
+def phase_grad(params, cfg, card: str):
+    r = grad_errors(params, cfg)
+    names, err_k, err_p, counts = (r["names"], r["err_k"], r["err_p"],
+                                   r["counts"])
+    worst, ratio, mean_k, mean_p, _ = grad_summary(err_k, err_p, names)
+    part_names, part_k, part_p = r["part_names"], r["part_k"], r["part_p"]
+    pworst, pratio, _, _, ok = grad_summary(part_k, part_p, part_names)
+    loss_k, loss_p, loss_r = r["losses"]
+    print(f"grad flagship bf16 [{GRAD_BATCH}, {TRAIN_SEQ}] remat "
+          f"{cfg.remat_policy}: loss kernels {loss_k:.5f} plain "
+          f"{loss_p:.5f} float32 {loss_r:.5f}; per-leaf "
+          f"rel_l2 to float32 over {len(names)} leaves: kernels max "
+          f"{max(err_k):.3e} mean {mean_k:.3e}, plain max {max(err_p):.3e} "
+          f"mean {mean_p:.3e}; largest per-leaf ratio {ratio:.3f} "
+          f"({names[worst]}: {err_k[worst]:.3e} vs {err_p[worst]:.3e}); "
+          f"with wqkv split into q, k, v parts {pratio:.3f} "
+          f"({part_names[pworst]}; each part's kernels <= "
+          f"{GRAD_ERR_RATIO:g} x plain); launches K1 {counts[0]} K2 {counts[1]} K3 {counts[2]} "
+          f"[{card}]", flush=True)
+    check(all(c == cfg.n_layers for c in counts),
+          f"the kernel gradient launched K1, K2, K3 {counts} times, "
+          f"expected {cfg.n_layers} each")
+    check(r["finite"], "kernel-path gradients are not finite")
+    check(ok, f"the kernel-path gradient of {part_names[pworst]} is "
+              f"further from float32 ({part_k[pworst]:.3e}) than the plain "
+              f"path's ({part_p[pworst]:.3e}) allows")
+
+
+def phase_train(params, cfg, card: str, power_w: float):
+    import torch
+
+    from ray_tpu_torch.kernels import flash_attn
+    from ray_tpu_torch.models import lm_loss
+    from ray_tpu_torch.parallel import adamw, make_train_step
+
+    n_params = sum(t.numel() for t in _leaves(params))
+    optimizer = adamw(1e-4)
+    opt_state = optimizer.init(params)
+    step = make_train_step(lambda p, b: lm_loss(p, b, cfg), optimizer)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                     (TRAIN_BATCH, TRAIN_SEQ + 1),
+                                     generator=gen, device="cuda")}
+    t0 = time.perf_counter()
+    params, opt_state, loss = step(params, opt_state, batch)
+    losses = [loss]
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    flash_attn.launches = flash_attn.dkv_launches = 0
+    flash_attn.dq_launches = 0
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        params, opt_state, loss = step(params, opt_state, batch)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = (flash_attn.launches, flash_attn.dkv_launches,
+                flash_attn.dq_launches)
+    peak = torch.cuda.max_memory_allocated()
+    values = [x.item() for x in losses]
+    tokens_per_s = TRAIN_BATCH * TRAIN_SEQ * TRAIN_STEPS / dt
+    mfu = 6.0 * n_params * tokens_per_s / PEAK_FLOPS["bfloat16"]
+    per_step = [n / TRAIN_STEPS for n in launches]
+    print(f"train flagship bf16 remat {cfg.remat_policy} AdamW 1e-4 "
+          f"[{TRAIN_BATCH}, {TRAIN_SEQ}], {n_params} params: warm-up step "
+          f"{warm_s:.3f} s; {TRAIN_STEPS} steps in {dt:.4f} s, step_ms "
+          f"{dt / TRAIN_STEPS * 1e3:.2f}, tokens_per_s {tokens_per_s:.1f}, "
+          f"MFU {mfu:.4f} (6 N tokens/s over 989 TFLOP/s bf16; "
+          f"{mfu * FULL_POWER_W / power_w if power_w else mfu:.4f} of the "
+          f"peak derated to the power limit), peak_memory_bytes {peak} "
+          f"({peak / 2 ** 30:.2f} GiB), launches per step K1 {per_step[0]:g}"
+          f" K2 {per_step[1]:g} K3 {per_step[2]:g} [{card}]", flush=True)
+    print(f"train losses {' '.join(f'{x:.5f}' for x in values)}",
+          flush=True)
+    check(all(x == x and abs(x) != float("inf") for x in values),
+          "a train loss is not finite")
+    check(values[-1] < values[0],
+          f"the loss did not fall: {values[0]:.5f} -> {values[-1]:.5f}")
+    check(all(n == cfg.n_layers * TRAIN_STEPS for n in launches),
+          f"the train steps launched K1, K2, K3 {launches} times, expected "
+          f"{cfg.n_layers * TRAIN_STEPS} each (once per layer per step)")
+    profile_step(lambda: step(params, opt_state, batch),
+                 dt / TRAIN_STEPS * 1e3, card)
+    return launches, dict(tokens_per_s=tokens_per_s, mfu=mfu,
+                          peak_memory_bytes=peak)
+
+
+def busy_union(intervals) -> float:
+    """Length of the union of [start, end) intervals."""
+    total, reach = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b > reach:
+            total += b - max(a, reach)
+            reach = b
+    return total
+
+
+def profile_step(run, step_ms: float, card: str) -> None:
+    """One train step under `torch.profiler`: the card's kernel time by
+    group (the port's attention kernels, matrix products, the rest), the
+    largest kernels, and the card's idle share, read from this step's own
+    trace: the union of its kernels' intervals over the span from the
+    first kernel's start to the last one's end."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    # Device activity (kernels, copies, sets), less user annotations
+    # (AdamW's step is one), which span kernels already counted.
+    events = [e for e in prof.events()
+              if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    if not events:
+        print("profile: the profiler recorded no kernel on the card",
+              flush=True)
+        return
+    spans = [(e.time_range.start, e.time_range.end) for e in events]
+    span_ms = (max(b for _, b in spans) - min(a for a, _ in spans)) / 1e3
+    busy_ms = busy_union(spans) / 1e3
+    total = sum(b - a for a, b in spans) / 1e3
+    groups = {"attention (K1, K2, K3)": 0.0, "matrix products": 0.0,
+              "other": 0.0}
+    by_name = {}
+    for e, (a, b) in zip(events, spans):
+        name = e.name.lower()
+        if "flash_fwd" in name or "flash_bwd" in name:
+            group = "attention (K1, K2, K3)"
+        elif any(w in name for w in ("gemm", "xmma", "cutlass", "nvjet",
+                                     "cublas")):
+            group = "matrix products"
+        else:
+            group = "other"
+        groups[group] += (b - a) / 1e3
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + (b - a) / 1e3, n + 1)
+    print(f"profile train step: {len(events)} device activities "
+          f"({len(by_name)} distinct) sum to {total:.2f} ms; their union "
+          f"{busy_ms:.2f} ms over the {span_ms:.2f} ms from the first "
+          f"start to the last end, card idle share "
+          f"{1 - busy_ms / span_ms:.4f} (profiled step {host_ms:.2f} ms on "
+          f"the host clock, unprofiled {step_ms:.2f} ms); "
+          + "; ".join(f"{g} {ms:.2f} ms ({ms / total:.3f})"
+                      for g, ms in groups.items()) + f" [{card}]",
+          flush=True)
+    for kname, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]
+                                 )[:12]:
+        print(f"  {ms:9.3f} ms  x{n:<5d} {kname[:110]}", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -421,17 +875,33 @@ def main() -> int:
         phase_forward(params, cfg, card)
         launches = phase_engine(params, replace(cfg, dtype=torch.float32),
                                 card)
+        bwd_rows = phase_bwd_kernels(card, power_w)
+        train_cfg = replace(cfg, remat=True, remat_policy="save_attn_qkv")
+        phase_grad(params, train_cfg, card)
+        train_launches, _ = phase_train(params, train_cfg, card, power_w)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
     main_row = rows[MAIN_SHAPE]
+    shape, dtype, layout = MAIN_BWD_SHAPE
+    jax_site = "jax/experimental/pallas/ops/tpu/flash_attention.py"
+    bwd = [dict(name=f"flash_attn_bwd_{kname}", route="cuda",
+                source="ray_tpu_torch/kernels/csrc/flash_attn_bwd.cu",
+                replaces="ray_tpu/ops/attention.py:28",
+                pallas_call=f"{jax_site}:{line}", launches=n,
+                shape=list(shape), dtype=dtype, layout=layout,
+                **bwd_rows[(kname, shape, dtype, layout)])
+           for kname, line, n in (("dkv", 1121, train_launches[1]),
+                                  ("dq", 1456, train_launches[2]))]
     print(json.dumps({"kernels": [dict(
         name="flash_attn_fwd", route="cuda",
         source="ray_tpu_torch/kernels/csrc/flash_attn_fwd.cu",
-        replaces="ray_tpu/ops/attention.py:28", launches=launches,
+        replaces="ray_tpu/ops/attention.py:28",
+        pallas_call=f"{jax_site}:758", launches=launches,
+        train_launches=train_launches[0],
         shape=list(MAIN_SHAPE[0]), dtype=MAIN_SHAPE[1],
-        layout=MAIN_SHAPE[2], **main_row)]}))
+        layout=MAIN_SHAPE[2], **main_row)] + bwd}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

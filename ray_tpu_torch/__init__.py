@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of `ray_tpu`'s serving path, for NVIDIA Hopper.
+"""PyTorch/CUDA port of `ray_tpu`'s serving and training paths, for NVIDIA
+Hopper.
 
 The package mirrors `ray_tpu`'s layout so each module has an obvious
 counterpart (`ray_tpu_torch/ops/attention.py` <-> `ray_tpu/ops/attention.py`)

@@ -24,7 +24,8 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("_build")
-KERNELS = {"flash_attn_fwd": "flash_attn_fwd.cu"}
+KERNELS = {"flash_attn_fwd": "flash_attn_fwd.cu",
+           "flash_attn_bwd": "flash_attn_bwd.cu"}
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -1,11 +1,12 @@
-"""Wrapper of the causal flash-attention forward kernel
-(`csrc/flash_attn_fwd.cu`), the port of K1, the forward of the Pallas TPU
-kernel behind `ray_tpu.ops.attention.flash_attention_tpu`, and its plain
-PyTorch version.
+"""Wrappers of the causal flash-attention kernels and their plain PyTorch
+versions: the forward (`csrc/flash_attn_fwd.cu`, the port of K1) and the
+backward (`csrc/flash_attn_bwd.cu`: dK/dV, the port of K2, and dQ, the port
+of K3) of the Pallas TPU kernel behind
+`ray_tpu.ops.attention.flash_attention_tpu`.
 
-`flash_attn_fwd` checks its inputs, then launches the kernel for CUDA
-tensors or runs `flash_attn_fwd_plain` for CPU tensors. There is no other
-path: a CUDA tensor the kernel cannot take raises.
+Each wrapper checks its inputs, then launches its kernel for CUDA tensors
+or runs its plain version for CPU tensors. There is no other path: a CUDA
+tensor a kernel cannot take raises.
 """
 
 from __future__ import annotations
@@ -17,21 +18,25 @@ import torch
 
 from ray_tpu_torch.kernels import build
 
-# Kernel launches since the counter was last set to 0 (plain-version calls
-# on the CPU do not count).
+# Kernel launches since a counter was last set to 0 (plain-version calls
+# on the CPU do not count): K1, K2 (dK/dV) and K3 (dQ).
 launches = 0
+dkv_launches = 0
+dq_launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128)
 # Keys per tile of the kernel's online softmax (kBlockK in the source): the
 # running max, and so the scale at which p is rounded, moves per tile.
 BLOCK_K = 64
 _lib: Optional[ctypes.CDLL] = None
+_bwd_lib: Optional[ctypes.CDLL] = None
 
 
 def _library() -> ctypes.CDLL:
-    """The kernel's library with its C signatures declared (two threads
-    racing here declare the same signatures on the same library)."""
+    """The forward kernel's library with its C signatures declared (two
+    threads racing here declare the same signatures on the same
+    library)."""
     global _lib
     if _lib is None:
         lib = build.library("flash_attn_fwd")
@@ -45,6 +50,24 @@ def _library() -> ctypes.CDLL:
         lib.flash_attn_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def _bwd_library() -> ctypes.CDLL:
+    """The backward kernels' library with its C signatures declared."""
+    global _bwd_lib
+    if _bwd_lib is None:
+        lib = build.library("flash_attn_bwd")
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        head = [i32, ptr, ptr, ptr, ptr, ptr, ptr]     # dtype, q..di
+        tail = [i32, i32, i32, i32, ptr, ptr, ptr, ctypes.c_float, ptr]
+        lib.flash_attn_bwd_dkv.argtypes = head + [ptr, ptr] + tail
+        lib.flash_attn_bwd_dkv.restype = i32
+        lib.flash_attn_bwd_dq.argtypes = head + [ptr] + tail
+        lib.flash_attn_bwd_dq.restype = i32
+        lib.flash_attn_bwd_error_string.argtypes = [i32]
+        lib.flash_attn_bwd_error_string.restype = ctypes.c_char_p
+        _bwd_lib = lib
+    return _bwd_lib
 
 
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -64,8 +87,8 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k, v must be on one device")
     b, s, h, d = q.shape
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"head_dim {d} is not one of {_HEAD_DIMS}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head_dim {d} is not one of {HEAD_DIMS}")
     if s == 0 or s % 128:
         raise ValueError(f"sequence length {s} is not a positive multiple "
                          f"of 128")
@@ -91,6 +114,12 @@ def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _launch(q, k, v, return_lse)
 
 
+def _strides(t: torch.Tensor) -> ctypes.Array:
+    """t's (batch, seq, head) strides as a C int64[3]; a `c_void_p`
+    argument takes the array as its address."""
+    return (ctypes.c_int64 * 3)(t.stride(0), t.stride(1), t.stride(2))
+
+
 def _launch(q, k, v, return_lse):
     global launches
     lib = _library()
@@ -99,18 +128,13 @@ def _launch(q, k, v, return_lse):
     lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
            if return_lse else None)
 
-    def strides(t):
-        return (ctypes.c_int64 * 3)(t.stride(0), t.stride(1), t.stride(2))
-
-    qs, ks, vs = strides(q), strides(k), strides(v)
+    qs, ks, vs = _strides(q), _strides(k), _strides(v)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attn_fwd(
             _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             o.data_ptr(), None if lse is None else lse.data_ptr(),
-            b, s, h, d, ctypes.cast(qs, ctypes.c_void_p),
-            ctypes.cast(ks, ctypes.c_void_p),
-            ctypes.cast(vs, ctypes.c_void_p), d ** -0.5, stream)
+            b, s, h, d, qs, ks, vs, d ** -0.5, stream)
     if err:
         raise RuntimeError("flash_attn_fwd launch failed: "
                            + lib.flash_attn_error_string(err).decode())
@@ -144,3 +168,130 @@ def flash_attn_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = o / l.transpose(1, 2)[..., None]
     lse = m[..., -1] + torch.log(l) if return_lse else None
     return o.to(q.dtype).contiguous(), lse
+
+
+def check_bwd_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     do: torch.Tensor, lse: torch.Tensor,
+                     di: torch.Tensor) -> None:
+    """What the backward kernels take: q, k, v as `check_inputs` says; dO
+    contiguous, of q's shape, dtype and device; lse (the forward's row
+    logsumexp) and di (sum of o * dO over D) contiguous float32 [B, H, S]
+    on that device."""
+    check_inputs(q, k, v)
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device \
+            or not do.is_contiguous():
+        raise ValueError(f"dO must be a contiguous {tuple(q.shape)} "
+                         f"{q.dtype} tensor on {q.device}; got "
+                         f"{tuple(do.shape)} {do.dtype} on {do.device}")
+    b, s, h, _ = q.shape
+    for name, t in (("lse", lse), ("di", di)):
+        if t.shape != (b, h, s) or t.dtype != torch.float32 \
+                or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 "
+                             f"{(b, h, s)} tensor on {q.device}; got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def flash_attn_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       do: torch.Tensor, lse: torch.Tensor,
+                       di: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dK, dV) of causal flash attention, each [B, S, H, D] contiguous in
+    q's dtype: K2 for CUDA tensors, `flash_attn_bwd_dkv_plain` for CPU
+    ones."""
+    check_bwd_inputs(q, k, v, do, lse, di)
+    if q.device.type == "cpu":
+        return flash_attn_bwd_dkv_plain(q, k, v, do, lse, di)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash-attention kernel for {q.device}")
+    global dkv_launches
+    dk, dv = torch.empty_like(do), torch.empty_like(do)
+    _launch_bwd("flash_attn_bwd_dkv", q, k, v, do, lse, di, dk, dv)
+    dkv_launches += 1
+    return dk, dv
+
+
+def flash_attn_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      do: torch.Tensor, lse: torch.Tensor,
+                      di: torch.Tensor) -> torch.Tensor:
+    """dQ of causal flash attention, [B, S, H, D] contiguous in q's dtype:
+    K3 for CUDA tensors, `flash_attn_bwd_dq_plain` for CPU ones."""
+    check_bwd_inputs(q, k, v, do, lse, di)
+    if q.device.type == "cpu":
+        return flash_attn_bwd_dq_plain(q, k, v, do, lse, di)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash-attention kernel for {q.device}")
+    global dq_launches
+    dq = torch.empty_like(do)
+    _launch_bwd("flash_attn_bwd_dq", q, k, v, do, lse, di, dq)
+    dq_launches += 1
+    return dq
+
+
+def _launch_bwd(fn_name, q, k, v, do, lse, di, *outs):
+    lib = _bwd_library()
+    b, s, h, d = q.shape
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = getattr(lib, fn_name)(
+            _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), di.data_ptr(),
+            *(t.data_ptr() for t in outs), b, s, h, d, _strides(q),
+            _strides(k), _strides(v), d ** -0.5, stream)
+    if err:
+        raise RuntimeError(f"{fn_name} launch failed: "
+                           + lib.flash_attn_bwd_error_string(err).decode())
+
+
+def attention_di(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """di = sum over D of o * dO in float32, [B, H, S] contiguous: the one
+    reduction the TPU kernel's backward makes outside its kernels."""
+    return (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def flash_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dQ, dK, dV) of causal flash attention from the forward's inputs,
+    output and row logsumexp: di, then K2, then K3."""
+    di = attention_di(o, do)
+    dk, dv = flash_attn_bwd_dkv(q, k, v, do, lse, di)
+    return flash_attn_bwd_dq(q, k, v, do, lse, di), dk, dv
+
+
+def _bwd_plain_terms(q, k, v, do, lse, di):
+    """float32 [B, H, S, S] round(p) and round(ds) as the kernels make
+    them: p = exp(q.k * D^-1/2 - lse) under key <= query, ds = p * (dO.v -
+    di) * D^-1/2, each rounded to q's dtype (exact in float32)."""
+    s = q.shape[1]
+    scale = q.shape[-1] ** -0.5
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    p = torch.exp(scores - lse[..., None]).masked_fill(~mask, 0.0)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    ds = p * (dp - di[..., None]) * scale
+    return p.to(q.dtype).float(), ds.to(q.dtype).float()
+
+
+def flash_attn_bwd_dkv_plain(q, k, v, do, lse, di):
+    """K2's function in plain PyTorch: dV = round(p)^T dO and dK =
+    round(ds)^T q, accumulated in float32, in q's dtype, contiguous."""
+    p, ds = _bwd_plain_terms(q, k, v, do, lse, di)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    return dk.to(q.dtype).contiguous(), dv.to(q.dtype).contiguous()
+
+
+def flash_attn_bwd_dq_plain(q, k, v, do, lse, di):
+    """K3's function in plain PyTorch: dQ = round(ds) k, accumulated in
+    float32, in q's dtype, contiguous."""
+    _, ds = _bwd_plain_terms(q, k, v, do, lse, di)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float())
+    return dq.to(q.dtype).contiguous()
+
+
+def flash_attn_bwd_plain(q, k, v, o, do, lse):
+    """`flash_attn_bwd` with the kernels' plain versions, on any device."""
+    di = attention_di(o, do)
+    dk, dv = flash_attn_bwd_dkv_plain(q, k, v, do, lse, di)
+    return flash_attn_bwd_dq_plain(q, k, v, do, lse, di), dk, dv

@@ -3,38 +3,74 @@ flash-attention kernel.
 
 The dispatch rule is `ray_tpu/ops/attention.py`'s single-device half: causal
 attention over standard positions with a flash-eligible shape goes to the
-kernel (`kernels/flash_attn.py`), everything else to `plain_attention`.
-Eligibility looks at the shape only; the kernel's wrapper decides by the
-tensors' device (CUDA launches the kernel, CPU runs its plain version), so
-the CPU tests walk the same dispatch as the card.
+kernels (`kernels/flash_attn.py`), everything else to `plain_attention`.
+Eligibility looks at the shape only; the kernels' wrappers decide by the
+tensors' device (CUDA launches the kernels, CPU runs their plain versions),
+so the CPU tests walk the same dispatch as the card.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-from ray_tpu_torch.kernels.flash_attn import flash_attn_fwd
+from ray_tpu_torch.kernels.flash_attn import (HEAD_DIMS, flash_attn_bwd,
+                                              flash_attn_fwd)
 
 _NEG_INF = -1e30
+
+
+@torch.library.custom_op("ray_tpu_torch::flash_attn_fwd", mutates_args=())
+def _flash_attn_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 with its row logsumexp, as one operator of the dispatcher, so a
+    selective-checkpoint policy (`models/transformer.py`) can name it and
+    keep its outputs: a ctypes launch is invisible to the dispatcher."""
+    return flash_attn_fwd(q, k, v, return_lse=True)
+
+
+FLASH_FWD_OP = torch.ops.ray_tpu_torch.flash_attn_fwd.default
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: K1 (through `FLASH_FWD_OP`), saving q, k, v, o and the row
+    logsumexp. Backward: di, then K2 (dK, dV), then K3 (dQ), as the TPU
+    kernel's custom VJP runs them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        o, lse = FLASH_FWD_OP(q, k, v)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        return flash_attn_bwd(q, k, v, o, do.contiguous(), lse)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor) -> torch.Tensor:
     """Causal flash attention, q/k/v [B, S, H, D] -> [B, S, H, D] in q's
-    dtype. The counterpart of `ray_tpu.ops.attention.flash_attention_tpu`:
-    f32 scores, online softmax, probabilities cast to v's dtype before
-    P.V, f32 accumulation."""
-    o, _ = flash_attn_fwd(q, k, v)
-    return o
+    dtype, differentiable. The counterpart of
+    `ray_tpu.ops.attention.flash_attention_tpu`: f32 scores, online
+    softmax, probabilities cast to v's dtype before P.V, f32
+    accumulation; its backward rounds p and ds where the TPU kernel's
+    does. A call that needs no gradient (the serving engine's) launches K1
+    alone, without the logsumexp or the autograd function."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v)
+    return flash_attn_fwd(q, k, v)[0]
 
 
 def _flash_eligible(q: torch.Tensor) -> bool:
-    """The kernel's shape rule: a lane-aligned head_dim (a multiple of 128,
-    or 64) and a sequence that tiles by 128."""
+    """The JAX rule (a sequence that tiles by 128 and a lane-aligned
+    head_dim: a multiple of 128, or 64) cut to the head dims the kernels
+    take, `HEAD_DIMS`; other head dims go to plain attention."""
     s, d = q.shape[1], q.shape[3]
-    return (d % 128 == 0 or d == 64) and s % 128 == 0
+    return (d % 128 == 0 or d == 64) and d in HEAD_DIMS and s % 128 == 0
 
 
 def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -10,7 +10,8 @@ import pytest
 import torch
 
 from ray_tpu_torch.kernels import flash_attn
-from ray_tpu_torch.models import TransformerConfig, forward, init_params
+from ray_tpu_torch.models import (TransformerConfig, forward, init_params,
+                                  lm_loss)
 from ray_tpu_torch.serve.engine import TransformerEngineModel
 
 pytestmark = pytest.mark.gpu
@@ -88,3 +89,89 @@ def test_forward_and_engine_prefill_on_card_match_cpu(card):
     assert g_kv.device.type == "cuda"
     assert np.abs(g_logits - c_logits).max() <= 1e-3
     assert (g_kv.cpu() - c_kv).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("shape,dtype,layout,tol", [
+    ((2, 256, 3, 64), torch.float32, "contiguous", F32_TOL),
+    ((1, 384, 2, 128), torch.float32, "qkv", F32_TOL),
+    ((2, 256, 3, 128), torch.bfloat16, "contiguous", BF16_TOL),
+    ((1, 256, 4, 64), torch.bfloat16, "qkv", BF16_TOL),
+])
+def test_flash_bwd_kernels_match_plain(card, shape, dtype, layout, tol):
+    """K2 and K3 against `flash_attn_bwd_plain` on the same inputs; layout
+    "qkv" passes q, k, v as views of one [B, S, 3, H, D] tensor. Tolerance
+    relative to each output's largest element: float32 differs in
+    summation order; bf16 also in a rare flipped rounding of p or ds."""
+    gen = torch.Generator(device=card).manual_seed(2)
+    if layout == "qkv":
+        b, s, h, d = shape
+        q, k, v = torch.randn((b, s, 3, h, d), generator=gen,
+                              device=card).to(dtype).unbind(2)
+    else:
+        q, k, v = (torch.randn(shape, generator=gen, device=card).to(dtype)
+                   for _ in range(3))
+    do = torch.randn(shape, generator=gen, device=card).to(dtype)
+    o, lse = flash_attn.flash_attn_fwd(q, k, v, return_lse=True)
+    before = (flash_attn.dkv_launches, flash_attn.dq_launches)
+    got = flash_attn.flash_attn_bwd(q, k, v, o, do, lse)
+    torch.cuda.synchronize()
+    assert (flash_attn.dkv_launches, flash_attn.dq_launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = flash_attn.flash_attn_bwd_plain(q, k, v, o, do, lse)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == dtype and g.is_contiguous() and g.shape == shape
+        w = w.float()
+        err = (g.float() - w).abs().max().item()
+        assert err <= tol * (1 + w.abs().max().item()), (name, err)
+
+
+def test_flash_bwd_kernels_reject_what_they_cannot_take(card):
+    x = torch.zeros((1, 128, 2, 256), device=card)
+    lse = torch.zeros((1, 2, 128), device=card)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attn.flash_attn_bwd_dkv(x, x, x, x, lse, lse)
+    y = torch.zeros((1, 128, 2, 66), device=card)[..., 1:65]
+    do = torch.zeros((1, 128, 2, 64), device=card)
+    with pytest.raises(ValueError, match="strides"):
+        flash_attn.flash_attn_bwd_dq(y, y, y, do, lse, lse)
+    q = torch.zeros((1, 128, 2, 64), device=card)
+    with pytest.raises(ValueError, match="dO"):
+        flash_attn.flash_attn_bwd_dq(q, q, q, do.transpose(1, 2)
+                                     .contiguous().transpose(1, 2), lse, lse)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attn.flash_attn_bwd_dkv(q, q, q, do, lse.cpu(), lse)
+
+
+def test_lm_loss_grads_on_card_match_cpu(card):
+    """A small model's loss gradients through K1, K2 and K3 on the card
+    (remat, save_attn_qkv) against the same weights on the CPU (the
+    kernels' plain versions), in float32."""
+    cfg = TransformerConfig(vocab_size=64, d_model=128, n_layers=2,
+                            n_heads=1, d_ff=256, max_seq_len=256,
+                            dtype=torch.float32, remat=True,
+                            remat_policy="save_attn_qkv")
+    cpu = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gpu = {"embed": cpu["embed"].to(card), "ln_f": cpu["ln_f"].to(card),
+           "layers": [{k: t.to(card) for k, t in lp.items()}
+                      for lp in cpu["layers"]]}
+    batch = {"tokens": np.random.default_rng(1).integers(0, 64, (2, 257))}
+
+    def grads(params, device):
+        leaves = [params["embed"], params["ln_f"]] + [
+            t for lp in params["layers"] for t in lp.values()]
+        for t in leaves:
+            t.requires_grad_(True)
+        loss = lm_loss(params, batch, cfg, device=device)
+        return loss, torch.autograd.grad(loss, leaves)
+
+    counts = (flash_attn.launches, flash_attn.dkv_launches,
+              flash_attn.dq_launches)
+    g_loss, g_grads = grads(gpu, card)
+    assert (flash_attn.launches, flash_attn.dkv_launches,
+            flash_attn.dq_launches) == tuple(
+                c + cfg.n_layers for c in counts)
+    c_loss, c_grads = grads(cpu, "cpu")
+    assert abs(g_loss.item() - c_loss.item()) <= 1e-4 * c_loss.item()
+    for g, c in zip(g_grads, c_grads):
+        assert (g.cpu() - c).abs().max().item() <= \
+            1e-3 * c.abs().max().item()

@@ -9,6 +9,7 @@ kernel itself is tested on the card by `tests/test_torch_gpu.py`.
 
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -112,6 +113,43 @@ def test_flash_attention_matches_pallas_kernel(shape, dtype):
     np.testing.assert_allclose(got.float().numpy(), want, atol=tol)
 
 
+@pytest.mark.parametrize("shape,dtype", [
+    ((1, 256, 2, 128), "float32"),
+    ((1, 256, 2, 128), "bfloat16"),
+    ((1, 256, 2, 64), "float32"),
+])
+def test_flash_attention_grads_match_pallas_kernel(shape, dtype):
+    """dq, dk, dv of the port's flash attention (its autograd function,
+    whose backward runs K2's and K3's plain versions on the CPU) against
+    the VJP of the Pallas TPU kernel in interpret mode. bf16: both sides
+    round p and ds to bf16 before the products, but the forwards round p at
+    different running maxima (JAX's one 256-key block, the port's 64-key
+    tiles), which moves o, and through di the gradients, by an ulp or two
+    (2^-7 relative each)."""
+    rng = np.random.default_rng(7)
+    q, k, v, do = (rng.standard_normal(shape).astype(np.float32)
+                   for _ in range(4))
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(jax_attention.flash_attention_tpu,
+                         *(jnp.asarray(a, jdt) for a in (q, k, v)))
+        want = vjp(jnp.asarray(do, jdt))
+    ts = [_t(a, tdt).requires_grad_() for a in (q, k, v)]
+    before = (flash_attn.dkv_launches, flash_attn.dq_launches)
+    torch_attention.flash_attention(*ts).backward(_t(do, tdt))
+    assert (flash_attn.dkv_launches, flash_attn.dq_launches) == before
+    for name, t, w in zip("qkv", ts, want):
+        assert t.grad.dtype == tdt
+        w = np.asarray(w.astype(jnp.float32))
+        if dtype == "float32":
+            np.testing.assert_allclose(t.grad.numpy(), w, atol=F32_TOL,
+                                       rtol=F32_TOL, err_msg=name)
+        else:
+            np.testing.assert_allclose(t.grad.float().numpy(), w,
+                                       atol=BF16_TOL, rtol=BF16_TOL,
+                                       err_msg=name)
+
+
 def test_flash_plain_logsumexp():
     q, k, v = _qkv(4, (2, 128, 2, 64))
     o, lse = flash_attn.flash_attn_fwd(_t(q), _t(k), _t(v), return_lse=True)
@@ -130,13 +168,15 @@ def test_flash_plain_logsumexp():
     (128, 64), (128, 128), (256, 256), (384, 128), (128, 96), (100, 128),
     (64, 64), (128, 32), (512, 192)])
 def test_flash_eligible_matches_jax_rule(s, d, monkeypatch):
-    """The port's eligibility is the JAX rule on shapes; the JAX rule
-    also asks for a TPU backend, which is taken as present here."""
+    """The port's eligibility is the JAX rule on shapes (which also asks
+    for a TPU backend, taken as present here), cut to the head dims the
+    port's kernels take: at (256, 256) JAX admits its kernel and the port
+    sends the shape to plain attention."""
     monkeypatch.setattr(jax_attention.jax, "default_backend",
                         lambda: "tpu")
     x = np.zeros((1, s, 2, d), np.float32)
-    assert torch_attention._flash_eligible(torch.from_numpy(x)) == \
-        jax_attention._flash_eligible(x)
+    assert torch_attention._flash_eligible(torch.from_numpy(x)) == (
+        jax_attention._flash_eligible(x) and d in flash_attn.HEAD_DIMS)
 
 
 def test_attention_dispatch_routes_like_jax(monkeypatch):
@@ -178,3 +218,27 @@ def test_flash_wrapper_rejects_what_the_kernel_cannot_take():
     o, _ = flash_attn.flash_attn_fwd(qkv[:, :, 0], qkv[:, :, 1],
                                      qkv[:, :, 2])
     assert o.shape == (1, 128, 2, 64) and o.is_contiguous()
+
+
+def test_flash_bwd_wrappers_reject_what_the_kernels_cannot_take():
+    q, k, v = (_t(a) for a in _qkv(8, (1, 128, 2, 64)))
+    do = torch.ones_like(q)
+    lse = torch.zeros(1, 2, 128)
+    for fn in (flash_attn.flash_attn_bwd_dkv, flash_attn.flash_attn_bwd_dq):
+        with pytest.raises(ValueError, match="head_dim"):
+            x = torch.zeros(1, 128, 2, 256)
+            fn(x, x, x, x, lse, lse)
+        with pytest.raises(ValueError, match="dO"):
+            fn(q, k, v, do.transpose(1, 2).contiguous().transpose(1, 2),
+               lse, lse)
+        with pytest.raises(ValueError, match="dO"):
+            fn(q, k, v, do.double(), lse, lse)
+        with pytest.raises(ValueError, match="lse"):
+            fn(q, k, v, do, lse.transpose(1, 2), lse)
+        with pytest.raises(ValueError, match="di"):
+            fn(q, k, v, do, lse, lse.double())
+    # q, k, v as views of a fused QKV projection are taken as they are.
+    qkv = torch.randn(1, 128, 3, 2, 64)
+    dk, dv = flash_attn.flash_attn_bwd_dkv(*qkv.unbind(2), do, lse, lse)
+    dq = flash_attn.flash_attn_bwd_dq(*qkv.unbind(2), do, lse, lse)
+    assert dq.is_contiguous() and dk.is_contiguous() and dv.is_contiguous()

@@ -9,7 +9,10 @@ result line:
 1. device: the card's name, and its name and power limit as nvidia-smi
    reports them;
 2. build: every kernel of the port compiled from `ray_tpu_torch/kernels/csrc`
-   (one nvcc per source, all at once), with the build seconds;
+   (one nvcc per source, all at once), with the build seconds, ptxas's
+   register, spill and advisory lines, and the tensor-core instructions
+   (HGMMA, HMMA) in each backward kernel's SASS; a bf16 backward kernel
+   with neither fails;
 3. kernels: each kernel against its plain PyTorch version on the card at the
    shapes the serving path gives it, with the error against the stated
    tolerance, the kernel's time (CUDA events), the plain version's time, one
@@ -25,9 +28,11 @@ result line:
    launched by the prefills, and each request's prefill logits, first token
    and greedy continuation are held against a no-cache float32 forward.
 6. backward kernels: K2 (dK, dV) and K3 (dQ) against their plain versions
-   at the shapes the train step gives them and a few more, with error,
-   time, plain time, bound and, as a yardstick for the pair, the backward
-   of one `scaled_dot_product_attention` call;
+   at the shapes the train step gives them and a few more (a ragged block
+   count, D 64 at the train shape, a peaked softmax), with error, time,
+   achieved TFLOP/s, plain time, bound and, as a yardstick for the pair,
+   the backward of one `scaled_dot_product_attention` call; two launches
+   on the same inputs must give bitwise-equal dQ, dK and dV;
 7. gradients: `lm_loss` gradients at the flagship width (bf16, 2 x 1024
    tokens) through the kernels and through plain attention, each against a
    float32 plain-attention reference; the kernel path must be about as
@@ -96,19 +101,28 @@ KERNEL_SHAPES = [
     ((1, 1024, 12, 128), "bfloat16", "contiguous"),
     ((4, 1024, 12, 128), "bfloat16", "contiguous"),
     ((1, 256, 12, 64), "bfloat16", "contiguous"),
+    ((16, 1024, 12, 128), "bfloat16", "qkv"),   # the train step's K1
 ]
-# The engine's largest bucket.
+# The engine's largest bucket, and the train step's shape.
 MAIN_SHAPE = ((1, 1024, 12, 128), "float32", "contiguous")
-# K2 and K3: the train step's shape (bf16, bench.py's batch; q and k come
-# out of the rotary embedding, v is a view of the fused QKV projection, so
-# "qkv" is the stricter layout), the serving width in both types, and D 64.
+TRAIN_SHAPE = ((16, 1024, 12, 128), "bfloat16", "qkv")
+# K2 and K3: (shape, dtype, layout, factor on q and k). The train step's
+# shape (bf16, bench.py's batch; q and k come out of the rotary embedding,
+# v is a view of the fused QKV projection, so "qkv" is the stricter
+# layout), the serving width in both types, D 64, a ragged block count (S
+# 384: three 128-row blocks, six 64-row tiles), D 64 at the train shape,
+# and q and k scaled by 4, whose peaked softmax puts p near 1 and 0 on and
+# off the diagonal, where the mask and the rounding of p act.
 BWD_SHAPES = [
-    ((1, 1024, 12, 128), "float32", "contiguous"),
-    ((1, 1024, 12, 128), "bfloat16", "contiguous"),
-    ((16, 1024, 12, 128), "bfloat16", "qkv"),
-    ((1, 1024, 12, 64), "bfloat16", "contiguous"),
+    ((1, 1024, 12, 128), "float32", "contiguous", 1.0),
+    ((1, 1024, 12, 128), "bfloat16", "contiguous", 1.0),
+    ((16, 1024, 12, 128), "bfloat16", "qkv", 1.0),
+    ((1, 1024, 12, 64), "bfloat16", "contiguous", 1.0),
+    ((2, 384, 3, 128), "bfloat16", "contiguous", 1.0),
+    ((16, 1024, 12, 64), "bfloat16", "qkv", 1.0),
+    ((4, 1024, 12, 128), "bfloat16", "qkv", 4.0),
 ]
-MAIN_BWD_SHAPE = ((16, 1024, 12, 128), "bfloat16", "qkv")
+MAIN_BWD_SHAPE = ((16, 1024, 12, 128), "bfloat16", "qkv", 1.0)
 # K2/K3 against their plain versions, (atol, rtol) plus, in bf16,
 # `bwd_flip_bound`. float32: summation order only. bf16: both sides round p
 # and ds where the TPU kernel does, so they differ by float32 noise, which
@@ -148,6 +162,28 @@ def smi() -> str:
     if out.returncode != 0:
         raise PhaseError(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def sass_mma_counts(library) -> dict:
+    """{kernel function: (HGMMA, HMMA)}: the tensor-core instructions
+    (wgmma, mma.sync) in each function's SASS in a built library, read
+    with the toolkit's cuobjdump."""
+    from ray_tpu_torch.kernels import build
+
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                         text=True, timeout=300)
+    if out.returncode != 0:
+        raise PhaseError(f"cuobjdump failed: {out.stderr.strip()}")
+    counts, fn = {}, None
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = [0, 0]
+        elif fn is not None:
+            counts[fn][0] += "HGMMA" in line
+            counts[fn][1] += " HMMA" in line
+    return {f: tuple(c) for f, c in counts.items()}
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -415,10 +451,10 @@ def phase_engine(params, cfg, card: str):
 
 
 def bwd_bounds(shape, dtype: str, power_w: float):
-    """{kernel: (bound_ms, bound_ms at the power limit, what sets it)} for
-    K2 (4 B H S (S+1) D operations; q, k, v, dO read, dk, dv written, plus
-    lse and di in float32) and K3 (3 B H S (S+1) D; q, k, v, dO read, dq
-    written, plus lse and di)."""
+    """{kernel: (bound_ms, bound_ms at the power limit, what sets it,
+    operations)} for K2 (4 B H S (S+1) D operations; q, k, v, dO read, dk,
+    dv written, plus lse and di in float32) and K3 (3 B H S (S+1) D; q, k,
+    v, dO read, dq written, plus lse and di)."""
     b, s, h, d = shape
     esize = 4 if dtype == "float32" else 2
     derate = max(1.0, FULL_POWER_W / power_w) if power_w > 0 else 1.0
@@ -429,7 +465,7 @@ def bwd_bounds(shape, dtype: str, power_w: float):
         t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
         bound = max(t_ops, t_bytes) * 1e3
         out[name] = (bound, bound * derate,
-                     "operations" if t_ops >= t_bytes else "bytes")
+                     "operations" if t_ops >= t_bytes else "bytes", flops)
     return out
 
 
@@ -498,23 +534,35 @@ def phase_bwd_kernels(card: str, power_w: float):
     from ray_tpu_torch.kernels import flash_attn
 
     rows = {}
-    for shape, dtype, layout in BWD_SHAPES:
+    for i_row, (shape, dtype, layout, qk_scale) in enumerate(BWD_SHAPES):
         dt = getattr(torch, dtype)
-        gen = torch.Generator(device="cuda").manual_seed(100 + len(rows))
+        gen = torch.Generator(device="cuda").manual_seed(100 + 2 * i_row)
         b, s, h, d = shape
         if layout == "qkv":
-            q, k, v = torch.randn((b, s, 3, h, d), generator=gen,
-                                  device="cuda").to(dt).unbind(2)
+            qkv = torch.randn((b, s, 3, h, d), generator=gen, device="cuda")
+            qkv[:, :, :2] *= qk_scale
+            q, k, v = qkv.to(dt).unbind(2)
+            del qkv
         else:
-            q, k, v = (torch.randn(shape, generator=gen,
-                                   device="cuda").to(dt)
+            q, k, v = (torch.randn(shape, generator=gen, device="cuda")
                        for _ in range(3))
+            q, k, v = ((q * qk_scale).to(dt), (k * qk_scale).to(dt),
+                       v.to(dt))
         do = torch.randn(shape, generator=gen, device="cuda").to(dt)
         o, lse = flash_attn.flash_attn_fwd(q, k, v, return_lse=True)
         di = flash_attn.attention_di(o, do)
         dk, dv = flash_attn.flash_attn_bwd_dkv(q, k, v, do, lse, di)
         dq = flash_attn.flash_attn_bwd_dq(q, k, v, do, lse, di)
+        dk2, dv2 = flash_attn.flash_attn_bwd_dkv(q, k, v, do, lse, di)
+        dq2 = flash_attn.flash_attn_bwd_dq(q, k, v, do, lse, di)
         torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in ((dq, dq2), (dk, dk2),
+                                                   (dv, dv2)))
+        del dq2, dk2, dv2
+        tag = f"{dtype} {list(shape)} {layout}" + (
+            f" q,k x{qk_scale:g}" if qk_scale != 1.0 else "")
+        check(same, f"flash_attn_bwd {tag}: two launches on the same "
+                    f"inputs differ")
         errs = bwd_errors(q, k, v, do, lse, di, dq, dk, dv)
         atol, rtol = BWD_TOL[dtype]
         bounds = bwd_bounds(shape, dtype, power_w)
@@ -539,31 +587,33 @@ def phase_bwd_kernels(card: str, power_w: float):
         for kname, parts in (("dkv", ("dk", "dv")), ("dq", ("dq",))):
             err = max(errs[p][0] for p in parts)
             worst = max(errs[p][1] for p in parts)
-            bound, derated, bound_by = bounds[kname]
-            rows[(kname, shape, dtype, layout)] = dict(
+            bound, derated, bound_by, flops = bounds[kname]
+            tflops = flops / times[kname] / 1e9
+            rows[(kname, shape, dtype, layout, qk_scale)] = dict(
                 max_abs_err=err, ms=times[kname], plain_ms=plain[kname],
                 bound_ms=bound, bound_ms_at_power_limit=derated,
                 bound_by=bound_by, library_ms=library_ms,
-                worst_diff_over_tol=worst)
+                achieved_tflops=tflops, worst_diff_over_tol=worst)
             note = ""
             if dtype == "bfloat16":
                 note = (f" + {BWD_FLIPS_PER_ROW} x bwd_flip_bound; without "
                         f"it: worst diff/tol "
                         f"{max(errs[p][2] for p in parts):.3f}")
-            print(f"kernel flash_attn_bwd_{kname} {dtype} {list(shape)} "
-                  f"{layout}: max_abs_err {err:.3e} (tol {atol:g} + "
-                  f"{rtol:g}|ref|{note}; worst diff/tol {worst:.3f}) "
-                  f"kernel_ms {times[kname]:.4f} plain_ms "
+            print(f"kernel flash_attn_bwd_{kname} {tag}: max_abs_err "
+                  f"{err:.3e} (tol {atol:g} + "
+                  f"{rtol:g}|ref|{note}; worst diff/tol {worst:.3f}; "
+                  f"bitwise-equal over two launches) "
+                  f"kernel_ms {times[kname]:.4f} achieved_tflops "
+                  f"{tflops:.1f} plain_ms "
                   f"{plain[kname]:.4f} library_ms (SDPA backward, K2+K3 "
                   f"pair) {library_ms:.4f} bound_us {bound * 1e3:.2f} "
                   f"({bound_by}; {derated * 1e3:.2f} at the power limit) "
                   f"[{card}]", flush=True)
-            check(worst <= 1, f"flash_attn_bwd_{kname} {dtype} "
-                  f"{list(shape)} {layout} disagrees with its plain "
-                  f"version: max_abs_err {err:.3e}, worst diff/tol "
-                  f"{worst:.3f}")
-        print(f"kernel flash_attn_bwd K2+K3 {dtype} {list(shape)} {layout}:"
-              f" kernels_ms {times['dkv'] + times['dq']:.4f} library_ms "
+            check(worst <= 1, f"flash_attn_bwd_{kname} {tag} disagrees "
+                  f"with its plain version: max_abs_err {err:.3e}, worst "
+                  f"diff/tol {worst:.3f}")
+        print(f"kernel flash_attn_bwd K2+K3 {tag}: kernels_ms "
+              f"{times['dkv'] + times['dq']:.4f} library_ms "
               f"{library_ms:.4f} [{card}]", flush=True)
         del q, k, v, do, o, lse, di, dk, dv, dq, qt, kt, vt, dot
         torch.cuda.empty_cache()
@@ -864,8 +914,16 @@ def main() -> int:
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         for kname, info in build.build_log.items():
             for line in info["log"].splitlines():
-                if "registers" in line or "spill" in line:
+                if "registers" in line or "spill" in line or "(C75" in line:
                     print(f"  ptxas {kname}: {line.strip()}")
+        counts = sass_mma_counts(build.build()["flash_attn_bwd"])
+        tc = {f: c for f, c in counts.items()
+              if "flash_bwd_dkv_tc" in f or "flash_bwd_dq_tc" in f}
+        for fn, (hgmma, hmma) in sorted(counts.items()):
+            print(f"  sass flash_attn_bwd {fn}: HGMMA {hgmma} HMMA {hmma}")
+        check(len(tc) == 4 and all(sum(c) > 0 for c in tc.values()),
+              f"the bf16 backward kernels are not all on the tensor "
+              f"cores: {tc}")
 
         rows = phase_kernels(card, power_w)
 
@@ -884,14 +942,14 @@ def main() -> int:
         return 1
 
     main_row = rows[MAIN_SHAPE]
-    shape, dtype, layout = MAIN_BWD_SHAPE
+    shape, dtype, layout, qk_scale = MAIN_BWD_SHAPE
     jax_site = "jax/experimental/pallas/ops/tpu/flash_attention.py"
     bwd = [dict(name=f"flash_attn_bwd_{kname}", route="cuda",
                 source="ray_tpu_torch/kernels/csrc/flash_attn_bwd.cu",
                 replaces="ray_tpu/ops/attention.py:28",
                 pallas_call=f"{jax_site}:{line}", launches=n,
                 shape=list(shape), dtype=dtype, layout=layout,
-                **bwd_rows[(kname, shape, dtype, layout)])
+                **bwd_rows[(kname, shape, dtype, layout, qk_scale)])
            for kname, line, n in (("dkv", 1121, train_launches[1]),
                                   ("dq", 1456, train_launches[2]))]
     print(json.dumps({"kernels": [dict(
@@ -901,7 +959,10 @@ def main() -> int:
         pallas_call=f"{jax_site}:758", launches=launches,
         train_launches=train_launches[0],
         shape=list(MAIN_SHAPE[0]), dtype=MAIN_SHAPE[1],
-        layout=MAIN_SHAPE[2], **main_row)] + bwd}))
+        layout=MAIN_SHAPE[2], **main_row,
+        at_train_shape=dict(shape=list(TRAIN_SHAPE[0]),
+                            dtype=TRAIN_SHAPE[1], layout=TRAIN_SHAPE[2],
+                            **rows[TRAIN_SHAPE]))] + bwd}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,11 +1,13 @@
-// Causal flash-attention backward for Hopper (sm_90a), f32 and bf16 inputs:
-// two kernels, dK/dV and dQ.
+// Causal flash-attention backward for Hopper (sm_90a): two kernels, dK/dV
+// and dQ, each in two designs, one per input type.
 //
 // Replaces: the backward of ray_tpu/ops/attention.py:flash_attention_tpu,
 // which is the Pallas TPU MHA kernel shipped with JAX
 // (jax/experimental/pallas/ops/tpu/flash_attention.py):
-//   flash_bwd_dkv_kernel <- _flash_attention_bwd_dkv (_flash_attention_dkv_kernel)
-//   flash_bwd_dq_kernel  <- _flash_attention_bwd_dq  (_flash_attention_dq_kernel)
+//   dK/dV (flash_bwd_dkv_tc, flash_bwd_dkv_f32) <- _flash_attention_bwd_dkv
+//                                                  (_flash_attention_dkv_kernel)
+//   dQ    (flash_bwd_dq_tc,  flash_bwd_dq_f32)  <- _flash_attention_bwd_dq
+//                                                  (_flash_attention_dq_kernel)
 // Both recompute, tile by tile, what the forward never wrote to memory:
 //   p  = exp(q.k * scale - lse)              (key <= query, else 0)
 //   dp = dO.v
@@ -23,88 +25,81 @@
 // dimension contiguous), so views of a fused QKV projection go in without
 // copies; dO is a contiguous [B, S, H, D]; lse and di are contiguous
 // [B, H, S] float32; dq, dk, dv are written contiguous [B, S, H, D] in the
-// input type.
+// input type. One block owns the rows it writes, so nothing is reduced
+// across blocks, there are no atomics and the result is bitwise the same
+// from launch to launch; q.k and dO.v are computed in both kernels, as on
+// the TPU.
 //
-// Design: blocks of 256 threads over 64-row tiles, one block owning the rows
-// it writes, so nothing is reduced across blocks and no atomics are needed.
-// - dK/dV: one block per (k tile, head, batch). It keeps its K and V tiles
-//   in shared memory and dK, dV in registers, and loops over the q tiles at
-//   and below the diagonal (query >= key). Blocks with the most q tiles
-//   (k tile 0) are issued first.
-// - dQ: one block per (q tile, head, batch). It keeps Q, dO, lse and di and
-//   dQ in registers, and loops over the k tiles up to the diagonal; ds
-//   reuses the V tile's shared memory once dO.v is done. The last q tile
-//   (the most work) is issued first.
-// Thread (ty, tx) of a 16 x 16 grid computes the score and dp elements
-// (rows ty + 16 i, columns tx + 16 j; i, j < 4) of each 64 x 64 tile, and
-// owns output rows ty + 16 i, columns tx*4 + 64 jj .. +3, as in
-// flash_attn_fwd.cu. Tiles are staged in shared memory as float32.
-//
-// What bounds it on an H100: dK/dV does four products of the causal
+// What bounds them on an H100: dK/dV does four products of the causal
 // triangle (q.k, dO.v, p^T dO, ds^T q), about 4 B H S (S+1) D operations,
 // against q, k, v, dO read and dk, dv written (6 B S H D elements); dQ does
 // three (q.k, dO.v, ds k), 3 B H S (S+1) D, against 5 B S H D elements. At
-// S = 1024, D = 128 that is several hundred operations per byte, so the bound
-// is the arithmetic rate: 67 TFLOP/s in float32 on the CUDA cores, 989
-// TFLOP/s in bf16 on the tensor cores.
+// S = 1024, D = 128 that is several hundred operations per byte, so both are
+// bound by the arithmetic rate: 989 TFLOP/s in bf16 on the tensor cores, 67
+// TFLOP/s in float32 on the CUDA cores.
 //
-// What this simple design leaves on the table: every product runs as scalar
-// float32 FMAs on the CUDA cores (bf16 included, so bf16 is held to the
-// float32 rate; mma.sync or wgmma on the tensor cores is the way to its
-// bound); plain loads with no copy/compute overlap (cp.async or TMA); the
-// dK/dV block needs 170 KB of shared memory at D 128, so one block (8 warps)
-// runs per SM; q.k and dO.v are computed twice, once by each kernel.
+// bf16: flash_bwd_dkv_tc and flash_bwd_dq_tc, on the tensor cores.
+// - Every product is a warpgroup MMA (wgmma m64n64k16, bf16 in, float32
+//   sums). Two warpgroups (256 threads) a block, each owning 64 rows of the
+//   block's 128; 255 registers a thread are allowed, so the float32 sums
+//   (dK and dV, or dQ) stay in registers for the whole loop.
+// - Tiles come into shared memory by TMA (cp.async.bulk.tensor) in 64-column
+//   slabs of 128-byte rows with the 128-byte swizzle, which is the layout the
+//   wgmma shared-memory descriptors read. The tensor maps are built on the
+//   host for each launch over (D, H, S, B) with the tensor's own strides,
+//   so the fused-QKV views need no copy (strides must be multiples of 16
+//   bytes; the wrapper checks). The streamed tiles go through a ring of two
+//   stages under mbarriers: thread 0 refills a stage as soon as both
+//   warpgroups have released it, so the next tile's copy overlaps this
+//   tile's products.
+// - dK/dV: a block per (head, batch, 128-key tile), k tile 0 (the most work)
+//   issued first. K and V stay resident; the 64-row q tiles from the
+//   diagonal down stream in with their lse and di. Each warpgroup computes
+//   S^T = K Q^T and dP^T = V dO^T directly (A = K or V, B = Q or dO, both
+//   from shared memory), forms p^T and ds^T in registers (the causal mask
+//   falls on the accumulator's own (row, column)), and rounds them to bf16
+//   in place as the register A operand of dV += P^T dO and dK += dS^T Q (B =
+//   dO or Q from shared memory, read transposed by the descriptor). So no
+//   tile is ever transposed through shared memory.
+// - dQ: a block per (head, batch, 128-query tile), the last q tile issued
+//   first. Q and dO stay resident, lse and di in registers; 64-key K and V
+//   tiles stream in. S = Q K^T and dP = dO V^T from shared memory, ds in
+//   registers, then dQ += dS K with dS as the register A operand and K read
+//   transposed. dP is summed as two chains of k-steps added in float32,
+//   which keeps its error at float32 FMA's (see the loop).
+// - dQ computes p while dP's products run (committed as a group of their
+//   own); the same overlap in dK/dV measured no faster, so it waits once.
+// - A warpgroup skips a tile whose every (key, query) is masked.
+// float32: flash_bwd_dkv_f32 and flash_bwd_dq_f32, on the CUDA cores (the
+// tensor cores take float32 only as TF32, which keeps 10 mantissa bits: too
+// few for the float32 path's 1e-4 tolerance). Blocks of 256 threads over
+// 64-row tiles staged in shared memory; thread (ty, tx) of a 16 x 16 grid
+// computes the score and dp elements (rows ty + 16 i, columns tx + 16 j;
+// i, j < 4) of each 64 x 64 tile with scalar FMAs, and owns output rows
+// ty + 16 i, columns tx*4 + 64 jj .. +3. The dK/dV block keeps K, V and the
+// transposed p and ds tiles in 170 KB of shared memory at D 128, so one
+// block runs per SM; loads are synchronous.
 
+#include <cuda.h>  // CUtensorMap and its enums; libcuda is found at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <dlfcn.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
+// ---------------------------------------------------------------------------
+// float32: the CUDA-core kernels.
+
 constexpr int kBlock = 64;     // rows of a q tile and of a k tile
 constexpr int kThreads = 256;
 constexpr int kLdT = kBlock + 4;  // row stride of a 64 x 64 tile in shared
 
-template <typename T>
-struct Vec4;
-
-template <>
-struct Vec4<float> {
-  static __device__ __forceinline__ float4 load(const float* p) {
-    return *reinterpret_cast<const float4*>(p);
-  }
-  static __device__ __forceinline__ void store(float* p, float4 x) {
-    *reinterpret_cast<float4*>(p) = x;
-  }
-  static __device__ __forceinline__ float round(float x) { return x; }
-};
-
-template <>
-struct Vec4<__nv_bfloat16> {
-  static __device__ __forceinline__ float4 load(const __nv_bfloat16* p) {
-    uint2 raw = *reinterpret_cast<const uint2*>(p);
-    float2 a = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&raw.x));
-    float2 b = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&raw.y));
-    return make_float4(a.x, a.y, b.x, b.y);
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p, float4 x) {
-    __nv_bfloat162 a = __floats2bfloat162_rn(x.x, x.y);
-    __nv_bfloat162 b = __floats2bfloat162_rn(x.z, x.w);
-    uint2 raw;
-    raw.x = *reinterpret_cast<uint32_t*>(&a);
-    raw.y = *reinterpret_cast<uint32_t*>(&b);
-    *reinterpret_cast<uint2*>(p) = raw;
-  }
-  static __device__ __forceinline__ float round(float x) {
-    return __bfloat162float(__float2bfloat16(x));
-  }
-};
-
-// Copy 64 rows of D elements (row stride `rs` elements) into shared memory
-// as float32 rows of stride LD.
-template <typename T, int D, int LD>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
+// Copy 64 rows of D floats (row stride `rs` elements) into shared memory as
+// rows of stride LD.
+template <int D, int LD>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           int64_t rs, int tid) {
   constexpr int kChunks = D / 4;
 #pragma unroll 4
@@ -112,7 +107,7 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src,
     const int r = i / kChunks;
     const int c = (i % kChunks) * 4;
     *reinterpret_cast<float4*>(dst + r * LD + c) =
-        Vec4<T>::load(src + r * rs + c);
+        *reinterpret_cast<const float4*>(src + r * rs + c);
   }
 }
 
@@ -183,18 +178,18 @@ __device__ __forceinline__ void tile_accumulate(const float* P, const float* X,
 
 // Rows ty + 16 i of a tile starting at row `r0` of a contiguous [B, S, H, D]
 // output, columns tx*4 + 64 jj .. +3.
-template <typename T, int D>
-__device__ __forceinline__ void store_rows(T* out, int b, int h, int S, int H,
-                                           int r0, int ty, int tx,
+template <int D>
+__device__ __forceinline__ void store_rows(float* out, int b, int h, int S,
+                                           int H, int r0, int ty, int tx,
                                            const float acc[4][D / 16]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    T* row = out + ((int64_t(b) * S + r0 + ty + 16 * i) * H + h) * D;
+    float* row = out + ((int64_t(b) * S + r0 + ty + 16 * i) * H + h) * D;
 #pragma unroll
     for (int jj = 0; jj < D / 64; ++jj)
-      Vec4<T>::store(row + jj * 64 + tx * 4,
-                     make_float4(acc[i][jj * 4 + 0], acc[i][jj * 4 + 1],
-                                 acc[i][jj * 4 + 2], acc[i][jj * 4 + 3]));
+      *reinterpret_cast<float4*>(row + jj * 64 + tx * 4) =
+          make_float4(acc[i][jj * 4 + 0], acc[i][jj * 4 + 1],
+                      acc[i][jj * 4 + 2], acc[i][jj * 4 + 3]);
   }
 }
 
@@ -212,9 +207,9 @@ struct Args {
   float scale;
 };
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dkv_kernel(const Args a) {
+flash_bwd_dkv_f32(const Args a) {
   constexpr int LD = D + 4;
   constexpr int NC = D / 16;
   extern __shared__ float4 smem4[];
@@ -222,14 +217,14 @@ flash_bwd_dkv_kernel(const Args a) {
   float* Vs = Ks + kBlock * LD;
   float* Qs = Vs + kBlock * LD;
   float* dOs = Qs + kBlock * LD;
-  float* Pt = dOs + kBlock * LD;   // round(p) transposed: [key][query]
-  float* dSt = Pt + kBlock * kLdT; // round(ds) transposed
+  float* Pt = dOs + kBlock * LD;   // p transposed: [key][query]
+  float* dSt = Pt + kBlock * kLdT; // ds transposed
   float* rowv = dSt + kBlock * kLdT;  // lse, then di, of the q tile's rows
 
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  const T* dout = static_cast<const T*>(a.dout);
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
+  const float* dout = static_cast<const float*>(a.dout);
   const int S = a.S, H = a.H;
   const int kt = blockIdx.x;
   const int nt = gridDim.x;
@@ -240,11 +235,11 @@ flash_bwd_dkv_kernel(const Args a) {
   const int ty = tid / 16;
   const int k0 = kt * kBlock;
 
-  load_tile<T, D, LD>(Ks, k + b * a.ksb + h * a.ksh + k0 * a.kss, a.kss, tid);
-  load_tile<T, D, LD>(Vs, v + b * a.vsb + h * a.vsh + k0 * a.vss, a.vss, tid);
-  const T* qbase = q + b * a.qsb + h * a.qsh;
+  load_tile<D, LD>(Ks, k + b * a.ksb + h * a.ksh + k0 * a.kss, a.kss, tid);
+  load_tile<D, LD>(Vs, v + b * a.vsb + h * a.vsh + k0 * a.vss, a.vss, tid);
+  const float* qbase = q + b * a.qsb + h * a.qsh;
   const int64_t dos = int64_t(H) * D;
-  const T* dobase = dout + (int64_t(b) * S * H + h) * D;
+  const float* dobase = dout + (int64_t(b) * S * H + h) * D;
   const float* lse = a.lse + (int64_t(b) * H + h) * S;
   const float* di = a.di + (int64_t(b) * H + h) * S;
 
@@ -258,8 +253,8 @@ flash_bwd_dkv_kernel(const Args a) {
   for (int qt = kt; qt < nt; ++qt) {
     const int q0 = qt * kBlock;
     __syncthreads();  // the previous tile's products are done with the tiles
-    load_tile<T, D, LD>(Qs, qbase + q0 * a.qss, a.qss, tid);
-    load_tile<T, D, LD>(dOs, dobase + q0 * dos, dos, tid);
+    load_tile<D, LD>(Qs, qbase + q0 * a.qss, a.qss, tid);
+    load_tile<D, LD>(dOs, dobase + q0 * dos, dos, tid);
     if (tid < kBlock) {
       rowv[tid] = lse[q0 + tid];
       rowv[kBlock + tid] = di[q0 + tid];
@@ -280,9 +275,8 @@ flash_bwd_dkv_kernel(const Args a) {
         const int col = tx + 16 * j;
         const float p =
             (diag && col > row) ? 0.f : expf(s[i][j] * a.scale - l);
-        const float ds = p * (dp[i][j] - d) * a.scale;
-        Pt[col * kLdT + row] = Vec4<T>::round(p);
-        dSt[col * kLdT + row] = Vec4<T>::round(ds);
+        Pt[col * kLdT + row] = p;
+        dSt[col * kLdT + row] = p * (dp[i][j] - d) * a.scale;
       }
     }
     __syncthreads();
@@ -290,13 +284,13 @@ flash_bwd_dkv_kernel(const Args a) {
     tile_accumulate<D, LD>(dSt, Qs, ty, tx, dk);
   }
 
-  store_rows<T, D>(static_cast<T*>(a.out0), b, h, S, H, k0, ty, tx, dk);
-  store_rows<T, D>(static_cast<T*>(a.out1), b, h, S, H, k0, ty, tx, dv);
+  store_rows<D>(static_cast<float*>(a.out0), b, h, S, H, k0, ty, tx, dk);
+  store_rows<D>(static_cast<float*>(a.out1), b, h, S, H, k0, ty, tx, dv);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dq_kernel(const Args a) {
+flash_bwd_dq_f32(const Args a) {
   constexpr int LD = D + 4;
   constexpr int NC = D / 16;
   static_assert(kLdT <= LD, "ds must fit in the V tile");
@@ -305,12 +299,12 @@ flash_bwd_dq_kernel(const Args a) {
   float* dOs = Qs + kBlock * LD;
   float* Ks = dOs + kBlock * LD;
   float* Vs = Ks + kBlock * LD;
-  float* dSs = Vs;  // round(ds) [query][key], once dO.v is done with Vs
+  float* dSs = Vs;  // ds [query][key], once dO.v is done with Vs
 
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  const T* dout = static_cast<const T*>(a.dout);
+  const float* q = static_cast<const float*>(a.q);
+  const float* k = static_cast<const float*>(a.k);
+  const float* v = static_cast<const float*>(a.v);
+  const float* dout = static_cast<const float*>(a.dout);
   const int S = a.S, H = a.H;
   const int qt = gridDim.x - 1 - blockIdx.x;
   const int h = blockIdx.y;
@@ -320,10 +314,10 @@ flash_bwd_dq_kernel(const Args a) {
   const int ty = tid / 16;
   const int q0 = qt * kBlock;
 
-  load_tile<T, D, LD>(Qs, q + b * a.qsb + h * a.qsh + q0 * a.qss, a.qss, tid);
+  load_tile<D, LD>(Qs, q + b * a.qsb + h * a.qsh + q0 * a.qss, a.qss, tid);
   const int64_t dos = int64_t(H) * D;
-  load_tile<T, D, LD>(dOs, dout + (int64_t(b) * S * H + h) * D + q0 * dos,
-                      dos, tid);
+  load_tile<D, LD>(dOs, dout + (int64_t(b) * S * H + h) * D + q0 * dos,
+                   dos, tid);
   const float* lse = a.lse + (int64_t(b) * H + h) * S + q0;
   const float* di = a.di + (int64_t(b) * H + h) * S + q0;
   float l[4], dr[4];
@@ -332,8 +326,8 @@ flash_bwd_dq_kernel(const Args a) {
     l[i] = lse[ty + 16 * i];
     dr[i] = di[ty + 16 * i];
   }
-  const T* kbase = k + b * a.ksb + h * a.ksh;
-  const T* vbase = v + b * a.vsb + h * a.vsh;
+  const float* kbase = k + b * a.ksb + h * a.ksh;
+  const float* vbase = v + b * a.vsb + h * a.vsh;
 
   float dq[4][NC];
 #pragma unroll
@@ -344,8 +338,8 @@ flash_bwd_dq_kernel(const Args a) {
   for (int kt = 0; kt <= qt; ++kt) {
     const int k0 = kt * kBlock;
     __syncthreads();  // the previous ds.k is done with Ks and dSs (= Vs)
-    load_tile<T, D, LD>(Ks, kbase + k0 * a.kss, a.kss, tid);
-    load_tile<T, D, LD>(Vs, vbase + k0 * a.vss, a.vss, tid);
+    load_tile<D, LD>(Ks, kbase + k0 * a.kss, a.kss, tid);
+    load_tile<D, LD>(Vs, vbase + k0 * a.vss, a.vss, tid);
     __syncthreads();
 
     float s[4][4], ds[4][4];
@@ -360,7 +354,7 @@ flash_bwd_dq_kernel(const Args a) {
         const int col = tx + 16 * j;
         const float p =
             (diag && col > row) ? 0.f : expf(s[i][j] * a.scale - l[i]);
-        ds[i][j] = Vec4<T>::round(p * (ds[i][j] - dr[i]) * a.scale);
+        ds[i][j] = p * (ds[i][j] - dr[i]) * a.scale;
       }
     }
     __syncthreads();  // every thread is done reading Vs
@@ -373,30 +367,30 @@ flash_bwd_dq_kernel(const Args a) {
     tile_accumulate<D, LD>(dSs, Ks, ty, tx, dq);
   }
 
-  store_rows<T, D>(static_cast<T*>(a.out0), b, h, S, H, q0, ty, tx, dq);
+  store_rows<D>(static_cast<float*>(a.out0), b, h, S, H, q0, ty, tx, dq);
 }
 
-template <typename T, int D>
-cudaError_t launch_dkv(const Args& a, int B, cudaStream_t stream) {
+template <int D>
+cudaError_t launch_dkv_f32(const Args& a, int B, cudaStream_t stream) {
   constexpr int kSmem =
       (4 * kBlock * (D + 4) + 2 * kBlock * kLdT + 2 * kBlock) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+      flash_bwd_dkv_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmem);
   if (err != cudaSuccess) return err;
-  flash_bwd_dkv_kernel<T, D>
+  flash_bwd_dkv_f32<D>
       <<<dim3(a.S / kBlock, a.H, B), kThreads, kSmem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_dq(const Args& a, int B, cudaStream_t stream) {
+template <int D>
+cudaError_t launch_dq_f32(const Args& a, int B, cudaStream_t stream) {
   constexpr int kSmem = 4 * kBlock * (D + 4) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+      flash_bwd_dq_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmem);
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<T, D>
+  flash_bwd_dq_f32<D>
       <<<dim3(a.S / kBlock, a.H, B), kThreads, kSmem, stream>>>(a);
   return cudaGetLastError();
 }
@@ -423,6 +417,608 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
   return a;
 }
 
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core kernels (TMA, mbarriers, wgmma).
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kTcThreads = 256;   // two warpgroups
+constexpr int kSlab = 64;         // bf16 columns in one 128-byte swizzled row
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+// Arrive once and expect `bytes` more of asynchronous copies on `bar`.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
+               :: "r"(smem_addr(bar)) : "memory");
+}
+
+// Wait until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// TMA: the box at (column c, head h, row r, batch b) of a [B, S, H, D]
+// tensor map into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c, int h, int r,
+                                         int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_addr(bar)), "r"(c), "r"(h), "r"(r), "r"(b)
+      : "memory");
+}
+
+// A contiguous copy of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) into shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a tile of 128-byte rows with the
+// 128-byte swizzle, as TMA writes it: start address, leading byte offset,
+// stride byte offset (from one group of 8 rows to the next: 1024 bytes),
+// layout type 1 (128-byte swizzle). Slabs are 1024-byte aligned, so the
+// base offset is 0. The leading offset is not read for the K-major operands
+// and for the transposed (MN-major) B operand spans no more than the 64
+// columns of one slab; it is set to the 8-row stride as well.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  const uint64_t addr = smem_addr(p);
+  return ((addr & 0x3FFFF) >> 4) | (uint64_t(1024 >> 4) << 16) |
+         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+// Wait until at most N committed groups of this warpgroup are pending
+// (groups complete in order).
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" :: "n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of accumulator registers
+// across the asynchronous wgmma that owns them.
+__device__ __forceinline__ void reg_fence(float (&r)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+#define WGMMA_D32                                                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+#define WGMMA_D32_OUT(d)                                                    \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),      \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),      \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),      \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
+      "+f"(d[31])
+
+// d[64 x 64] (= or +=) A[64 x 16] B[16 x 64], A and B K-major in shared
+// memory (A rows and B columns are rows of 128-byte swizzled slabs).
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WGMMA_D32_OUT(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 64] += A[64 x 16] B[16 x 64], A in registers (the m16n8k16 A
+// fragment of each warp's 16 rows), B MN-major in shared memory: 16 rows of
+// a 128-byte swizzled slab, read transposed.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WGMMA_D32_OUT(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// s[64 x 64] = A B^T over columns 16 K0 .. 16 K1 - 1 of D: A is 64 rows
+// of the K-major tile `a` (slabs of `a_rows` rows, starting at row
+// `a_row0`), B the 64 rows of the K-major tile `bt` (slabs of `b_rows`
+// rows, starting at row `b_row0`).
+template <int D, int K0 = 0, int K1 = D / 16>
+__device__ __forceinline__ void gemm_abt(float (&s)[32], const uint8_t* a,
+                                         int a_rows, int a_row0,
+                                         const uint8_t* bt, int b_rows,
+                                         int b_row0) {
+#pragma unroll
+  for (int ks = K0; ks < K1; ++ks) {
+    const int slab = ks / 4, byte = (ks % 4) * 32;
+    wgmma_ss(s,
+             sw128_desc(a + (slab * a_rows + a_row0) * 128 + byte),
+             sw128_desc(bt + (slab * b_rows + b_row0) * 128 + byte),
+             ks > K0);
+  }
+}
+
+// acc[slab][64 x 64] += A[64 x 64] X[64 x D], A the register fragments of
+// four 16-column k-steps, X the 64 rows of the tile `x` (slabs of `x_rows`
+// rows, starting at row `x_row0`), read transposed.
+template <int D>
+__device__ __forceinline__ void gemm_ax(float (&acc)[D / 64][32],
+                                        const uint32_t (&a)[4][4],
+                                        const uint8_t* x, int x_rows,
+                                        int x_row0) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int slab = 0; slab < D / 64; ++slab)
+      wgmma_rs(acc[slab], a[j],
+               sw128_desc(x + (slab * x_rows + x_row0 + 16 * j) * 128));
+}
+
+// Element i of a thread's 64 x 64 tile in the wgmma accumulator layout
+// lies at row acc_row(i), column acc_col(i) (row0 = 16 warp + lane / 4).
+__device__ __forceinline__ int acc_row(int i, int row0) {
+  return row0 + 8 * ((i / 2) % 2);
+}
+__device__ __forceinline__ int acc_col(int i, int lane) {
+  return 8 * (i / 4) + 2 * (lane % 4) + i % 2;
+}
+
+// s (= scale^-1 q.k) -> p = exp(scale s - lse) in place, 0 where key >
+// query on the diagonal tile. Rows are keys and columns queries when
+// kKeysAreRows (the dK/dV kernel's transposed tiles), the other way round
+// otherwise; lse2(i) is element i's log2(e) lse.
+template <bool kKeysAreRows, typename Lse2>
+__device__ __forceinline__ void tile_p(float (&s)[32], bool diag, int row0,
+                                       int lane, Lse2 lse2,
+                                       float scale_log2) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int row = acc_row(i, row0), col = acc_col(i, lane);
+    const bool masked = diag && (kKeysAreRows ? row > col : col > row);
+    s[i] = masked ? 0.f : exp2f(fmaf(s[i], scale_log2, -lse2(i)));
+  }
+}
+
+// dp (= dO.v) -> ds = p (dp - di) scale in place; di(i) is element i's di.
+template <typename Di>
+__device__ __forceinline__ void tile_ds(const float (&p)[32],
+                                        float (&dp)[32], Di di,
+                                        float scale) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dp[i] = p[i] * (dp[i] - di(i)) * scale;
+}
+
+// A 64 x 64 accumulator tile rounded to bf16 as the register A fragments
+// of four 16-column k-steps: the accumulator layout of columns 16 j ..
+// 16 j + 15 is the m16n8k16 A fragment of k-step j.
+__device__ __forceinline__ void to_frags(const float (&x)[32],
+                                         uint32_t (&frag)[4][4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      frag[j][r] = pack_bf16(x[8 * j + 2 * r], x[8 * j + 2 * r + 1]);
+}
+
+// Writes a warpgroup's 64 x D float32 sums (accumulator layout, one 64 x 64
+// tile per slab) as bf16 rows row0.. of a contiguous [rows, H, D] output.
+template <int D>
+__device__ __forceinline__ void store_tile(bf16* out, int64_t row_stride,
+                                           const float (&acc)[D / 64][32],
+                                           int row0, int lane) {
+#pragma unroll
+  for (int slab = 0; slab < D / 64; ++slab)
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int row = acc_row(i, row0);
+      const int col = 64 * slab + acc_col(i, lane);
+      *reinterpret_cast<uint32_t*>(out + row * row_stride + col) =
+          pack_bf16(acc[slab][i], acc[slab][i + 1]);
+    }
+}
+
+template <int D>
+__device__ __forceinline__ void zero(float (&acc)[D / 64][32]) {
+#pragma unroll
+  for (int slab = 0; slab < D / 64; ++slab)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[slab][i] = 0.f;
+}
+
+struct TcArgs {
+  const float* lse;
+  const float* di;
+  bf16* out0;  // dk (dkv kernel) or dq (dq kernel)
+  bf16* out1;  // dv (dkv kernel)
+  int S, H;
+  float scale;
+};
+
+// Shared memory of both bf16 kernels: a resident pair of 128-row tiles (K
+// and V, or Q and dO), then two stages, each a pair of 64-row tiles (Q and
+// dO, or K and V) and 64 floats each of lse and di (read by the dK/dV
+// kernel only; the stage is padded to a multiple of 1024 bytes), then
+// the mbarriers. A tile is D / 64 slabs of [rows][64]
+// bf16 (128-byte rows), each 1024-byte aligned for the swizzle.
+template <int D>
+struct TcSmem {
+  static constexpr int kBig = 128 * D * 2;       // a 128-row tile
+  static constexpr int kSmall = 64 * D * 2;      // a 64-row tile
+  static constexpr int kStage = 2 * kSmall + 1024;  // lse, di, padding
+  static constexpr int kStageTx = 2 * kSmall;    // bytes TMA brings a stage
+  static constexpr int kBars = 2 * kBig + 2 * kStage;
+  static constexpr int kBytes = 1024 + kBars + 5 * 8;  // + alignment slack
+  static_assert(kStage % 1024 == 0, "stage tiles stay 1024-byte aligned");
+};
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  const uint32_t off = smem_addr(p);
+  return p + ((1024 - (off & 1023)) & 1023);
+}
+
+// dK/dV. Block (head, batch, 128-key tile kt), the most q tiles first;
+// warpgroup wg owns keys k0 + 64 wg ... + 63.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_bwd_dkv_tc(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 const __grid_constant__ CUtensorMap tdo, const TcArgs a) {
+  using L = TcSmem<D>;
+  constexpr int NS = D / 64;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align1024(smem_raw);
+  uint8_t* Ks = sm;
+  uint8_t* Vs = Ks + L::kBig;
+  uint8_t* stages = Vs + L::kBig;
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sm + L::kBars);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = kv_full + 3;
+
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int wg = tid / 128, warp = (tid % 128) / 32;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int S = a.S, H = a.H;
+  const int k0 = 128 * blockIdx.z;
+  const int nq = (S - k0) / 64;   // q tiles q0 = k0 + 64 i
+  const float* lse = a.lse + (int64_t(b) * H + h) * S;
+  const float* di = a.di + (int64_t(b) * H + h) * S;
+
+  auto issue = [&](int i) {   // q tile i into stage i % 2 (thread 0)
+    uint8_t* st = stages + (i % 2) * L::kStage;
+    uint64_t* bar = full + i % 2;
+    const int q0 = k0 + 64 * i;
+    mbar_expect(bar, L::kStageTx + 2 * 64 * 4);
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      tma_load(st + s * 64 * 128, &tq, bar, s * kSlab, h, q0, b);
+      tma_load(st + L::kSmall + s * 64 * 128, &tdo, bar, s * kSlab, h, q0, b);
+    }
+    bulk_load(st + 2 * L::kSmall, lse + q0, 64 * 4, bar);
+    bulk_load(st + 2 * L::kSmall + 64 * 4, di + q0, 64 * 4, bar);
+  };
+
+  if (tid == 0) {
+    mbar_init(kv_full, 1);
+    mbar_init(full, 1);
+    mbar_init(full + 1, 1);
+    mbar_init(empty, kTcThreads / 32);
+    mbar_init(empty + 1, kTcThreads / 32);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect(kv_full, 2 * L::kBig);
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      tma_load(Ks + s * 128 * 128, &tk, kv_full, s * kSlab, h, k0, b);
+      tma_load(Vs + s * 128 * 128, &tv, kv_full, s * kSlab, h, k0, b);
+    }
+    issue(0);
+    issue(1);   // nq >= 2: S - k0 >= 128
+  }
+  __syncwarp();
+
+  float dk[NS][32], dv[NS][32], s_t[32], dp_t[32];
+  zero<D>(dk);
+  zero<D>(dv);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s_t[i] = dp_t[i] = 0.f;
+  const int kw0 = k0 + 64 * wg;                 // this warpgroup's keys
+  const int row0 = 16 * warp + lane / 4;
+  const float scale = a.scale, scale_log2 = a.scale * kLog2e;
+  mbar_wait(kv_full, 0);
+
+  for (int i = 0; i < nq; ++i) {
+    const int q0 = k0 + 64 * i;
+    const int parity = (i / 2) % 2;
+    const uint8_t* st = stages + (i % 2) * L::kStage;
+    // Every warp waits for every phase of `full`, also for a tile it skips:
+    // a parity wait only compares with the barrier's current phase, so a
+    // warp that skipped phase n would take phase n + 2's wait as met while
+    // phase n is still pending, and read the stage before its tile lands.
+    // It also keeps each warp's `empty` arrivals in order of the tiles.
+    mbar_wait(full + i % 2, parity);
+    if (q0 >= kw0) {   // else key > query everywhere in the tile
+      const float* lse_t = reinterpret_cast<const float*>(st + 2 * L::kSmall);
+      const float* di_t = lse_t + 64;
+      uint32_t pa[4][4], dsa[4][4];
+      wgmma_fence();
+      gemm_abt<D>(s_t, Ks, 128, 64 * wg, st, 64, 0);              // K Q^T
+      gemm_abt<D>(dp_t, Vs, 128, 64 * wg, st + L::kSmall, 64, 0);  // V dO^T
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(s_t);
+      reg_fence(dp_t);
+      tile_p<true>(s_t, q0 == kw0, row0, lane,
+                   [&](int e) { return lse_t[acc_col(e, lane)] * kLog2e; },
+                   scale_log2);
+      tile_ds(s_t, dp_t, [&](int e) { return di_t[acc_col(e, lane)]; },
+              scale);
+      to_frags(s_t, pa);
+      to_frags(dp_t, dsa);
+      wgmma_fence();
+      gemm_ax<D>(dv, pa, st + L::kSmall, 64, 0);    // dV += P^T dO
+      gemm_ax<D>(dk, dsa, st, 64, 0);               // dK += dS^T Q
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        reg_fence(dv[s]);
+        reg_fence(dk[s]);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + i % 2);
+    if (tid == 0 && i + 2 < nq) {
+      mbar_wait(empty + i % 2, parity);
+      issue(i + 2);
+    }
+    __syncwarp();
+  }
+
+  const int64_t rs = int64_t(H) * D;
+  const int64_t base = ((int64_t(b) * S + kw0) * H + h) * D;
+  store_tile<D>(a.out0 + base, rs, dk, row0, lane);
+  store_tile<D>(a.out1 + base, rs, dv, row0, lane);
+}
+
+// dQ. Block (head, batch, 128-query tile), the last q tile (the most k
+// tiles) first; warpgroup wg owns queries q0 + 64 wg ... + 63.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                const __grid_constant__ CUtensorMap tdo, const TcArgs a) {
+  using L = TcSmem<D>;
+  constexpr int NS = D / 64;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align1024(smem_raw);
+  uint8_t* Qs = sm;
+  uint8_t* dOs = Qs + L::kBig;
+  uint8_t* stages = dOs + L::kBig;
+  uint64_t* qd_full = reinterpret_cast<uint64_t*>(sm + L::kBars);
+  uint64_t* full = qd_full + 1;
+  uint64_t* empty = qd_full + 3;
+
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int wg = tid / 128, warp = (tid % 128) / 32;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int S = a.S, H = a.H;
+  const int q0 = 128 * (gridDim.z - 1 - blockIdx.z);
+  const int nk = q0 / 64 + 2;   // k tiles k0 = 64 j up to the diagonal
+
+  auto issue = [&](int j) {   // k tile j into stage j % 2 (thread 0)
+    uint8_t* st = stages + (j % 2) * L::kStage;
+    uint64_t* bar = full + j % 2;
+    mbar_expect(bar, L::kStageTx);
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      tma_load(st + s * 64 * 128, &tk, bar, s * kSlab, h, 64 * j, b);
+      tma_load(st + L::kSmall + s * 64 * 128, &tv, bar, s * kSlab, h,
+               64 * j, b);
+    }
+  };
+
+  if (tid == 0) {
+    mbar_init(qd_full, 1);
+    mbar_init(full, 1);
+    mbar_init(full + 1, 1);
+    mbar_init(empty, kTcThreads / 32);
+    mbar_init(empty + 1, kTcThreads / 32);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect(qd_full, 2 * L::kBig);
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      tma_load(Qs + s * 128 * 128, &tq, qd_full, s * kSlab, h, q0, b);
+      tma_load(dOs + s * 128 * 128, &tdo, qd_full, s * kSlab, h, q0, b);
+    }
+    issue(0);
+    issue(1);   // nk >= 2
+  }
+  __syncwarp();
+
+  const int qw0 = q0 + 64 * wg;                 // this warpgroup's queries
+  const int row0 = 16 * warp + lane / 4;
+  const float* lse = a.lse + (int64_t(b) * H + h) * S + qw0;
+  const float* di = a.di + (int64_t(b) * H + h) * S + qw0;
+  const float lse2[2] = {lse[row0] * kLog2e, lse[row0 + 8] * kLog2e};
+  const float dir[2] = {di[row0], di[row0 + 8]};
+  float dq[NS][32], s_[32], dp[32], dp2[32];
+  zero<D>(dq);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s_[i] = dp[i] = dp2[i] = 0.f;
+  const float scale = a.scale, scale_log2 = a.scale * kLog2e;
+  mbar_wait(qd_full, 0);
+
+  for (int j = 0; j < nk; ++j) {
+    const int k0 = 64 * j;
+    const int parity = (j / 2) % 2;
+    const uint8_t* st = stages + (j % 2) * L::kStage;
+    mbar_wait(full + j % 2, parity);   // even when skipping: see dK/dV
+    if (k0 <= qw0) {   // else key > query everywhere in the tile
+      uint32_t dsa[4][4];
+      wgmma_fence();
+      gemm_abt<D>(s_, Qs, 128, 64 * wg, st, 64, 0);               // Q K^T
+      wgmma_commit();
+      // dO V^T as two chains of D / 32 k-steps added in float32: a single
+      // chain of D / 16 wgmma steps sums less accurately than float32 FMAs
+      // (biased toward zero), two chains match them. dQ needs it where a
+      // peaked softmax makes dp - di cancel: ds and so dQ are then float32
+      // noise, and the gate against the plain version reads that noise.
+      gemm_abt<D, 0, D / 32>(dp, dOs, 128, 64 * wg, st + L::kSmall, 64, 0);
+      gemm_abt<D, D / 32, D / 16>(dp2, dOs, 128, 64 * wg, st + L::kSmall,
+                                  64, 0);
+      wgmma_commit();
+      wgmma_wait<1>();   // Q K^T is done; dO V^T runs on under p
+      reg_fence(s_);
+      tile_p<false>(s_, k0 == qw0, row0, lane,
+                    [&](int e) { return lse2[(e / 2) % 2]; }, scale_log2);
+      wgmma_wait<0>();
+      reg_fence(dp);
+      reg_fence(dp2);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dp[i] += dp2[i];
+      tile_ds(s_, dp, [&](int e) { return dir[(e / 2) % 2]; }, scale);
+      to_frags(dp, dsa);
+      wgmma_fence();
+      gemm_ax<D>(dq, dsa, st, 64, 0);               // dQ += dS K
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int s = 0; s < NS; ++s) reg_fence(dq[s]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + j % 2);
+    if (tid == 0 && j + 2 < nk) {
+      mbar_wait(empty + j % 2, parity);
+      issue(j + 2);
+    }
+    __syncwarp();
+  }
+
+  const int64_t rs = int64_t(H) * D;
+  store_tile<D>(a.out0 + ((int64_t(b) * S + qw0) * H + h) * D, rs, dq, row0,
+                lane);
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the libcuda.so.1 that the CUDA runtime loaded.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    return lib == nullptr ? nullptr : reinterpret_cast<EncodeTiled>(
+                                          dlsym(lib, "cuTensorMapEncodeTiled"));
+  }();
+  return fn;
+}
+
+// Tensor map of a bf16 [B, S, H, D] tensor with (batch, seq, head) strides
+// `st` (elements; the last dimension contiguous), read in boxes of
+// [rows][64] of one (batch, head) with the 128-byte swizzle.
+cudaError_t make_map(CUtensorMap* map, const void* base, int B, int S, int H,
+                     int D, const int64_t* st, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSharedObjectSymbolNotFound;
+  const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(H), cuuint64_t(S),
+                              cuuint64_t(B)};
+  const cuuint64_t strides[3] = {cuuint64_t(st[2]) * 2, cuuint64_t(st[1]) * 2,
+                                 cuuint64_t(st[0]) * 2};
+  const cuuint32_t box[4] = {kSlab, 1, cuuint32_t(rows), 1};
+  const cuuint32_t one[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+      strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// `dkv`: the dK/dV kernel (K, V resident in 128-row boxes, Q, dO streamed
+// in 64-row boxes); else the dQ kernel (the other way round).
+template <int D>
+cudaError_t launch_tc(bool dkv, const Args& a, int B, cudaStream_t stream) {
+  const int S = a.S, H = a.H;
+  const int qrows = dkv ? 64 : 128, krows = dkv ? 128 : 64;
+  const int64_t qs[3] = {a.qsb, a.qss, a.qsh}, ks[3] = {a.ksb, a.kss, a.ksh},
+                vs[3] = {a.vsb, a.vss, a.vsh},
+                ds[3] = {int64_t(S) * H * D, int64_t(H) * D, D};
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err;
+  if ((err = make_map(&tq, a.q, B, S, H, D, qs, qrows)) != cudaSuccess ||
+      (err = make_map(&tk, a.k, B, S, H, D, ks, krows)) != cudaSuccess ||
+      (err = make_map(&tv, a.v, B, S, H, D, vs, krows)) != cudaSuccess ||
+      (err = make_map(&tdo, a.dout, B, S, H, D, ds, qrows)) != cudaSuccess)
+    return err;
+  TcArgs t;
+  t.lse = a.lse;
+  t.di = a.di;
+  t.out0 = static_cast<bf16*>(a.out0);
+  t.out1 = static_cast<bf16*>(a.out1);
+  t.S = S;
+  t.H = H;
+  t.scale = a.scale;
+  const auto kernel = dkv ? flash_bwd_dkv_tc<D> : flash_bwd_dq_tc<D>;
+  constexpr int kSmem = TcSmem<D>::kBytes;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(H, B, S / 128), kTcThreads, kSmem, stream>>>(tq, tk, tv, tdo,
+                                                              t);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -431,7 +1027,7 @@ extern "C" {
 // of q, k, v in elements; dout is contiguous, lse and di are contiguous
 // [B, H, S] float32. Outputs are contiguous [B, S, H, D] in the input type.
 // Each returns the cudaError_t of its launch; the caller has checked shapes,
-// strides, alignment and S % 64 == 0.
+// strides, alignment and S % 128 == 0.
 int flash_attn_bwd_dkv(int dtype, const void* q, const void* k, const void* v,
                        const void* dout, const float* lse, const float* di,
                        void* dk, void* dv, int B, int S, int H, int D,
@@ -440,10 +1036,10 @@ int flash_attn_bwd_dkv(int dtype, const void* q, const void* k, const void* v,
   const Args a = make_args(q, k, v, dout, lse, di, dk, dv, S, H, qs, ks, vs,
                            scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64) return launch_dkv<float, 64>(a, B, st);
-  if (dtype == 0 && D == 128) return launch_dkv<float, 128>(a, B, st);
-  if (dtype == 1 && D == 64) return launch_dkv<__nv_bfloat16, 64>(a, B, st);
-  if (dtype == 1 && D == 128) return launch_dkv<__nv_bfloat16, 128>(a, B, st);
+  if (dtype == 0 && D == 64) return launch_dkv_f32<64>(a, B, st);
+  if (dtype == 0 && D == 128) return launch_dkv_f32<128>(a, B, st);
+  if (dtype == 1 && D == 64) return launch_tc<64>(true, a, B, st);
+  if (dtype == 1 && D == 128) return launch_tc<128>(true, a, B, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -455,10 +1051,10 @@ int flash_attn_bwd_dq(int dtype, const void* q, const void* k, const void* v,
   const Args a = make_args(q, k, v, dout, lse, di, dq, nullptr, S, H, qs, ks,
                            vs, scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64) return launch_dq<float, 64>(a, B, st);
-  if (dtype == 0 && D == 128) return launch_dq<float, 128>(a, B, st);
-  if (dtype == 1 && D == 64) return launch_dq<__nv_bfloat16, 64>(a, B, st);
-  if (dtype == 1 && D == 128) return launch_dq<__nv_bfloat16, 128>(a, B, st);
+  if (dtype == 0 && D == 64) return launch_dq_f32<64>(a, B, st);
+  if (dtype == 0 && D == 128) return launch_dq_f32<128>(a, B, st);
+  if (dtype == 1 && D == 64) return launch_tc<64>(false, a, B, st);
+  if (dtype == 1 && D == 128) return launch_tc<128>(false, a, B, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

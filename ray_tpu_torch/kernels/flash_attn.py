@@ -2,7 +2,9 @@
 versions: the forward (`csrc/flash_attn_fwd.cu`, the port of K1) and the
 backward (`csrc/flash_attn_bwd.cu`: dK/dV, the port of K2, and dQ, the port
 of K3) of the Pallas TPU kernel behind
-`ray_tpu.ops.attention.flash_attention_tpu`.
+`ray_tpu.ops.attention.flash_attention_tpu`. The backward runs bf16 on the
+tensor cores (TMA and wgmma) and float32 on the CUDA cores; the source's
+header note says why.
 
 Each wrapper checks its inputs, then launches its kernel for CUDA tensors
 or runs its plain version for CPU tensors. There is no other path: a CUDA
@@ -71,11 +73,13 @@ def _bwd_library() -> ctypes.CDLL:
 
 
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    """What the kernel takes: q, k, v of one shape [B, S, H, D], one dtype
+    """What the kernels take: q, k, v of one shape [B, S, H, D], one dtype
     (float32 or bfloat16) and one device; D in (64, 128); S a multiple of
     128; the last dimension contiguous and the other strides multiples of
-    4 elements on a 16-byte-aligned base, so every row loads as whole
-    16-byte (f32) or 8-byte (bf16) vectors."""
+    16 bytes (4 float32 or 8 bfloat16 elements) on a 16-byte-aligned base,
+    so every row loads as whole 16-byte vectors and the bf16 backward's
+    TMA tensor maps take the strides as they are. Contiguous tensors and
+    views of a fused [B, S, 3, H, D] projection qualify."""
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"q, k, v must share one [B, S, H, D] shape; got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -92,13 +96,15 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if s == 0 or s % 128:
         raise ValueError(f"sequence length {s} is not a positive multiple "
                          f"of 128")
+    per_16_bytes = 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride(3) != 1 or any(t.stride(i) % 4 for i in range(3)) \
+        if t.stride(3) != 1 \
+                or any(t.stride(i) % per_16_bytes for i in range(3)) \
                 or t.data_ptr() % 16:
             raise ValueError(
                 f"{name} needs a contiguous last dimension, strides that "
-                f"are multiples of 4 and a 16-byte-aligned base; got "
-                f"strides {t.stride()}")
+                f"are multiples of 16 bytes and a 16-byte-aligned base; "
+                f"got strides {t.stride()} of {q.dtype}")
 
 
 def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -125,6 +125,59 @@ def test_flash_bwd_kernels_match_plain(card, shape, dtype, layout, tol):
         assert err <= tol * (1 + w.abs().max().item()), (name, err)
 
 
+def _bf16_bwd_inputs(card, shape, layout, seed):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    b, s, h, d = shape
+    qkv = torch.randn((b, s, 3, h, d), generator=gen, device=card)
+    q, k, v = qkv.to(torch.bfloat16).unbind(2)
+    if layout == "contiguous":
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    do = torch.randn(shape, generator=gen, device=card).to(torch.bfloat16)
+    o, lse = flash_attn.flash_attn_fwd(q, k, v, return_lse=True)
+    return q, k, v, o, do, lse
+
+
+@pytest.mark.parametrize("shape,layout", [
+    ((2, 128, 3, 64), "contiguous"),
+    ((1, 128, 2, 128), "qkv"),
+    ((2, 384, 3, 128), "contiguous"),
+    ((1, 384, 4, 64), "qkv"),
+    ((1, 1024, 4, 128), "qkv"),
+    ((1, 1024, 2, 64), "contiguous"),
+])
+def test_bf16_bwd_tensor_core_kernels_match_plain(card, shape, layout):
+    """The bf16 K2 and K3 (wgmma on the tensor cores) against their plain
+    versions at S 128, 384 (three 128-row blocks) and 1024, D 64 and 128,
+    contiguous and as views of a fused QKV tensor. Both sides round p and
+    ds to bf16 where the TPU kernel does and sum in float32, so they differ
+    by float32 noise that can move an output by one bf16 ulp or flip the
+    rounding of a term: each output within 2e-2 of its largest element
+    (about two ulps of it) and within 1e-2 relative L2 of the plain
+    version's."""
+    q, k, v, o, do, lse = _bf16_bwd_inputs(card, shape, layout, 3)
+    got = flash_attn.flash_attn_bwd(q, k, v, o, do, lse)
+    torch.cuda.synchronize()
+    want = flash_attn.flash_attn_bwd_plain(q, k, v, o, do, lse)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16 and g.is_contiguous()
+        assert g.shape == shape
+        g, w = g.float(), w.float()
+        err = (g - w).abs().max().item()
+        assert err <= BF16_TOL * w.abs().max().item(), (name, err)
+        assert ((g - w).norm() / w.norm()).item() <= 1e-2, name
+
+
+def test_bf16_bwd_kernels_are_deterministic(card):
+    """Each block owns the rows it writes (no atomics), so two launches
+    on the same inputs give bitwise-equal dQ, dK and dV."""
+    q, k, v, o, do, lse = _bf16_bwd_inputs(card, (2, 384, 3, 128), "qkv", 4)
+    first = flash_attn.flash_attn_bwd(q, k, v, o, do, lse)
+    second = flash_attn.flash_attn_bwd(q, k, v, o, do, lse)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 def test_flash_bwd_kernels_reject_what_they_cannot_take(card):
     x = torch.zeros((1, 128, 2, 256), device=card)
     lse = torch.zeros((1, 2, 128), device=card)

@@ -242,3 +242,23 @@ def test_flash_bwd_wrappers_reject_what_the_kernels_cannot_take():
     dk, dv = flash_attn.flash_attn_bwd_dkv(*qkv.unbind(2), do, lse, lse)
     dq = flash_attn.flash_attn_bwd_dq(*qkv.unbind(2), do, lse, lse)
     assert dq.is_contiguous() and dk.is_contiguous() and dv.is_contiguous()
+
+
+@pytest.mark.parametrize("dtype,taken", [(torch.float32, True),
+                                         (torch.bfloat16, False)])
+def test_flash_wrappers_count_strides_in_bytes(dtype, taken):
+    """Strides must be multiples of 16 bytes (the bf16 backward's TMA
+    tensor maps read them as they are): a row stride of 68 elements is
+    272 bytes in float32, 136 in bf16."""
+    x = torch.zeros(1, 128, 2, 68, dtype=dtype)[..., :64]
+    lse = torch.zeros(1, 2, 128)
+    do = torch.zeros(1, 128, 2, 64, dtype=dtype)
+    calls = [lambda: flash_attn.flash_attn_fwd(x, x, x),
+             lambda: flash_attn.flash_attn_bwd_dkv(x, x, x, do, lse, lse),
+             lambda: flash_attn.flash_attn_bwd_dq(x, x, x, do, lse, lse)]
+    for call in calls:
+        if taken:
+            call()
+        else:
+            with pytest.raises(ValueError, match="multiples of 16 bytes"):
+                call()

@@ -11,14 +11,17 @@ result line:
 2. build: every kernel of the port compiled from `ray_tpu_torch/kernels/csrc`
    (one nvcc per source, all at once), with the build seconds, ptxas's
    register, spill and advisory lines, and the tensor-core instructions
-   (HGMMA, HMMA) in each backward kernel's SASS; a bf16 backward kernel
-   with neither fails;
-3. kernels: each kernel against its plain PyTorch version on the card at the
-   shapes the serving path gives it, with the error against the stated
-   tolerance, the kernel's time (CUDA events), the plain version's time, one
-   PyTorch library call's time as a yardstick, and the least time the card
-   could take (bytes over 3.35 TB/s or operations over the peak rate for the
-   type, whichever is larger);
+   (HGMMA, HMMA) in each kernel's SASS; a bf16 kernel (forward or
+   backward) without HGMMA fails;
+3. kernels: K1 against its plain PyTorch version on the card at the shapes
+   the serving and training paths give it and a few more (a ragged block
+   count, D 64 at the train shape, a peaked softmax), with the error
+   against the stated tolerance, the kernel's time (CUDA events) and
+   achieved TFLOP/s, the plain version's time, one PyTorch library call's
+   time as a yardstick, and the least time the card could take (bytes
+   over 3.35 TB/s or operations over the peak rate for the type, whichever
+   is larger); two launches on the same inputs must give bitwise-equal o
+   and lse;
 4. forward: `models.forward` at the flagship width (bf16, 1 x 1024 tokens)
    through the flash kernel, against the same forward on plain attention;
 5. engine: the serving engine (`InferenceEngine` over
@@ -88,24 +91,31 @@ ENGINE_LOGIT_ATOL = 1e-3
 # logit tolerance; below this share of agreeing tokens the run fails.
 MIN_TOKEN_AGREEMENT = 0.98
 
-# (shape [B, S, H, D], dtype, layout); the engine prefills f32. Layout
-# "qkv" passes q, k, v as views of one [B, S, 3, H, D] tensor, the fused
-# QKV projection's layout the engine hands the kernel (its v is such a
-# view), so rows are 3 H D elements apart.
+# (shape [B, S, H, D], dtype, layout, factor on q and k); the engine
+# prefills f32. Layout "qkv" passes q, k, v as views of one [B, S, 3, H, D]
+# tensor, the fused QKV projection's layout the engine hands the kernel
+# (its v is such a view), so rows are 3 H D elements apart. Row i draws its
+# inputs from seed i, so new rows go at the end. The last three: a ragged
+# block count (S 384: three 128-row blocks), D 64 at the train shape, and
+# q and k scaled by 4, whose peaked softmax moves the running max from tile
+# to tile and puts p near 1 and 0, where the rounding of p acts.
 KERNEL_SHAPES = [
-    ((1, 128, 12, 128), "float32", "contiguous"),
-    ((1, 256, 12, 128), "float32", "contiguous"),
-    ((1, 512, 12, 128), "float32", "contiguous"),
-    ((1, 1024, 12, 128), "float32", "contiguous"),
-    ((1, 1024, 12, 128), "float32", "qkv"),
-    ((1, 1024, 12, 128), "bfloat16", "contiguous"),
-    ((4, 1024, 12, 128), "bfloat16", "contiguous"),
-    ((1, 256, 12, 64), "bfloat16", "contiguous"),
-    ((16, 1024, 12, 128), "bfloat16", "qkv"),   # the train step's K1
+    ((1, 128, 12, 128), "float32", "contiguous", 1.0),
+    ((1, 256, 12, 128), "float32", "contiguous", 1.0),
+    ((1, 512, 12, 128), "float32", "contiguous", 1.0),
+    ((1, 1024, 12, 128), "float32", "contiguous", 1.0),
+    ((1, 1024, 12, 128), "float32", "qkv", 1.0),
+    ((1, 1024, 12, 128), "bfloat16", "contiguous", 1.0),
+    ((4, 1024, 12, 128), "bfloat16", "contiguous", 1.0),
+    ((1, 256, 12, 64), "bfloat16", "contiguous", 1.0),
+    ((16, 1024, 12, 128), "bfloat16", "qkv", 1.0),   # the train step's K1
+    ((2, 384, 3, 128), "bfloat16", "contiguous", 1.0),
+    ((16, 1024, 12, 64), "bfloat16", "qkv", 1.0),
+    ((4, 1024, 12, 128), "bfloat16", "qkv", 4.0),
 ]
 # The engine's largest bucket, and the train step's shape.
-MAIN_SHAPE = ((1, 1024, 12, 128), "float32", "contiguous")
-TRAIN_SHAPE = ((16, 1024, 12, 128), "bfloat16", "qkv")
+MAIN_SHAPE = ((1, 1024, 12, 128), "float32", "contiguous", 1.0)
+TRAIN_SHAPE = ((16, 1024, 12, 128), "bfloat16", "qkv", 1.0)
 # K2 and K3: (shape, dtype, layout, factor on q and k). The train step's
 # shape (bf16, bench.py's batch; q and k come out of the rotary embedding,
 # v is a view of the fused QKV projection, so "qkv" is the stricter
@@ -201,13 +211,19 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def attention_flops(shape) -> float:
+    """Operations of causal attention: 2 B H S (S+1) D, the lower triangle
+    of Q K^T and of P V."""
+    b, s, h, d = shape
+    return 2.0 * b * h * s * (s + 1) * d
+
+
 def attention_bound(shape, dtype: str, power_w: float):
     """(bound_ms at the published peaks, bound_ms derated to the power
-    limit, what sets it) for causal attention: 2 B H S (S+1) D operations
-    (the lower triangle of Q K^T and of P V) and q, k, v read once, o
-    written once."""
+    limit, what sets it) for causal attention: `attention_flops` operations
+    and q, k, v read once, o written once."""
     b, s, h, d = shape
-    flops = 2.0 * b * h * s * (s + 1) * d
+    flops = attention_flops(shape)
     nbytes = 4.0 * b * s * h * d * (4 if dtype == "float32" else 2)
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
     bound = max(t_ops, t_bytes) * 1e3
@@ -233,6 +249,50 @@ def p_flip_bound(q, k, v, lse):
     return 2.0 ** -7 * p_max * v_max
 
 
+def kernel_inputs(shape, dtype: str, layout: str, qk_scale: float,
+                  seed: int):
+    """q, k, v of one K1 row: normal draws from `seed`, q and k times
+    `qk_scale` (exact when it is 1), cast to `dtype`; views of one
+    [B, S, 3, H, D] tensor when `layout` is "qkv"."""
+    import torch
+
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    if layout == "qkv":
+        b, s, h, d = shape
+        qkv = torch.randn((b, s, 3, h, d), generator=gen, device="cuda")
+        qkv[:, :, :2] *= qk_scale
+        return qkv.to(dt).unbind(2)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda")
+               for _ in range(3))
+    return (q * qk_scale).to(dt), (k * qk_scale).to(dt), v.to(dt)
+
+
+def fwd_errors(q, k, v, out, lse):
+    """(max abs error, worst diff/tol, a note on the tolerance, max abs
+    lse error) of K1's (out, lse) against its plain version on the same
+    inputs, under KERNEL_TOL (plus, in bf16, `p_flip_bound`). The gate:
+    worst diff/tol <= 1 and lse error <= 1e-3."""
+    from ray_tpu_torch.kernels import flash_attn
+
+    ref, ref_lse = flash_attn.flash_attn_fwd_plain(q, k, v,
+                                                   return_lse=True)
+    dtype = str(q.dtype).removeprefix("torch.")
+    diff = (out.float() - ref.float()).abs()
+    atol, rtol = KERNEL_TOL[dtype]
+    tol = atol + rtol * ref.float().abs()
+    note = ""
+    if dtype == "bfloat16":
+        note = (f" + p_flip_bound; without it: worst diff/tol "
+                f"{(diff / tol).max().item():.3f}, "
+                f"{int((diff > tol).sum())} of {diff.numel()} "
+                f"elements over")
+        tol = tol + p_flip_bound(q, k, v, ref_lse)
+        note += f"; median tol {tol.median().item():.3e}"
+    return (diff.max().item(), (diff / tol).max().item(), note,
+            (lse - ref_lse).abs().max().item())
+
+
 def phase_kernels(card: str, power_w: float):
     import torch
     import torch.nn.functional as F
@@ -240,35 +300,19 @@ def phase_kernels(card: str, power_w: float):
     from ray_tpu_torch.kernels import flash_attn
 
     rows = {}
-    for shape, dtype, layout in KERNEL_SHAPES:
-        dt = getattr(torch, dtype)
-        gen = torch.Generator(device="cuda").manual_seed(len(rows))
-        if layout == "qkv":
-            b, s, h, d = shape
-            q, k, v = torch.randn((b, s, 3, h, d), generator=gen,
-                                  device="cuda").to(dt).unbind(2)
-        else:
-            q, k, v = (torch.randn(shape, generator=gen,
-                                   device="cuda").to(dt)
-                       for _ in range(3))
+    for shape, dtype, layout, qk_scale in KERNEL_SHAPES:
+        q, k, v = kernel_inputs(shape, dtype, layout, qk_scale, len(rows))
         out, lse = flash_attn.flash_attn_fwd(q, k, v, return_lse=True)
+        out2, lse2 = flash_attn.flash_attn_fwd(q, k, v, return_lse=True)
         torch.cuda.synchronize()
-        ref, ref_lse = flash_attn.flash_attn_fwd_plain(q, k, v,
-                                                       return_lse=True)
-        diff = (out.float() - ref.float()).abs()
+        tag = f"{dtype} {list(shape)} {layout}" + (
+            f" q,k x{qk_scale:g}" if qk_scale != 1.0 else "")
+        check(torch.equal(out, out2) and torch.equal(lse, lse2),
+              f"flash_attn_fwd {tag}: two launches on the same inputs "
+              f"differ")
+        del out2, lse2
+        err, worst, note, lse_err = fwd_errors(q, k, v, out, lse)
         atol, rtol = KERNEL_TOL[dtype]
-        tol = atol + rtol * ref.float().abs()
-        note = ""
-        if dtype == "bfloat16":
-            note = (f" + p_flip_bound; without it: worst diff/tol "
-                    f"{(diff / tol).max().item():.3f}, "
-                    f"{int((diff > tol).sum())} of {diff.numel()} "
-                    f"elements over")
-            tol = tol + p_flip_bound(q, k, v, ref_lse)
-            note += f"; median tol {tol.median().item():.3e}"
-        err = diff.max().item()
-        worst = (diff / tol).max().item()
-        lse_err = (lse - ref_lse).abs().max().item()
         ms = cuda_ms(lambda: flash_attn.flash_attn_fwd(q, k, v), 20)
         plain_ms = cuda_ms(
             lambda: flash_attn.flash_attn_fwd_plain(q, k, v), 5, warmup=1)
@@ -276,20 +320,22 @@ def phase_kernels(card: str, power_w: float):
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True), 20)
         bound, derated, bound_by = attention_bound(shape, dtype, power_w)
-        rows[(shape, dtype, layout)] = dict(
+        tflops = attention_flops(shape) / ms / 1e9
+        rows[(shape, dtype, layout, qk_scale)] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
             bound_ms_at_power_limit=derated, bound_by=bound_by,
             library_ms=library_ms)
-        print(f"kernel flash_attn_fwd {dtype} {list(shape)} {layout}: "
+        print(f"kernel flash_attn_fwd {tag}: "
               f"max_abs_err {err:.3e} (tol {atol:g} + {rtol:g}|ref|"
-              f"{note}; worst diff/tol {worst:.3f}) "
-              f"lse_err {lse_err:.3e} kernel_ms {ms:.4f} "
-              f"plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} "
+              f"{note}; worst diff/tol {worst:.3f}; bitwise-equal over two "
+              f"launches) lse_err {lse_err:.3e} kernel_ms {ms:.4f} "
+              f"achieved_tflops {tflops:.1f} plain_ms {plain_ms:.4f} "
+              f"library_ms {library_ms:.4f} "
               f"bound_us {bound * 1e3:.2f} ({bound_by}; "
               f"{derated * 1e3:.2f} at the power limit) [{card}]",
               flush=True)
         check(worst <= 1 and lse_err <= 1e-3,
-              f"flash_attn_fwd {dtype} {list(shape)} {layout} disagrees "
+              f"flash_attn_fwd {tag} disagrees "
               f"with its plain version: max_abs_err {err:.3e}, "
               f"lse_err {lse_err:.3e}")
     return rows
@@ -818,9 +864,10 @@ def busy_union(intervals) -> float:
 def profile_step(run, step_ms: float, card: str) -> None:
     """One train step under `torch.profiler`: the card's kernel time by
     group (the port's attention kernels, matrix products, the rest), the
-    largest kernels, and the card's idle share, read from this step's own
-    trace: the union of its kernels' intervals over the span from the
-    first kernel's start to the last one's end."""
+    largest kernels, each attention kernel's time, and the card's idle
+    share, read from this step's own trace: the union of its kernels'
+    intervals over the span from the first kernel's start to the last
+    one's end."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -871,6 +918,10 @@ def profile_step(run, step_ms: float, card: str) -> None:
     for kname, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0]
                                  )[:12]:
         print(f"  {ms:9.3f} ms  x{n:<5d} {kname[:110]}", flush=True)
+    for kname, (ms, n) in sorted(by_name.items()):
+        if "flash_fwd" in kname or "flash_bwd" in kname:
+            print(f"  attention kernel {ms:9.3f} ms  x{n:<5d} "
+                  f"{kname[:110]}", flush=True)
 
 
 def main() -> int:
@@ -916,14 +967,20 @@ def main() -> int:
             for line in info["log"].splitlines():
                 if "registers" in line or "spill" in line or "(C75" in line:
                     print(f"  ptxas {kname}: {line.strip()}")
-        counts = sass_mma_counts(build.build()["flash_attn_bwd"])
-        tc = {f: c for f, c in counts.items()
-              if "flash_bwd_dkv_tc" in f or "flash_bwd_dq_tc" in f}
-        for fn, (hgmma, hmma) in sorted(counts.items()):
-            print(f"  sass flash_attn_bwd {fn}: HGMMA {hgmma} HMMA {hmma}")
-        check(len(tc) == 4 and all(sum(c) > 0 for c in tc.values()),
-              f"the bf16 backward kernels are not all on the tensor "
-              f"cores: {tc}")
+        libs = build.build()
+        for kname, tc_names in (("flash_attn_fwd", ("flash_fwd_tc",)),
+                                ("flash_attn_bwd", ("flash_bwd_dkv_tc",
+                                                    "flash_bwd_dq_tc"))):
+            counts = sass_mma_counts(libs[kname])
+            tc = {f: c for f, c in counts.items()
+                  if any(n in f for n in tc_names)}
+            for fn, (hgmma, hmma) in sorted(counts.items()):
+                print(f"  sass {kname} {fn}: HGMMA {hgmma} HMMA {hmma}")
+            # One instantiation per head dim (64, 128) of each kernel.
+            check(len(tc) == 2 * len(tc_names)
+                  and all(c[0] > 0 for c in tc.values()),
+                  f"the bf16 kernels of {kname} are not all on the tensor "
+                  f"cores (wgmma): {tc}")
 
         rows = phase_kernels(card, power_w)
 

@@ -2,8 +2,10 @@
 plain C interface, loaded with ctypes.
 
 Each source under `csrc/` compiles on its own (`nvcc -shared` for sm_90a)
-into `_build/<name>-<hash>.so`; the hash covers the source and the flags, so
-an edited kernel rebuilds and an unchanged one is reused. Nothing builds at
+into `_build/<name>-<hash>.so`; the hash covers the source, the headers
+under `csrc/` (`hopper.cuh`, the Hopper helpers both sources include) and
+the flags, so an edited kernel or header rebuilds and an unchanged one is
+reused. Nothing builds at
 import: the first CUDA call of a wrapper builds its kernel, and `build()`
 builds several at once, one nvcc process per source, all started together.
 The wrappers pass raw pointers (`tensor.data_ptr()`) and PyTorch's current
@@ -51,9 +53,14 @@ def nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / KERNELS[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    """The library path of kernel `name`: a hash of its source, of every
+    header under `csrc/` (which any source may include) and of the flags,
+    so an edited header rebuilds every kernel."""
+    h = hashlib.sha256((CSRC / KERNELS[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:

@@ -80,12 +80,9 @@
 // transposed p and ds tiles in 170 KB of shared memory at D 128, so one
 // block runs per SM; loads are synchronous.
 
-#include <cuda.h>  // CUtensorMap and its enums; libcuda is found at run time
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <dlfcn.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"  // TMA, mbarriers, wgmma, tensor maps
 
 namespace {
 
@@ -374,9 +371,9 @@ template <int D>
 cudaError_t launch_dkv_f32(const Args& a, int B, cudaStream_t stream) {
   constexpr int kSmem =
       (4 * kBlock * (D + 4) + 2 * kBlock * kLdT + 2 * kBlock) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmem);
+  static SmemLimit limit{reinterpret_cast<const void*>(&flash_bwd_dkv_f32<D>),
+                        kSmem};
+  const cudaError_t err = limit.apply();
   if (err != cudaSuccess) return err;
   flash_bwd_dkv_f32<D>
       <<<dim3(a.S / kBlock, a.H, B), kThreads, kSmem, stream>>>(a);
@@ -386,9 +383,9 @@ cudaError_t launch_dkv_f32(const Args& a, int B, cudaStream_t stream) {
 template <int D>
 cudaError_t launch_dq_f32(const Args& a, int B, cudaStream_t stream) {
   constexpr int kSmem = 4 * kBlock * (D + 4) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmem);
+  static SmemLimit limit{reinterpret_cast<const void*>(&flash_bwd_dq_f32<D>),
+                        kSmem};
+  const cudaError_t err = limit.apply();
   if (err != cudaSuccess) return err;
   flash_bwd_dq_f32<D>
       <<<dim3(a.S / kBlock, a.H, B), kThreads, kSmem, stream>>>(a);
@@ -420,187 +417,7 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout,
 // ---------------------------------------------------------------------------
 // bf16: the tensor-core kernels (TMA, mbarriers, wgmma).
 
-using bf16 = __nv_bfloat16;
-
 constexpr int kTcThreads = 256;   // two warpgroups
-constexpr int kSlab = 64;         // bf16 columns in one 128-byte swizzled row
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
-               :: "r"(smem_addr(bar)), "r"(count) : "memory");
-}
-
-// Arrive once and expect `bytes` more of asynchronous copies on `bar`.
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];"
-               :: "r"(smem_addr(bar)) : "memory");
-}
-
-// Wait until the phase of `bar` with this parity has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
-  } while (!done);
-}
-
-// TMA: the box at (column c, head h, row r, batch b) of a [B, S, H, D]
-// tensor map into shared memory, completing on `bar`.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c, int h, int r,
-                                         int b) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];"
-      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
-         "r"(smem_addr(bar)), "r"(c), "r"(h), "r"(r), "r"(b)
-      : "memory");
-}
-
-// A contiguous copy of `bytes` (a multiple of 16, both ends 16-byte
-// aligned) into shared memory, completing on `bar`.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];"
-      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a tile of 128-byte rows with the
-// 128-byte swizzle, as TMA writes it: start address, leading byte offset,
-// stride byte offset (from one group of 8 rows to the next: 1024 bytes),
-// layout type 1 (128-byte swizzle). Slabs are 1024-byte aligned, so the
-// base offset is 0. The leading offset is not read for the K-major operands
-// and for the transposed (MN-major) B operand spans no more than the 64
-// columns of one slab; it is set to the 8-row stride as well.
-__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
-  const uint64_t addr = smem_addr(p);
-  return ((addr & 0x3FFFF) >> 4) | (uint64_t(1024 >> 4) << 16) |
-         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-// Wait until at most N committed groups of this warpgroup are pending
-// (groups complete in order).
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" :: "n"(N) : "memory");
-}
-
-// Keeps the compiler from moving reads or writes of accumulator registers
-// across the asynchronous wgmma that owns them.
-__device__ __forceinline__ void reg_fence(float (&r)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-#define WGMMA_D32                                                           \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
-  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
-  "%30, %31}"
-#define WGMMA_D32_OUT(d)                                                    \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
-      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
-      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),      \
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),      \
-      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),      \
-      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
-      "+f"(d[31])
-
-// d[64 x 64] (= or +=) A[64 x 16] B[16 x 64], A and B K-major in shared
-// memory (A rows and B columns are rows of 128-byte swizzled slabs).
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
-                                         uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D32
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : WGMMA_D32_OUT(d)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d[64 x 64] += A[64 x 16] B[16 x 64], A in registers (the m16n8k16 A
-// fragment of each warp's 16 rows), B MN-major in shared memory: 16 rows of
-// a 128-byte swizzled slab, read transposed.
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : WGMMA_D32_OUT(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// s[64 x 64] = A B^T over columns 16 K0 .. 16 K1 - 1 of D: A is 64 rows
-// of the K-major tile `a` (slabs of `a_rows` rows, starting at row
-// `a_row0`), B the 64 rows of the K-major tile `bt` (slabs of `b_rows`
-// rows, starting at row `b_row0`).
-template <int D, int K0 = 0, int K1 = D / 16>
-__device__ __forceinline__ void gemm_abt(float (&s)[32], const uint8_t* a,
-                                         int a_rows, int a_row0,
-                                         const uint8_t* bt, int b_rows,
-                                         int b_row0) {
-#pragma unroll
-  for (int ks = K0; ks < K1; ++ks) {
-    const int slab = ks / 4, byte = (ks % 4) * 32;
-    wgmma_ss(s,
-             sw128_desc(a + (slab * a_rows + a_row0) * 128 + byte),
-             sw128_desc(bt + (slab * b_rows + b_row0) * 128 + byte),
-             ks > K0);
-  }
-}
-
-// acc[slab][64 x 64] += A[64 x 64] X[64 x D], A the register fragments of
-// four 16-column k-steps, X the 64 rows of the tile `x` (slabs of `x_rows`
-// rows, starting at row `x_row0`), read transposed.
-template <int D>
-__device__ __forceinline__ void gemm_ax(float (&acc)[D / 64][32],
-                                        const uint32_t (&a)[4][4],
-                                        const uint8_t* x, int x_rows,
-                                        int x_row0) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int slab = 0; slab < D / 64; ++slab)
-      wgmma_rs(acc[slab], a[j],
-               sw128_desc(x + (slab * x_rows + x_row0 + 16 * j) * 128));
-}
-
-// Element i of a thread's 64 x 64 tile in the wgmma accumulator layout
-// lies at row acc_row(i), column acc_col(i) (row0 = 16 warp + lane / 4).
-__device__ __forceinline__ int acc_row(int i, int row0) {
-  return row0 + 8 * ((i / 2) % 2);
-}
-__device__ __forceinline__ int acc_col(int i, int lane) {
-  return 8 * (i / 4) + 2 * (lane % 4) + i % 2;
-}
 
 // s (= scale^-1 q.k) -> p = exp(scale s - lse) in place, 0 where key >
 // query on the diagonal tile. Rows are keys and columns queries when
@@ -625,43 +442,6 @@ __device__ __forceinline__ void tile_ds(const float (&p)[32],
                                         float scale) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) dp[i] = p[i] * (dp[i] - di(i)) * scale;
-}
-
-// A 64 x 64 accumulator tile rounded to bf16 as the register A fragments
-// of four 16-column k-steps: the accumulator layout of columns 16 j ..
-// 16 j + 15 is the m16n8k16 A fragment of k-step j.
-__device__ __forceinline__ void to_frags(const float (&x)[32],
-                                         uint32_t (&frag)[4][4]) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      frag[j][r] = pack_bf16(x[8 * j + 2 * r], x[8 * j + 2 * r + 1]);
-}
-
-// Writes a warpgroup's 64 x D float32 sums (accumulator layout, one 64 x 64
-// tile per slab) as bf16 rows row0.. of a contiguous [rows, H, D] output.
-template <int D>
-__device__ __forceinline__ void store_tile(bf16* out, int64_t row_stride,
-                                           const float (&acc)[D / 64][32],
-                                           int row0, int lane) {
-#pragma unroll
-  for (int slab = 0; slab < D / 64; ++slab)
-#pragma unroll
-    for (int i = 0; i < 32; i += 2) {
-      const int row = acc_row(i, row0);
-      const int col = 64 * slab + acc_col(i, lane);
-      *reinterpret_cast<uint32_t*>(out + row * row_stride + col) =
-          pack_bf16(acc[slab][i], acc[slab][i + 1]);
-    }
-}
-
-template <int D>
-__device__ __forceinline__ void zero(float (&acc)[D / 64][32]) {
-#pragma unroll
-  for (int slab = 0; slab < D / 64; ++slab)
-#pragma unroll
-    for (int i = 0; i < 32; ++i) acc[slab][i] = 0.f;
 }
 
 struct TcArgs {
@@ -690,10 +470,6 @@ struct TcSmem {
   static_assert(kStage % 1024 == 0, "stage tiles stay 1024-byte aligned");
 };
 
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-  const uint32_t off = smem_addr(p);
-  return p + ((1024 - (off & 1023)) & 1023);
-}
 
 // dK/dV. Block (head, batch, 128-key tile kt), the most q tiles first;
 // warpgroup wg owns keys k0 + 64 wg ... + 63.
@@ -945,44 +721,6 @@ flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tq,
                 lane);
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the libcuda.so.1 that the CUDA runtime loaded.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
-    return lib == nullptr ? nullptr : reinterpret_cast<EncodeTiled>(
-                                          dlsym(lib, "cuTensorMapEncodeTiled"));
-  }();
-  return fn;
-}
-
-// Tensor map of a bf16 [B, S, H, D] tensor with (batch, seq, head) strides
-// `st` (elements; the last dimension contiguous), read in boxes of
-// [rows][64] of one (batch, head) with the 128-byte swizzle.
-cudaError_t make_map(CUtensorMap* map, const void* base, int B, int S, int H,
-                     int D, const int64_t* st, int rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorSharedObjectSymbolNotFound;
-  const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(H), cuuint64_t(S),
-                              cuuint64_t(B)};
-  const cuuint64_t strides[3] = {cuuint64_t(st[2]) * 2, cuuint64_t(st[1]) * 2,
-                                 cuuint64_t(st[0]) * 2};
-  const cuuint32_t box[4] = {kSlab, 1, cuuint32_t(rows), 1};
-  const cuuint32_t one[4] = {1, 1, 1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-      strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
 
 // `dkv`: the dK/dV kernel (K, V resident in 128-row boxes, Q, dO streamed
 // in 64-row boxes); else the dQ kernel (the other way round).
@@ -1010,10 +748,11 @@ cudaError_t launch_tc(bool dkv, const Args& a, int B, cudaStream_t stream) {
   t.scale = a.scale;
   const auto kernel = dkv ? flash_bwd_dkv_tc<D> : flash_bwd_dq_tc<D>;
   constexpr int kSmem = TcSmem<D>::kBytes;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kSmem);
-  if (err != cudaSuccess) return err;
+  static SmemLimit dkv_limit{
+      reinterpret_cast<const void*>(&flash_bwd_dkv_tc<D>), kSmem};
+  static SmemLimit dq_limit{
+      reinterpret_cast<const void*>(&flash_bwd_dq_tc<D>), kSmem};
+  if ((err = (dkv ? dkv_limit : dq_limit).apply()) != cudaSuccess) return err;
   kernel<<<dim3(H, B, S / 128), kTcThreads, kSmem, stream>>>(tq, tk, tv, tdo,
                                                               t);
   return cudaGetLastError();

@@ -4,174 +4,211 @@
 // Pallas TPU MHA kernel shipped with JAX; this is its forward kernel
 // (jax/experimental/pallas/ops/tpu/flash_attention.py, _flash_attention_kernel).
 // It computes softmax(Q K^T D^-1/2) V under the top-left causal mask
-// (key <= query) with an online softmax, so the [S, S] score matrix never
-// reaches device memory. Scores, the running max/sum and the output
-// accumulator are float32; the probabilities are rounded to V's type before
-// P.V, where K1 casts p to v.dtype. Optionally it writes the row logsumexp
-// [B, H, S] float32, the counterpart of K1's saved residuals (l, m), which the
-// backward kernels will read.
+// (key <= query) with an online softmax over 64-key tiles, so the [S, S]
+// score matrix never reaches device memory. Scores, the running max and sum
+// and the output sums are float32; p = exp(score - running max up to its
+// tile) is rounded to V's type before P.V, where K1 casts p to v.dtype,
+// while the row sum l takes p unrounded. Optionally it writes the row
+// logsumexp [B, H, S] float32 (natural log), the counterpart of K1's saved
+// residuals (l, m), which the backward kernels read.
 //
 // Layout: q, k, v are [B, S, H, D] read through their strides (the last
-// dimension contiguous), so the q/k/v views of a fused QKV projection go in
-// without transpose copies; o is a contiguous [B, S, H, D].
-//
-// Design: one block of 256 threads per (q tile of 64 rows, head, batch).
-// Each block loops over the 64-row k/v tiles up to and including the
-// diagonal tile. Tiles are staged in shared memory as float32; thread
-// (ty, tx) of a 16 x 16 grid owns query rows ty + 16 i (i < 4) for both
-// products: the score columns tx + 16 j (j < 4) and the output columns
-// tx*4 + 64 jj .. +3, so the softmax rescale of its output rows needs no
-// exchange, and a row's max and sum are reduced across the 16 lanes that
-// share ty with warp shuffles. P reuses the K tile's shared memory.
-// Blocks are issued heaviest (last) q tile first to even out the causal
-// triangle.
+// dimension contiguous, the others multiples of 16 bytes), so the q/k/v
+// views of a fused QKV projection go in without copies; o is a contiguous
+// [B, S, H, D] in the input type.
 //
 // What bounds it on an H100: about 2 B H S^2 D floating-point operations
-// (causal halves the 4 B H S^2 D of the full product) against q, k, v read
+// (causal halves the 4 B H S^2 D of the full products) against q, k, v read
 // once and o written once (4 B S H D elements). At S = 1024, D = 128 that is
-// some 250 operations per byte for float32 and 500 for bf16, so the bound is
-// the arithmetic rate: 67 TFLOP/s for float32 on the CUDA cores (no TF32:
-// the engine's math is exact float32) and 989 TFLOP/s for bf16 on the
-// tensor cores.
+// some 250 operations per byte in float32 and 500 in bf16: the arithmetic
+// rate bounds float32 (67 TFLOP/s on the CUDA cores), and bf16 sits near the
+// balance point of 989 TFLOP/s and 3.35 TB/s.
 //
-// What this simple design leaves on the table: both products run as scalar
-// float32 FMAs on the CUDA cores, so bf16 inputs are held to the float32 rate
-// (the tensor cores, via mma.sync or wgmma, are the way to the bf16 bound);
-// tiles are loaded with plain loads and no copy/compute overlap (cp.async or
-// TMA with a ring of stages would hide the loads); and shared-memory
-// bandwidth, not the FMA pipes, limits the inner loops.
+// bf16: flash_fwd_tc, on the tensor cores (built like flash_attn_bwd.cu's
+// dQ kernel, with hopper.cuh's helpers).
+// - A block of two warpgroups (256 threads) per (batch, head, 128-query
+//   tile); warpgroup wg owns queries q0 + 64 wg .. + 63. Blocks are issued
+//   in groups of (batch, head) pairs whose K and V fit about 32 MB of L2,
+//   the last q tiles (the most key tiles) of a group first. At 97 KB of
+//   shared memory and at most 128 registers a thread, two blocks share an
+//   SM, so four warpgroups interleave their products and softmax.
+// - Q (128 rows) comes in once by TMA with the 128-byte swizzle; 64-key K
+//   and V tiles stream through a two-stage ring under mbarriers, refilled
+//   by thread 0 as soon as all eight warps have released a stage. The
+//   tensor maps are built per launch over the tensors' own strides.
+// - Per key tile: S = Q K^T (wgmma m64n64k16, both operands from shared
+//   memory) into 32 float32 registers; the causal mask on the diagonal
+//   tile at the accumulator's own (row, column); the tile's row max over
+//   the four lanes that share a row (two shuffles); alpha = exp(m_old -
+//   m_new) and p = exp(s - m_new), with exp2f on scores pre-scaled by
+//   log2(e) D^-1/2; l += this lane's part of the unrounded p (the four
+//   lanes' parts are added once, at the end); O *= alpha; p rounded to
+//   bf16 in place as the register A operand of O += P V, V read transposed
+//   from its swizzled slabs (at D 128 one m64n128k16 per k-step).
+// - At the end O / l is stored as bf16 and lse = ln 2 (m2 + log2 l).
+// - Every warp waits for every phase of every stage's `full` barrier, also
+//   for a tile it skips as fully masked (see flash_attn_bwd.cu). Each block
+//   owns the rows it writes, so the result is bitwise the same from launch
+//   to launch.
+// - What bounds it: like the backward's, the S product reads both operands
+//   from shared memory at n64, at about the shared memory's rate; PERF.md
+//   lists what was tried against that and measured no faster.
+//
+// float32: flash_fwd_f32, on the CUDA cores (exact float32: the tensor
+// cores take float32 only as TF32, which keeps 10 mantissa bits, too few for
+// the engine's float32 math and its 1e-4 tolerance).
+// - A block of 128 threads per (head, batch, 32-query tile), the last q
+//   tiles of every head first, so the light blocks fill in behind the
+//   heavy ones. 32-row blocks give twice the blocks of 64-row ones, so the
+//   engine's short prefills spread over more of the 132 SMs and the
+//   heaviest block (the critical path of a causal grid) does half the work.
+// - Thread (ty, tx) of an 8 x 16 grid owns query rows ty + 8 i (i < 4) for
+//   both products: score columns tx + 16 j (j < 4) of the 64-key tile, and
+//   output columns tx*4 + 64 g .. +3, so the rescale of its output rows
+//   needs no exchange; a row's max and sum are reduced across the 16 lanes
+//   that share ty with shuffles. P goes through shared memory for P.V.
+// - K and V each have one shared-memory buffer, filled by cp.async so that
+//   every copy runs under a product: V of tile j under S_j = Q K_j^T, and
+//   K of tile j + 1 under P_j V_j. About 91 KB a block at D 128, so two
+//   blocks share an SM.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include <algorithm>
+
+#include "hopper.cuh"  // TMA, mbarriers, wgmma, tensor maps
 
 namespace {
 
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kThreads = 256;
+constexpr float kLn2 = 0.6931471805599453f;
 
-template <typename T>
-struct Vec4;
+// ---------------------------------------------------------------------------
+// float32: the CUDA-core kernel.
 
-template <>
-struct Vec4<float> {
-  static __device__ __forceinline__ float4 load(const float* p) {
-    return *reinterpret_cast<const float4*>(p);
-  }
-  static __device__ __forceinline__ void store(float* p, float4 x) {
-    *reinterpret_cast<float4*>(p) = x;
-  }
-  static __device__ __forceinline__ float round(float x) { return x; }
-};
+constexpr int kF32Rows = 32;         // query rows of a block
+constexpr int kF32Keys = 64;         // keys of a tile
+constexpr int kRT = 4;               // query rows of a thread
+constexpr int kCT = 4;               // score columns of a thread
+constexpr int kTy = kF32Rows / kRT;  // the threads: a kTy x kTx grid
+constexpr int kTx = kF32Keys / kCT;
+constexpr int kF32Threads = kTy * kTx;
+static_assert(32 % kTx == 0, "a row's lanes sit in one warp");
 
-template <>
-struct Vec4<__nv_bfloat16> {
-  static __device__ __forceinline__ float4 load(const __nv_bfloat16* p) {
-    uint2 raw = *reinterpret_cast<const uint2*>(p);
-    float2 a = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&raw.x));
-    float2 b = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&raw.y));
-    return make_float4(a.x, a.y, b.x, b.y);
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p, float4 x) {
-    __nv_bfloat162 a = __floats2bfloat162_rn(x.x, x.y);
-    __nv_bfloat162 b = __floats2bfloat162_rn(x.z, x.w);
-    uint2 raw;
-    raw.x = *reinterpret_cast<uint32_t*>(&a);
-    raw.y = *reinterpret_cast<uint32_t*>(&b);
-    *reinterpret_cast<uint2*>(p) = raw;
-  }
-  static __device__ __forceinline__ float round(float x) {
-    return __bfloat162float(__float2bfloat16(x));
-  }
-};
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+               :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+// Wait until at most N of this thread's committed groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
+}
 
-// Copy 64 rows of D elements (row stride `rs` elements) into shared memory
-// as float32 rows of stride LD.
-template <typename T, int D, int LD>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
-                                          int64_t rs, int tid) {
+// Start copying `rows` rows of D floats (row stride `rs` elements) into
+// shared memory as rows of stride LD.
+template <int D, int LD>
+__device__ __forceinline__ void copy_rows(float* dst, const float* src,
+                                          int rows, int64_t rs, int tid) {
   constexpr int kChunks = D / 4;
-#pragma unroll 4
-  for (int i = tid; i < 64 * kChunks; i += kThreads) {
+  for (int i = tid; i < rows * kChunks; i += kF32Threads) {
     const int r = i / kChunks;
     const int c = (i % kChunks) * 4;
-    *reinterpret_cast<float4*>(dst + r * LD + c) =
-        Vec4<T>::load(src + r * rs + c);
+    cp_async16(dst + r * LD + c, src + r * rs + c);
   }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 2)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int S, int H,
-                 int64_t qsb, int64_t qss, int64_t qsh,
-                 int64_t ksb, int64_t kss, int64_t ksh,
-                 int64_t vsb, int64_t vss, int64_t vsh, float scale) {
-  // Row strides in shared memory: +4 floats keeps the 16 rows that a warp
-  // reads at one column on distinct banks while rows stay 16-byte aligned.
-  constexpr int LDQ = D + 4;
-  constexpr int LDK = D + 4;
-  constexpr int LDV = D;
-  constexpr int LDP = kBlockK + 4;
-  constexpr int NC = D / 16;  // output columns per thread
-  static_assert(kBlockQ * LDP <= kBlockK * LDK, "P must fit in the K tile");
+// Shared memory of the float32 kernel, in floats: Q [rows][D], K [keys][D],
+// V [keys][D], P [rows][keys]. Row strides of +4 floats put the rows that a
+// warp reads at one column on distinct banks, and keep rows 16-byte
+// aligned.
+template <int D>
+struct F32Smem {
+  static constexpr int kLdQ = D + 4;
+  static constexpr int kLdK = D + 4;
+  static constexpr int kLdV = D;
+  static constexpr int kLdP = kF32Keys + 4;
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kF32Rows * kLdQ;
+  static constexpr int kV = kK + kF32Keys * kLdK;
+  static constexpr int kP = kV + kF32Keys * kLdV;
+  static constexpr int kBytes = (kP + kF32Rows * kLdP) * 4;
+};
 
+template <int D>
+__global__ void __launch_bounds__(kF32Threads, 2)
+flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o,
+              float* __restrict__ lse, int S, int H,
+              int64_t qsb, int64_t qss, int64_t qsh,
+              int64_t ksb, int64_t kss, int64_t ksh,
+              int64_t vsb, int64_t vss, int64_t vsh, float scale) {
+  using L = F32Smem<D>;
+  constexpr int NG = D / (4 * kTx);   // output float4 groups per thread
+  static_assert(NG * 4 * kTx == D, "the threads of a row split D evenly");
   extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* Ks = Qs + kBlockQ * LDQ;
-  float* Vs = Ks + kBlockK * LDK;
-  float* Ps = Ks;
+  float* sm = reinterpret_cast<float*>(smem4);
+  float* Qs = sm + L::kQ;
+  float* Ks = sm + L::kK;
+  float* Vs = sm + L::kV;
+  float* Ps = sm + L::kP;
 
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int qt = gridDim.z - 1 - blockIdx.z;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
   const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int q0 = qt * kBlockQ;
+  const int tx = tid % kTx;
+  const int ty = tid / kTx;
+  const int q0 = qt * kF32Rows;
+  // Key tiles up to the one holding the block's last query.
+  const int nk = (q0 + kF32Rows - 1) / kF32Keys + 1;
+  const float* kbase = k + b * ksb + h * ksh;
+  const float* vbase = v + b * vsb + h * vsh;
 
-  load_tile<T, D, LDQ>(Qs, q + b * qsb + h * qsh + q0 * qss, qss, tid);
-  const T* kbase = k + b * ksb + h * ksh;
-  const T* vbase = v + b * vsb + h * vsh;
+  copy_rows<D, L::kLdQ>(Qs, q + b * qsb + h * qsh + q0 * qss, kF32Rows, qss,
+                        tid);
+  copy_rows<D, L::kLdK>(Ks, kbase, kF32Keys, kss, tid);
+  cp_async_commit();
 
-  float m[4], l[4], acc[4][NC];
+  float m[kRT], l[kRT], acc[kRT][4 * NG];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < kRT; ++i) {
     m[i] = -INFINITY;
     l[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < 4 * NG; ++c) acc[i][c] = 0.f;
   }
 
-  // kBlockQ == kBlockK, so k tile qt is the diagonal one.
-  for (int kt = 0; kt <= qt; ++kt) {
-    __syncthreads();  // the previous P.V is done with Ps (= Ks) and Vs
-    const int k0 = kt * kBlockK;
-    load_tile<T, D, LDK>(Ks, kbase + k0 * kss, kss, tid);
-    load_tile<T, D, LDV>(Vs, vbase + k0 * vss, vss, tid);
-    __syncthreads();
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * kF32Keys;
+    __syncthreads();  // the previous P.V is done with Vs and Ps
+    copy_rows<D, L::kLdV>(Vs, vbase + k0 * vss, kF32Keys, vss, tid);
+    cp_async_commit();
+    cp_async_wait<1>();  // this thread's copies of K (and Q) have landed
+    __syncthreads();     // everyone's have
 
-    float s[4][4];
+    float s[kRT][kCT];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < kRT; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+      for (int j = 0; j < kCT; ++j) s[i][j] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < D; d += 4) {
-      float4 qa[4], kb[4];
+      float4 qa[kRT], kb[kCT];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qa[i] = *reinterpret_cast<const float4*>(Qs + (ty + 16 * i) * LDQ + d);
+      for (int i = 0; i < kRT; ++i)
+        qa[i] = *reinterpret_cast<const float4*>(
+            Qs + (ty + kTy * i) * L::kLdQ + d);
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kb[j] = *reinterpret_cast<const float4*>(Ks + (tx + 16 * j) * LDK + d);
+      for (int j = 0; j < kCT; ++j)
+        kb[j] = *reinterpret_cast<const float4*>(
+            Ks + (tx + kTx * j) * L::kLdK + d);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < kRT; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < kCT; ++j) {
           float a = s[i][j];
           a = fmaf(qa[i].x, kb[j].x, a);
           a = fmaf(qa[i].y, kb[j].y, a);
@@ -181,69 +218,79 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
     }
 
-    const bool diag = (kt == qt);
+    // Only tiles reaching past the block's first query hold masked keys.
+    const bool masked = k0 + kF32Keys - 1 > q0;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = ty + 16 * i;
+    for (int i = 0; i < kRT; ++i) {
+      const int row = q0 + ty + kTy * i;
       float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < kCT; ++j) {
         float x = s[i][j] * scale;
-        if (diag && tx + 16 * j > row) x = -INFINITY;
+        if (masked && k0 + tx + kTx * j > row) x = -INFINITY;
         s[i][j] = x;
         mx = fmaxf(mx, x);
       }
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
+      for (int off = kTx / 2; off > 0; off >>= 1)
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      // Column 0 of tile 0 is never masked, so m_new is finite.
+      // Tile 0 holds key 0 <= row, so m_new is finite from the first tile
+      // on (a later tile whose keys are all masked leaves it, and alpha
+      // is 1).
       const float m_new = fmaxf(m[i], mx);
       const float alpha = expf(m[i] - m_new);
       m[i] = m_new;
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < kCT; ++j) {
         const float p = expf(s[i][j] - m_new);
         sum += p;
-        s[i][j] = Vec4<T>::round(p);
+        s[i][j] = p;
       }
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
+      for (int off = kTx / 2; off > 0; off >>= 1)
         sum += __shfl_xor_sync(0xffffffffu, sum, off);
       l[i] = l[i] * alpha + sum;
 #pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
+      for (int c = 0; c < 4 * NG; ++c) acc[i][c] *= alpha;
     }
 
     __syncthreads();  // every thread is done reading Ks
+    if (kt + 1 < nk) {
+      copy_rows<D, L::kLdK>(Ks, kbase + (k0 + kF32Keys) * kss, kF32Keys, kss,
+                            tid);
+    }
+    cp_async_commit();   // (empty on the last tile)
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < kRT; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        Ps[(ty + 16 * i) * LDP + tx + 16 * j] = s[i][j];
-    __syncthreads();
+      for (int j = 0; j < kCT; ++j)
+        Ps[(ty + kTy * i) * L::kLdP + tx + kTx * j] = s[i][j];
+    cp_async_wait<1>();  // this thread's copies of V have landed
+    __syncthreads();     // everyone's, and all of P
 
 #pragma unroll 2
-    for (int c = 0; c < kBlockK; c += 4) {
-      float4 pa[4];
+    for (int c = 0; c < kF32Keys; c += 4) {
+      float4 pa[kRT];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pa[i] = *reinterpret_cast<const float4*>(Ps + (ty + 16 * i) * LDP + c);
+      for (int i = 0; i < kRT; ++i)
+        pa[i] = *reinterpret_cast<const float4*>(
+            Ps + (ty + kTy * i) * L::kLdP + c);
 #pragma unroll
       for (int cc = 0; cc < 4; ++cc) {
 #pragma unroll
-        for (int jj = 0; jj < D / 64; ++jj) {
+        for (int g = 0; g < NG; ++g) {
           const float4 vb = *reinterpret_cast<const float4*>(
-              Vs + (c + cc) * LDV + jj * 64 + tx * 4);
+              Vs + (c + cc) * L::kLdV + 4 * kTx * g + tx * 4);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
+          for (int i = 0; i < kRT; ++i) {
             const float p = cc == 0 ? pa[i].x
                           : cc == 1 ? pa[i].y
                           : cc == 2 ? pa[i].z : pa[i].w;
-            acc[i][jj * 4 + 0] = fmaf(p, vb.x, acc[i][jj * 4 + 0]);
-            acc[i][jj * 4 + 1] = fmaf(p, vb.y, acc[i][jj * 4 + 1]);
-            acc[i][jj * 4 + 2] = fmaf(p, vb.z, acc[i][jj * 4 + 2]);
-            acc[i][jj * 4 + 3] = fmaf(p, vb.w, acc[i][jj * 4 + 3]);
+            acc[i][g * 4 + 0] = fmaf(p, vb.x, acc[i][g * 4 + 0]);
+            acc[i][g * 4 + 1] = fmaf(p, vb.y, acc[i][g * 4 + 1]);
+            acc[i][g * 4 + 2] = fmaf(p, vb.z, acc[i][g * 4 + 2]);
+            acc[i][g * 4 + 3] = fmaf(p, vb.w, acc[i][g * 4 + 3]);
           }
         }
       }
@@ -251,40 +298,266 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
+  for (int i = 0; i < kRT; ++i) {
+    const int row = q0 + ty + kTy * i;
     // K1's guard: a row with no unmasked key divides by 1, not 0.
     const float inv = l[i] == 0.f ? 1.f : 1.f / l[i];
-    T* orow = o + ((int64_t(b) * S + row) * H + h) * D;
+    float* orow = o + ((int64_t(b) * S + row) * H + h) * D;
 #pragma unroll
-    for (int jj = 0; jj < D / 64; ++jj) {
-      Vec4<T>::store(orow + jj * 64 + tx * 4,
-                     make_float4(acc[i][jj * 4 + 0] * inv,
-                                 acc[i][jj * 4 + 1] * inv,
-                                 acc[i][jj * 4 + 2] * inv,
-                                 acc[i][jj * 4 + 3] * inv));
+    for (int g = 0; g < NG; ++g) {
+      *reinterpret_cast<float4*>(orow + 4 * kTx * g + tx * 4) =
+          make_float4(acc[i][g * 4 + 0] * inv, acc[i][g * 4 + 1] * inv,
+                      acc[i][g * 4 + 2] * inv, acc[i][g * 4 + 3] * inv);
     }
     if (lse != nullptr && tx == 0)
       lse[(int64_t(b) * H + h) * S + row] = m[i] + logf(l[i]);
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   float* lse, int B, int S, int H,
-                   const int64_t* qs, const int64_t* ks, const int64_t* vs,
-                   float scale, cudaStream_t stream) {
-  constexpr int kSmem =
-      (kBlockQ * (D + 4) + kBlockK * (D + 4) + kBlockK * D) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmem);
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
+                       float* lse, int B, int S, int H, const int64_t* qs,
+                       const int64_t* ks, const int64_t* vs, float scale,
+                       cudaStream_t stream) {
+  constexpr int kSmem = F32Smem<D>::kBytes;
+  static SmemLimit limit{reinterpret_cast<const void*>(&flash_fwd_f32<D>),
+                         kSmem};
+  const cudaError_t err = limit.apply();
   if (err != cudaSuccess) return err;
-  const dim3 grid(S / kBlockQ, H, B);
-  flash_fwd_kernel<T, D><<<grid, kThreads, kSmem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, S, H,
+  const dim3 grid(H, B, S / kF32Rows);
+  flash_fwd_f32<D><<<grid, kF32Threads, kSmem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, S, H,
       qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], scale);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core kernel (TMA, mbarriers, wgmma).
+
+constexpr int kTcThreads = 256;   // two warpgroups
+// K/V ring depth. Two stages keep a block of D 128 at 97 KB of shared
+// memory, so two blocks (four warpgroups) share an SM.
+constexpr int kStages = 2;
+
+// Shared memory: the resident 128-row Q tile, then kStages stages, each a
+// 64-row K tile and a 64-row V tile, then the mbarriers (Q's, then `full`
+// and `empty` per stage). A tile is D / 64 slabs of [rows][64] bf16
+// (128-byte rows), each 1024-byte aligned for the swizzle.
+template <int D>
+struct TcSmem {
+  static constexpr int kQ = 128 * D * 2;
+  static constexpr int kTile = 64 * D * 2;
+  static constexpr int kStage = 2 * kTile;
+  static constexpr int kBars = kQ + kStages * kStage;
+  static constexpr int kBytes = 1024 + kBars + (1 + 2 * kStages) * 8;
+};
+
+// The online softmax of one 64-key tile for one warpgroup's 64 queries
+// (this thread's rows row0 and row0 + 8), on its scores s (Q K^T, in the
+// accumulator layout): masks keys > query when `diag`, moves the running
+// max m2 (of log2(e) D^-1/2-scaled scores), returns alpha = exp(m_old -
+// m_new) per row, scales this lane's part of the row sum l by it and adds
+// the unrounded p = exp(s - m_new), and rounds p to bf16 as the register A
+// fragments of P V.
+__device__ __forceinline__ void tile_softmax(float (&s)[32], bool diag,
+                                             int row0, int lane,
+                                             float scale_log2,
+                                             float (&m2)[2], float (&l)[2],
+                                             float (&alpha)[2],
+                                             uint32_t (&pa)[4][4]) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    if (diag && acc_col(i, lane) > acc_row(i, row0)) s[i] = -INFINITY;
+    mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], s[i]);
+  }
+  float mn[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    // A row's 64 columns sit on the four lanes that share lane / 4.
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    // A tile's first key is <= every query it is computed for, so mn is
+    // finite; alpha is 0 on the first tile, where m2 is still -inf.
+    mn[r] = fmaxf(m2[r], mx[r] * scale_log2);
+    alpha[r] = exp2f(m2[r] - mn[r]);
+    m2[r] = mn[r];
+    l[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int r = (i / 2) % 2;
+    const float p = exp2f(fmaf(s[i], scale_log2, -mn[r]));  // 0 if -inf
+    l[r] += p;
+    s[i] = p;
+  }
+  to_frags(s, pa);
+}
+
+template <int D>
+__device__ __forceinline__ void scale_rows(float (&acc)[D / 64][32],
+                                           const float (&f)[2]) {
+#pragma unroll
+  for (int t = 0; t < D / 64; ++t)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[t][i] *= f[(i / 2) % 2];
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 2)
+flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
+             const __grid_constant__ CUtensorMap tk,
+             const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
+             float* __restrict__ lse, int S, int H, int group,
+             float scale_log2) {
+  using L = TcSmem<D>;
+  constexpr int NS = D / 64;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align1024(smem_raw);
+  uint8_t* Qs = sm;
+  uint8_t* stages = Qs + L::kQ;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + L::kBars);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
+
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int wg = tid / 128, warp = (tid % 128) / 32;
+  // Block order: the (batch, head) pairs in groups of `group`, and within
+  // a group the last q tiles (the most key tiles) of every pair first.
+  const int n_q = S / 128;
+  const int n_bh = gridDim.x / n_q;
+  const int g0 = blockIdx.x / (group * n_q) * group;   // its first pair
+  const int g_size = min(group, n_bh - g0);
+  const int r = blockIdx.x - g0 * n_q;
+  const int bh = g0 + r % g_size;
+  const int h = bh % H, b = bh / H;
+  const int q0 = 128 * (n_q - 1 - r / g_size);
+  const int nk = q0 / 64 + 2;   // k tiles k0 = 64 j up to the diagonal
+
+  auto issue = [&](int j) {   // k tile j into stage j % kStages (thread 0)
+    uint8_t* st = stages + (j % kStages) * L::kStage;
+    uint64_t* bar = full + j % kStages;
+    mbar_expect(bar, L::kStage);
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      tma_load(st + s * 64 * 128, &tk, bar, s * kSlab, h, 64 * j, b);
+      tma_load(st + L::kTile + s * 64 * 128, &tv, bar, s * kSlab, h, 64 * j,
+               b);
+    }
+  };
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+#pragma unroll
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, kTcThreads / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect(q_full, L::kQ);
+#pragma unroll
+    for (int s = 0; s < NS; ++s)
+      tma_load(Qs + s * 128 * 128, &tq, q_full, s * kSlab, h, q0, b);
+    for (int j = 0; j < kStages && j < nk; ++j) issue(j);
+  }
+  __syncwarp();
+
+  const int qw0 = q0 + 64 * wg;                 // this warpgroup's queries
+  const int row0 = 16 * warp + lane / 4;
+  const int n_own = qw0 / 64 + 1;   // tiles with a key <= some query of ours
+  // Row r of this thread's two (row0 + 8 r): the running max of the
+  // log2(e)-scaled scores, and this lane's part of the row sum.
+  float m2[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[NS][32], s_[32];
+  zero<D>(acc);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s_[i] = 0.f;
+  mbar_wait(q_full, 0);
+
+  for (int j = 0; j < nk; ++j) {
+    const int parity = (j / kStages) % 2;
+    const uint8_t* st = stages + (j % kStages) * L::kStage;
+    // Every warp waits for every phase of `full`, also for a tile it skips
+    // (see flash_attn_bwd.cu).
+    mbar_wait(full + j % kStages, parity);
+    if (j < n_own) {   // else key > query everywhere in the tile
+      float alpha[2];
+      uint32_t pa[4][4];
+      wgmma_fence();
+      gemm_abt<D>(s_, Qs, 128, 64 * wg, st, 64, 0);                // Q K^T
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(s_);
+      tile_softmax(s_, 64 * j == qw0, row0, lane, scale_log2, m2, l, alpha,
+                   pa);
+      scale_rows<D>(acc, alpha);
+      wgmma_fence();
+      if constexpr (D == 128) {   // one m64n128k16 product per k-step
+        gemm_ax_n128(acc, pa, st + L::kTile, 64, 0);               // O += P V
+      } else {
+        gemm_ax<D>(acc, pa, st + L::kTile, 64, 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int t = 0; t < NS; ++t) reg_fence(acc[t]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + j % kStages);
+    if (tid == 0 && j + kStages < nk) {
+      mbar_wait(empty + j % kStages, parity);
+      issue(j + kStages);
+    }
+    __syncwarp();
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = l[r] == 0.f ? 1.f : 1.f / l[r];   // K1's guard
+  }
+  scale_rows<D>(acc, inv);
+  const int64_t rs = int64_t(H) * D;
+  store_tile<D>(o + ((int64_t(b) * S + qw0) * H + h) * D, rs, acc, row0,
+                lane);
+  if (lse != nullptr && lane % 4 == 0) {
+    float* out = lse + (int64_t(b) * H + h) * S + qw0 + row0;
+    out[0] = kLn2 * m2[0] + logf(l[0]);
+    out[8] = kLn2 * m2[1] + logf(l[1]);
+  }
+}
+
+template <int D>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
+                      float* lse, int B, int S, int H, const int64_t* qs,
+                      const int64_t* ks, const int64_t* vs, float scale,
+                      cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  cudaError_t err;
+  if ((err = make_map(&tq, q, B, S, H, D, qs, 128)) != cudaSuccess ||
+      (err = make_map(&tk, k, B, S, H, D, ks, 64)) != cudaSuccess ||
+      (err = make_map(&tv, v, B, S, H, D, vs, 64)) != cudaSuccess)
+    return err;
+  constexpr int kSmem = TcSmem<D>::kBytes;
+  static SmemLimit limit{reinterpret_cast<const void*>(&flash_fwd_tc<D>),
+                         kSmem};
+  if ((err = limit.apply()) != cudaSuccess) return err;
+  // Heaviest blocks first balances the causal grid, but so many pairs at
+  // once that their K and V outgrow L2 make every q tile fetch them from
+  // device memory again. Groups of pairs whose K and V fill about 32 MB of
+  // the 50 MB L2 keep both (PERF.md has the measurements).
+  const int64_t kv_bytes = int64_t(4) * S * D;   // K and V of one pair
+  const int group = static_cast<int>(
+      std::max<int64_t>(1, std::min<int64_t>(B * H, (int64_t(32) << 20) /
+                                                         kv_bytes)));
+  flash_fwd_tc<D><<<dim3(B * H * (S / 128)), kTcThreads, kSmem, stream>>>(
+      tq, tk, tv, static_cast<bf16*>(o), lse, S, H, group, scale * kLog2e);
   return cudaGetLastError();
 }
 
@@ -294,22 +567,20 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. qs/ks/vs: the (batch, seq, head) strides
 // in elements. lse may be null. Returns the cudaError_t of the launch; the
-// caller has checked shapes, strides, alignment and S % 64 == 0.
+// caller has checked shapes, strides, alignment and S % 128 == 0.
 int flash_attn_fwd(int dtype, const void* q, const void* k, const void* v,
                    void* o, float* lse, int B, int S, int H, int D,
                    const int64_t* qs, const int64_t* ks, const int64_t* vs,
                    float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && D == 64)
-    return launch<float, 64>(q, k, v, o, lse, B, S, H, qs, ks, vs, scale, st);
+    return launch_f32<64>(q, k, v, o, lse, B, S, H, qs, ks, vs, scale, st);
   if (dtype == 0 && D == 128)
-    return launch<float, 128>(q, k, v, o, lse, B, S, H, qs, ks, vs, scale, st);
+    return launch_f32<128>(q, k, v, o, lse, B, S, H, qs, ks, vs, scale, st);
   if (dtype == 1 && D == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, o, lse, B, S, H, qs, ks, vs,
-                                     scale, st);
+    return launch_tc<64>(q, k, v, o, lse, B, S, H, qs, ks, vs, scale, st);
   if (dtype == 1 && D == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, o, lse, B, S, H, qs, ks, vs,
-                                      scale, st);
+    return launch_tc<128>(q, k, v, o, lse, B, S, H, qs, ks, vs, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

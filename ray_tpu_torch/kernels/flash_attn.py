@@ -2,9 +2,9 @@
 versions: the forward (`csrc/flash_attn_fwd.cu`, the port of K1) and the
 backward (`csrc/flash_attn_bwd.cu`: dK/dV, the port of K2, and dQ, the port
 of K3) of the Pallas TPU kernel behind
-`ray_tpu.ops.attention.flash_attention_tpu`. The backward runs bf16 on the
-tensor cores (TMA and wgmma) and float32 on the CUDA cores; the source's
-header note says why.
+`ray_tpu.ops.attention.flash_attention_tpu`. Both sources run bf16 on the
+tensor cores (TMA and wgmma) and float32 on the CUDA cores; their header
+notes say why.
 
 Each wrapper checks its inputs, then launches its kernel for CUDA tensors
 or runs its plain version for CPU tensors. There is no other path: a CUDA
@@ -28,8 +28,9 @@ dq_launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)
-# Keys per tile of the kernel's online softmax (kBlockK in the source): the
-# running max, and so the scale at which p is rounded, moves per tile.
+# Keys per tile of the kernel's online softmax (64-key tiles in both routes
+# of the source): the running max, and so the scale at which p is rounded,
+# moves per tile.
 BLOCK_K = 64
 _lib: Optional[ctypes.CDLL] = None
 _bwd_lib: Optional[ctypes.CDLL] = None

@@ -66,6 +66,85 @@ def test_flash_kernel_rejects_misaligned_views(card):
         flash_attn.flash_attn_fwd(x, x, x)
 
 
+def _fwd_inputs(card, shape, dtype, layout, qk_scale, seed):
+    """q, k, v as views of one [B, S, 3, H, D] tensor (copied apart for
+    layout "contiguous"), q and k times `qk_scale`."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    b, s, h, d = shape
+    qkv = torch.randn((b, s, 3, h, d), generator=gen, device=card)
+    qkv[:, :, :2] *= qk_scale
+    q, k, v = qkv.to(dtype).unbind(2)
+    if layout == "contiguous":
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    return q, k, v
+
+
+@pytest.mark.parametrize("shape,layout,qk_scale", [
+    ((2, 128, 3, 64), "contiguous", 1.0),
+    ((1, 128, 2, 128), "qkv", 1.0),
+    ((2, 384, 3, 128), "contiguous", 1.0),
+    ((1, 384, 4, 64), "qkv", 1.0),
+    ((1, 1024, 4, 128), "qkv", 1.0),
+    ((1, 1024, 2, 64), "contiguous", 1.0),
+    ((2, 1024, 4, 128), "qkv", 4.0),
+])
+def test_bf16_fwd_tensor_core_kernel_matches_plain(card, shape, layout,
+                                                   qk_scale):
+    """The bf16 K1 (wgmma on the tensor cores) against its plain version at
+    S 128, 384 (three 128-row blocks) and 1024, D 64 and 128, contiguous
+    and as views of a fused QKV tensor, and with q and k scaled by 4 (a
+    peaked softmax). Both sides round p to bf16 after subtracting the
+    running max up to its 64-key tile and sum in float32, so they differ
+    by float32 noise that can move an output by one bf16 ulp or flip the
+    rounding of a p: o within 2e-2 of its largest element (about two ulps
+    of it) and within 1e-2 relative L2; lse (float32 throughout) within
+    1e-3."""
+    q, k, v = _fwd_inputs(card, shape, torch.bfloat16, layout, qk_scale, 5)
+    before = flash_attn.launches
+    o, lse = flash_attn.flash_attn_fwd(q, k, v, return_lse=True)
+    torch.cuda.synchronize()
+    assert flash_attn.launches == before + 1
+    assert o.dtype == torch.bfloat16 and o.is_contiguous()
+    assert o.shape == shape and lse.shape == (shape[0], shape[2], shape[1])
+    o_ref, lse_ref = flash_attn.flash_attn_fwd_plain(q, k, v,
+                                                     return_lse=True)
+    g, w = o.float(), o_ref.float()
+    assert (g - w).abs().max().item() <= BF16_TOL * w.abs().max().item()
+    assert ((g - w).norm() / w.norm()).item() <= 1e-2
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("shape,layout", [
+    ((1, 128, 4, 128), "contiguous"),
+    ((1, 1024, 4, 128), "qkv"),
+    ((2, 1024, 2, 64), "contiguous"),
+])
+def test_f32_fwd_kernel_matches_plain(card, shape, layout):
+    """The float32 K1 (CUDA cores) at the engine's smallest and largest
+    prefill lengths: the same function as its plain version in another
+    summation order."""
+    q, k, v = _fwd_inputs(card, shape, torch.float32, layout, 1.0, 6)
+    o, lse = flash_attn.flash_attn_fwd(q, k, v, return_lse=True)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = flash_attn.flash_attn_fwd_plain(q, k, v,
+                                                     return_lse=True)
+    assert o.dtype == torch.float32 and o.is_contiguous()
+    assert bool(((o - o_ref).abs() <= F32_TOL + F32_TOL * o_ref.abs()).all())
+    assert (lse - lse_ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fwd_kernel_is_deterministic(card, dtype):
+    """Each block owns the rows it writes, so two launches on the same
+    inputs give bitwise-equal o and lse."""
+    q, k, v = _fwd_inputs(card, (2, 384, 3, 128), dtype, "qkv", 1.0, 7)
+    first = flash_attn.flash_attn_fwd(q, k, v, return_lse=True)
+    second = flash_attn.flash_attn_fwd(q, k, v, return_lse=True)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 def test_forward_and_engine_prefill_on_card_match_cpu(card):
     """A small model on the card (flash path, S 256) against the same
     weights on the CPU (the kernel's plain version)."""

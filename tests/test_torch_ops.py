@@ -113,6 +113,31 @@ def test_flash_attention_matches_pallas_kernel(shape, dtype):
     np.testing.assert_allclose(got.float().numpy(), want, atol=tol)
 
 
+@pytest.mark.parametrize("shape", [(1, 256, 2, 128), (1, 384, 2, 64)])
+def test_flash_attention_peaked_bf16_matches_pallas_kernel(shape):
+    """q and k scaled by 4 (a peaked softmax: the running max moves from
+    one 64-key tile to the next and p sits near 1 and 0), bf16, through the
+    port's flash function (its plain version) and the Pallas TPU kernel in
+    interpret mode. This pins where the port rounds p: to v's dtype after
+    subtracting the running max up to its tile, as the kernel on the card
+    does. The Pallas kernel takes the whole sequence as one block here, so
+    its p is rounded against the row's final max; either way each rounded
+    term is within 2^-8 of p, so the outputs differ by at most some 2^-8
+    max |v| (BF16_TOL) plus one bf16 ulp of the output where the two
+    float32 values straddle a rounding boundary (rtol 2^-7)."""
+    q, k, v = _qkv(4, shape)
+    q, k = 4 * q, 4 * k
+    with pltpu.force_tpu_interpret_mode():
+        want = jax_attention.flash_attention_tpu(
+            *(jnp.asarray(t, jnp.bfloat16) for t in (q, k, v)))
+    want = np.asarray(want.astype(jnp.float32))
+    got = torch_attention.flash_attention(
+        *(_t(t, torch.bfloat16) for t in (q, k, v)))
+    assert got.dtype == torch.bfloat16 and got.shape == shape
+    np.testing.assert_allclose(got.float().numpy(), want, atol=BF16_TOL,
+                               rtol=2.0 ** -7)
+
+
 @pytest.mark.parametrize("shape,dtype", [
     ((1, 256, 2, 128), "float32"),
     ((1, 256, 2, 128), "bfloat16"),

@@ -6,7 +6,8 @@ tree's, in one process.
     python3 tools/bwd_ab.py BASE.cu [--launches 60] [--repeats 3]
                                               # from the repository root
 
-BASE is built with the tree's nvcc flags into the kernels' build directory
+BASE is built with the tree's nvcc flags (and `kernels/csrc` on the include
+path, so it may include `hopper.cuh`) into the kernels' build directory
 and called through the same C entry points. For each case (the train
 step's shape, D 64, a ragged S 384 and peaked rows with q, k scaled by 4)
 and each side it prints the worst diff/tol of dQ, dK and dV under
@@ -49,14 +50,15 @@ CASES = [
 def load_base(path: str) -> ctypes.CDLL:
     """BASE built like the tree's kernels, with the entry points'
     signatures declared."""
-    src = open(path, "rb").read()
-    digest = hashlib.sha256(src).hexdigest()[:16]
+    digest = hashlib.sha256(open(path, "rb").read())
+    for header in sorted(build.CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = build.BUILD_DIR / f"ab_base-{digest}.so"
+    out = build.BUILD_DIR / f"ab_base-{digest.hexdigest()[:16]}.so"
     if not out.exists():
-        proc = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o",
-                               str(out), path], capture_output=True,
-                              text=True)
+        proc = subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-I",
+                               str(build.CSRC), "-o", str(out), path],
+                              capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"BASE does not build:\n{proc.stdout}"
                                f"{proc.stderr}")

@@ -1,8 +1,8 @@
 // Test kernels for tools/wgmma_products.py: each wgmma product of the bf16
-// attention backward (ray_tpu_torch/kernels/csrc/flash_attn_bwd.cu, whose
-// helpers this file includes) run alone on one 64-row tile, and the float32
+// attention kernels (the helpers of ray_tpu_torch/kernels/csrc/hopper.cuh,
+// which this file includes) run alone on one 64-row tile, and the float32
 // accumulation error of a chain of k-steps.
-#include "../ray_tpu_torch/kernels/csrc/flash_attn_bwd.cu"
+#include "../ray_tpu_torch/kernels/csrc/hopper.cuh"
 
 namespace {
 
@@ -48,10 +48,10 @@ __global__ void product_abt(const __grid_constant__ CUtensorMap ta,
     c[acc_row(i, row0) * 64 + acc_col(i, lane)] = acc[i];
 }
 
-// c[64 x D] = round(P) X (gemm_ax; P [64 x 64] float32 read into the
-// accumulator layout and packed as register A fragments, X [64 x D] read
-// transposed), stored row-major.
-template <int D>
+// c[64 x D] = round(P) X (gemm_ax, or gemm_ax_n128 when N128; P [64 x 64]
+// float32 read into the accumulator layout and packed as register A
+// fragments, X [64 x D] read transposed), stored row-major.
+template <int D, bool N128 = false>
 __global__ void product_ax(const float* p, const __grid_constant__ CUtensorMap tx,
                            float* c) {
   extern __shared__ uint8_t raw[];
@@ -66,7 +66,11 @@ __global__ void product_ax(const float* p, const __grid_constant__ CUtensorMap t
   float acc[D / 64][32];
   zero<D>(acc);
   wgmma_fence();
-  gemm_ax<D>(acc, frag, sm, 64, 0);
+  if constexpr (N128) {
+    gemm_ax_n128(acc, frag, sm, 64, 0);
+  } else {
+    gemm_ax<D>(acc, frag, sm, 64, 0);
+  }
   wgmma_commit();
   wgmma_wait<0>();
   for (int s = 0; s < D / 64; ++s) reg_fence(acc[s]);
@@ -133,6 +137,16 @@ int wgmma_abt(const void* a, const void* b, float* c, int D) {
   const int smem = 1024 + 2 * 64 * D * 2 + 16;
   return D == 64 ? run(product_abt<64>, 1, smem, ta, tb, c)
                  : run(product_abt<128>, 1, smem, ta, tb, c);
+}
+
+// gemm_ax_n128: D 128 only.
+int wgmma_ax_n128(const float* p, const void* x, float* c) {
+  CUtensorMap tx;
+  const int64_t st[3] = {64LL * 128, 128, 128};
+  cudaError_t e = make_map(&tx, x, 1, 64, 1, 128, st, 64);
+  if (e != cudaSuccess) return e;
+  const int smem = 1024 + 64 * 128 * 2 + 16;
+  return run(product_ax<128, true>, 1, smem, p, tx, c);
 }
 
 int wgmma_ax(const float* p, const void* x, float* c, int D) {

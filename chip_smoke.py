@@ -12,7 +12,8 @@ result line:
    (one nvcc per source, all at once), with the build seconds, ptxas's
    register, spill and advisory lines, and the tensor-core instructions
    (HGMMA, HMMA) in each kernel's SASS; a bf16 kernel (forward or
-   backward) without HGMMA fails;
+   backward) without HGMMA fails, and so does a float32 backward kernel
+   with a tensor-core instruction (its route is the CUDA cores);
 3. kernels: K1 against its plain PyTorch version on the card at the shapes
    the serving and training paths give it and a few more (a ragged block
    count, D 64 at the train shape, a peaked softmax), with the error
@@ -31,16 +32,24 @@ result line:
    launched by the prefills, and each request's prefill logits, first token
    and greedy continuation are held against a no-cache float32 forward.
 6. backward kernels: K2 (dK, dV) and K3 (dQ) against their plain versions
-   at the shapes the train step gives them and a few more (a ragged block
-   count, D 64 at the train shape, a peaked softmax), with error, time,
-   achieved TFLOP/s, plain time, bound and, as a yardstick for the pair,
-   the backward of one `scaled_dot_product_attention` call; two launches
-   on the same inputs must give bitwise-equal dQ, dK and dV;
+   at the shapes the train step gives them and a few more (bf16 and
+   float32; a ragged block count, D 64, QKV views, a peaked softmax), with
+   error, time, achieved TFLOP/s, plain time, bound at the route's peak
+   (float32 also at the tensor cores' 3xTF32 rate) and, as a yardstick
+   for the pair, the backward of one `scaled_dot_product_attention` call
+   (CUDA events, and the device time of its own kernels from
+   `torch.profiler`); two launches on the same inputs must give
+   bitwise-equal dQ, dK and dV;
 7. gradients: `lm_loss` gradients at the flagship width (bf16, 2 x 1024
    tokens) through the kernels and through plain attention, each against a
    float32 plain-attention reference; the kernel path must be about as
    close to it as the plain path is, on every leaf;
-8. train: bench.py's configuration and batch (bf16, remat with
+8. float32 gradients: `lm_loss` gradients of a float32 model at the
+   flagship width, depth cut to 2 layers (2 x 1024 tokens, remat
+   "save_attn_qkv"), through K1, K2 and K3's float32 kernels against plain
+   attention, leaf by leaf (wqkv split into q, k, v): rel L2 at most 1e-4
+   on every part, each kernel launched once a layer;
+9. train: bench.py's configuration and batch (bf16, remat with
    "save_attn_qkv", AdamW 1e-4, 16 x 1024 tokens) for 1 warm-up and 10
    timed steps on one fixed random batch: tokens/s, MFU, peak memory and
    kernel launches per step; every loss must be finite, the last below the
@@ -58,12 +67,19 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
+# float32 is the CUDA cores' rate, the route of every float32 kernel.
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# float32 products on the tensor cores as 3xTF32 (three TF32 passes at 495
+# TFLOP/s dense): the bound the float32 K2 and K3 would have there, printed
+# beside their own. tools/tf32x3_products.py measured that route missing
+# the float32 tolerance, so they run on the CUDA cores (PERF.md).
+PEAK_FLOPS_F32_3XTF32 = 495e12 / 3
 PEAK_BYTES = 3.35e12
 FULL_POWER_W = 700.0
 
@@ -122,7 +138,10 @@ TRAIN_SHAPE = ((16, 1024, 12, 128), "bfloat16", "qkv", 1.0)
 # layout), the serving width in both types, D 64, a ragged block count (S
 # 384: three 128-row blocks, six 64-row tiles), D 64 at the train shape,
 # and q and k scaled by 4, whose peaked softmax puts p near 1 and 0 on and
-# off the diagonal, where the mask and the rounding of p act.
+# off the diagonal, where the mask and the rounding of p act. Then the
+# float32 route at the serving width as QKV views, D 64, a ragged block
+# count and a peaked softmax. Row i draws its inputs from seed 100 +
+# 2 i, so new rows go at the end.
 BWD_SHAPES = [
     ((1, 1024, 12, 128), "float32", "contiguous", 1.0),
     ((1, 1024, 12, 128), "bfloat16", "contiguous", 1.0),
@@ -131,8 +150,14 @@ BWD_SHAPES = [
     ((2, 384, 3, 128), "bfloat16", "contiguous", 1.0),
     ((16, 1024, 12, 64), "bfloat16", "qkv", 1.0),
     ((4, 1024, 12, 128), "bfloat16", "qkv", 4.0),
+    ((1, 1024, 12, 128), "float32", "qkv", 1.0),
+    ((1, 1024, 12, 64), "float32", "contiguous", 1.0),
+    ((2, 384, 3, 128), "float32", "contiguous", 1.0),
+    ((4, 1024, 12, 128), "float32", "qkv", 4.0),
 ]
 MAIN_BWD_SHAPE = ((16, 1024, 12, 128), "bfloat16", "qkv", 1.0)
+# The float32 route's row reported in the kernels line.
+F32_BWD_SHAPE = ((1, 1024, 12, 128), "float32", "contiguous", 1.0)
 # K2/K3 against their plain versions, (atol, rtol) plus, in bf16,
 # `bwd_flip_bound`. float32: summation order only. bf16: both sides round p
 # and ds where the TPU kernel does, so they differ by float32 noise, which
@@ -153,6 +178,11 @@ GRAD_BATCH = 2
 # each reach alone (this implies it on whole leaves, on the worst leaf and
 # on the mean). tools/grad_faults.py reads what it catches.
 GRAD_ERR_RATIO = 1.25
+# float32 gradients, kernels against plain attention: both sides are
+# float32 and differ only in attention's summation order (some 1e-6
+# relative L2); the depth is cut to F32_GRAD_LAYERS.
+F32_GRAD_REL_L2 = 1e-4
+F32_GRAD_LAYERS = 2
 
 
 class PhaseError(RuntimeError):
@@ -498,21 +528,60 @@ def phase_engine(params, cfg, card: str):
 
 def bwd_bounds(shape, dtype: str, power_w: float):
     """{kernel: (bound_ms, bound_ms at the power limit, what sets it,
-    operations)} for K2 (4 B H S (S+1) D operations; q, k, v, dO read, dk,
-    dv written, plus lse and di in float32) and K3 (3 B H S (S+1) D; q, k,
-    v, dO read, dq written, plus lse and di)."""
+    operations, bound_ms at the tensor cores' 3xTF32 rate)} for K2 (4 B H
+    S (S+1) D operations; q, k, v, dO read, dk, dv written, plus lse and
+    di in float32) and K3 (3 B H S (S+1) D; q, k, v, dO read, dq written,
+    plus lse and di). The peak is the route's, PEAK_FLOPS (bf16 on the
+    tensor cores, float32 on the CUDA cores); the last entry is None for
+    bf16."""
     b, s, h, d = shape
     esize = 4 if dtype == "float32" else 2
+    peak = PEAK_FLOPS[dtype]
     derate = max(1.0, FULL_POWER_W / power_w) if power_w > 0 else 1.0
     out = {}
     for name, n_products, n_tensors in (("dkv", 4, 6), ("dq", 3, 5)):
         flops = n_products * b * h * s * (s + 1) * d
         nbytes = n_tensors * b * s * h * d * esize + 2 * b * h * s * 4
-        t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+        t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
         bound = max(t_ops, t_bytes) * 1e3
+        tf32x3 = (max(flops / PEAK_FLOPS_F32_3XTF32, t_bytes) * 1e3
+                  if dtype == "float32" else None)
         out[name] = (bound, bound * derate,
-                     "operations" if t_ops >= t_bytes else "bytes", flops)
+                     "operations" if t_ops >= t_bytes else "bytes", flops,
+                     tf32x3)
     return out
+
+
+def device_ms(fn, iters: int, attempts: int = 3):
+    """Device time per call of `fn`: the sum of its kernels' durations
+    over `iters` calls under `torch.profiler`, after one warm-up call, so
+    that gaps on the host between kernels do not count. A profiler session
+    that records no kernel is tried again; after `attempts` such sessions
+    this returns None (not measured): the figure is a yardstick, not a
+    gate."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)]
+        if events:
+            return sum(e.time_range.end - e.time_range.start
+                       for e in events) / 1e3 / iters
+    return None
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
 
 
 def bwd_flip_bound(q, k, v, do, lse, di):
@@ -579,6 +648,8 @@ def phase_bwd_kernels(card: str, power_w: float):
 
     from ray_tpu_torch.kernels import flash_attn
 
+    # A first profiler session starts CUPTI before any row is measured.
+    device_ms(lambda: torch.zeros(1, device="cuda").add_(1), 1)
     rows = {}
     for i_row, (shape, dtype, layout, qk_scale) in enumerate(BWD_SHAPES):
         dt = getattr(torch, dtype)
@@ -627,24 +698,30 @@ def phase_bwd_kernels(card: str, power_w: float):
                       for t in (q, k, v))
         out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
         dot = do.transpose(1, 2)
-        library_ms = cuda_ms(lambda: torch.autograd.grad(
-            out, (qt, kt, vt), dot, retain_graph=True), 10)
+        sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
+            out, (qt, kt, vt), dot, retain_graph=True)
+        library_ms = cuda_ms(sdpa_bwd, 10)
+        library_device_ms = device_ms(sdpa_bwd, 10)
         del out
         for kname, parts in (("dkv", ("dk", "dv")), ("dq", ("dq",))):
             err = max(errs[p][0] for p in parts)
             worst = max(errs[p][1] for p in parts)
-            bound, derated, bound_by, flops = bounds[kname]
+            bound, derated, bound_by, flops, tf32x3 = bounds[kname]
             tflops = flops / times[kname] / 1e9
             rows[(kname, shape, dtype, layout, qk_scale)] = dict(
                 max_abs_err=err, ms=times[kname], plain_ms=plain[kname],
                 bound_ms=bound, bound_ms_at_power_limit=derated,
                 bound_by=bound_by, library_ms=library_ms,
+                library_device_ms=library_device_ms,
                 achieved_tflops=tflops, worst_diff_over_tol=worst)
-            note = ""
+            note = route = ""
             if dtype == "bfloat16":
                 note = (f" + {BWD_FLIPS_PER_ROW} x bwd_flip_bound; without "
                         f"it: worst diff/tol "
                         f"{max(errs[p][2] for p in parts):.3f}")
+            else:
+                route = (f"; at the tensor cores' 3xTF32 rate "
+                         f"{tf32x3 * 1e3:.2f}")
             print(f"kernel flash_attn_bwd_{kname} {tag}: max_abs_err "
                   f"{err:.3e} (tol {atol:g} + "
                   f"{rtol:g}|ref|{note}; worst diff/tol {worst:.3f}; "
@@ -652,15 +729,19 @@ def phase_bwd_kernels(card: str, power_w: float):
                   f"kernel_ms {times[kname]:.4f} achieved_tflops "
                   f"{tflops:.1f} plain_ms "
                   f"{plain[kname]:.4f} library_ms (SDPA backward, K2+K3 "
-                  f"pair) {library_ms:.4f} bound_us {bound * 1e3:.2f} "
-                  f"({bound_by}; {derated * 1e3:.2f} at the power limit) "
+                  f"pair) {library_ms:.4f} (device "
+                  f"{fmt_ms(library_device_ms)}) "
+                  f"bound_us {bound * 1e3:.2f} ({bound_by}; "
+                  f"{derated * 1e3:.2f} at the power limit{route}) "
                   f"[{card}]", flush=True)
             check(worst <= 1, f"flash_attn_bwd_{kname} {tag} disagrees "
                   f"with its plain version: max_abs_err {err:.3e}, worst "
                   f"diff/tol {worst:.3f}")
         print(f"kernel flash_attn_bwd K2+K3 {tag}: kernels_ms "
               f"{times['dkv'] + times['dq']:.4f} library_ms "
-              f"{library_ms:.4f} [{card}]", flush=True)
+              f"{library_ms:.4f} library_device_ms "
+              f"{fmt_ms(library_device_ms)} "
+              f"[{card}]", flush=True)
         del q, k, v, do, o, lse, di, dk, dv, dq, qt, kt, vt, dot
         torch.cuda.empty_cache()
     return rows
@@ -692,10 +773,10 @@ def _split_qkv(names, tensors):
 
 
 def grad_errors(params, cfg):
-    """`lm_loss` gradients (bf16, GRAD_BATCH x TRAIN_SEQ tokens) through the
-    kernels and through plain attention, each leaf's relative L2 distance
-    to a float32 plain-attention reference, and the K1, K2, K3 launches of
-    the kernel path."""
+    """`lm_loss` gradients (in cfg's dtype, GRAD_BATCH x TRAIN_SEQ tokens)
+    through the kernels and through plain attention, each leaf's relative
+    L2 distance to a float32 plain-attention reference, and the K1, K2, K3
+    launches of the kernel path (counted from 0 just before it)."""
     from dataclasses import replace
 
     import torch
@@ -789,6 +870,40 @@ def phase_grad(params, cfg, card: str):
     check(ok, f"the kernel-path gradient of {part_names[pworst]} is "
               f"further from float32 ({part_k[pworst]:.3e}) than the plain "
               f"path's ({part_p[pworst]:.3e}) allows")
+
+
+def phase_grad_f32(params, cfg, card: str):
+    """The float32 training path through K1, K2 and K3's float32 route:
+    `lm_loss` gradients of a float32 model at the flagship width, depth
+    cut to F32_GRAD_LAYERS, against plain attention's, leaf by leaf with
+    wqkv split into q, k, v. Returns the K1, K2, K3 launches."""
+    from dataclasses import replace
+
+    import torch
+
+    cfg = replace(cfg, n_layers=F32_GRAD_LAYERS, dtype=torch.float32)
+    params = dict(params, layers=params["layers"][:F32_GRAD_LAYERS])
+    r = grad_errors(params, cfg)
+    names, part_k, counts = r["part_names"], r["part_k"], r["counts"]
+    worst = max(range(len(names)), key=part_k.__getitem__)
+    loss_k, loss_p, _ = r["losses"]
+    print(f"grad flagship f32 depth {cfg.n_layers} [{GRAD_BATCH}, "
+          f"{TRAIN_SEQ}] remat {cfg.remat_policy}: loss kernels "
+          f"{loss_k:.6f} plain {loss_p:.6f}; rel_l2 kernels vs plain "
+          f"attention over {len(names)} parts (wqkv split into q, k, v): "
+          f"max {part_k[worst]:.3e} ({names[worst]}), mean "
+          f"{sum(part_k) / len(part_k):.3e} (limit {F32_GRAD_REL_L2:g}); "
+          f"launches K1 {counts[0]} K2 {counts[1]} K3 {counts[2]} [{card}]",
+          flush=True)
+    check(all(c == cfg.n_layers for c in counts),
+          f"the float32 gradient launched K1, K2, K3 {counts} times, "
+          f"expected {cfg.n_layers} each")
+    check(r["finite"], "float32 kernel-path gradients are not finite")
+    check(part_k[worst] <= F32_GRAD_REL_L2,
+          f"the float32 kernel-path gradient of {names[worst]} is "
+          f"{part_k[worst]:.3e} from plain attention's (rel L2), over "
+          f"{F32_GRAD_REL_L2:g}")
+    return counts
 
 
 def phase_train(params, cfg, card: str, power_w: float):
@@ -964,23 +1079,36 @@ def main() -> int:
         print(f"build {sorted(build.KERNELS)} in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         for kname, info in build.build_log.items():
+            fn = kname
             for line in info["log"].splitlines():
-                if "registers" in line or "spill" in line or "(C75" in line:
-                    print(f"  ptxas {kname}: {line.strip()}")
+                entry = re.search(r"Compiling entry function .*?"
+                                  r"(flash_(?:fwd|bwd)_\w+?)ILi(\d+)E", line)
+                if entry:
+                    fn = f"{entry[1]}<{entry[2]}>"
+                elif "registers" in line or "spill" in line or "(C75" in line:
+                    print(f"  ptxas {fn}: {line.strip()}")
         libs = build.build()
+        counts = {}
         for kname, tc_names in (("flash_attn_fwd", ("flash_fwd_tc",)),
                                 ("flash_attn_bwd", ("flash_bwd_dkv_tc",
                                                     "flash_bwd_dq_tc"))):
-            counts = sass_mma_counts(libs[kname])
-            tc = {f: c for f, c in counts.items()
+            counts[kname] = sass_mma_counts(libs[kname])
+            tc = {f: c for f, c in counts[kname].items()
                   if any(n in f for n in tc_names)}
-            for fn, (hgmma, hmma) in sorted(counts.items()):
+            for fn, (hgmma, hmma) in sorted(counts[kname].items()):
                 print(f"  sass {kname} {fn}: HGMMA {hgmma} HMMA {hmma}")
             # One instantiation per head dim (64, 128) of each kernel.
             check(len(tc) == 2 * len(tc_names)
                   and all(c[0] > 0 for c in tc.values()),
                   f"the bf16 kernels of {kname} are not all on the tensor "
                   f"cores (wgmma): {tc}")
+        f32 = {f: c for f, c in counts["flash_attn_bwd"].items()
+               if "flash_bwd_dkv_f32" in f or "flash_bwd_dq_f32" in f}
+        check(len(f32) == 4 and all(c == (0, 0) for c in f32.values()),
+              f"the float32 backward kernels are on the CUDA-core route "
+              f"but run tensor-core instructions: {f32}")
+        print("  sass: the float32 backward kernels run no tensor-core "
+              "instruction (CUDA-core route)", flush=True)
 
         rows = phase_kernels(card, power_w)
 
@@ -993,6 +1121,7 @@ def main() -> int:
         bwd_rows = phase_bwd_kernels(card, power_w)
         train_cfg = replace(cfg, remat=True, remat_policy="save_attn_qkv")
         phase_grad(params, train_cfg, card)
+        f32_launches = phase_grad_f32(params, train_cfg, card)
         train_launches, _ = phase_train(params, train_cfg, card, power_w)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
@@ -1009,6 +1138,17 @@ def main() -> int:
                 **bwd_rows[(kname, shape, dtype, layout, qk_scale)])
            for kname, line, n in (("dkv", 1121, train_launches[1]),
                                   ("dq", 1456, train_launches[2]))]
+    shape, dtype, layout, qk_scale = F32_BWD_SHAPE
+    bwd += [dict(name=f"flash_attn_bwd_{kname}_f32", route="cuda",
+                 kernel=f"flash_bwd_{kname}_f32",
+                 source="ray_tpu_torch/kernels/csrc/flash_attn_bwd.cu",
+                 replaces="ray_tpu/ops/attention.py:28",
+                 pallas_call=f"{jax_site}:{line}", launches=n,
+                 launches_in="float32 gradient phase",
+                 shape=list(shape), dtype=dtype, layout=layout,
+                 **bwd_rows[(kname, shape, dtype, layout, qk_scale)])
+            for kname, line, n in (("dkv", 1121, f32_launches[1]),
+                                   ("dq", 1456, f32_launches[2]))]
     print(json.dumps({"kernels": [dict(
         name="flash_attn_fwd", route="cuda",
         source="ray_tpu_torch/kernels/csrc/flash_attn_fwd.cu",

@@ -70,125 +70,49 @@
 // - dQ computes p while dP's products run (committed as a group of their
 //   own); the same overlap in dK/dV measured no faster, so it waits once.
 // - A warpgroup skips a tile whose every (key, query) is masked.
-// float32: flash_bwd_dkv_f32 and flash_bwd_dq_f32, on the CUDA cores (the
-// tensor cores take float32 only as TF32, which keeps 10 mantissa bits: too
-// few for the float32 path's 1e-4 tolerance). Blocks of 256 threads over
-// 64-row tiles staged in shared memory; thread (ty, tx) of a 16 x 16 grid
-// computes the score and dp elements (rows ty + 16 i, columns tx + 16 j;
-// i, j < 4) of each 64 x 64 tile with scalar FMAs, and owns output rows
-// ty + 16 i, columns tx*4 + 64 jj .. +3. The dK/dV block keeps K, V and the
-// transposed p and ds tiles in 170 KB of shared memory at D 128, so one
-// block runs per SM; loads are synchronous.
+// float32: flash_bwd_dkv_f32 and flash_bwd_dq_f32, on the CUDA cores.
+// - Why not the tensor cores: they take float32 only as TF32 (10 mantissa
+//   bits); 3xTF32 (hi/lo splits, three mma.sync passes) keeps products
+//   within 1.6-3.0x of float32 FMA's error, but the float32 gate (1e-4,
+//   1e-4 against the plain version) sits at float32's own noise where q
+//   and k are scaled by 4: |q.k| reaches hundreds, exp() turns its
+//   rounding into p's, and only a kernel that sums q.k and dO.v in the
+//   plain version's order (sequential FMAs over d, as cuBLAS's float32
+//   GEMM does) passes there. tools/tf32x3_products.py and PERF.md have
+//   the numbers.
+// - So every sum runs in that order: S and dP by sequential FMAs over d,
+//   dV, dK and dQ by sequential FMAs over the queries (keys) in order,
+//   tile after tile. Any block shape that keeps it gives the same bits;
+//   the design below is about the structure around the sums.
+// - A block of 128 threads per (head, batch, 32-row tile): 32 keys (dK/dV)
+//   or 32 queries (dQ) resident, the other side's 32-row tiles streamed
+//   through a two-stage cp.async ring (with lse and di in dK/dV), so tile
+//   i + 1 lands while tile i's products run. About 111 KB of shared memory
+//   at D 128: two blocks share an SM. 32-row blocks halve the heaviest
+//   block's work (the causal grid's critical path) against 64-row ones.
+// - Blocks are issued heaviest first (the first k tile in dK/dV, the last
+//   q tile in dQ) across every (batch, head) pair, in groups of pairs whose
+//   streamed pair of tensors fits about 32 MB of L2.
+// - Per tile, two warps compute S (S^T in dK/dV) and two dP (dP^T), each
+//   thread a 4 x 4 register tile of one product (2 FMAs per shared-memory
+//   word, the K or Q rows broadcast within a warp), and write the exponent
+//   s scale - lse (-inf where masked) or dp to shared memory; then all
+//   four warps turn 8 elements each into p and ds in place, so neither
+//   half waits on the other's exp or ds work; then the first two warps
+//   accumulate dV (8 keys x D / 16 columns a thread: 4 FMAs per word at D
+//   128) and the other two dK, or all four dQ (4 queries x D / 16 columns
+//   a thread). The products are bound by shared memory (a 128-bit load
+//   costs four wavefronts): designs with more loads per FMA (256-thread
+//   blocks; S and dP in the same thread) measured slower.
+// - Each block owns the rows it writes: no atomics, bitwise-equal launches.
 
 #include <math.h>
 
-#include "hopper.cuh"  // TMA, mbarriers, wgmma, tensor maps
+#include <algorithm>
+
+#include "hopper.cuh"  // TMA, mbarriers, wgmma, tensor maps, cp.async
 
 namespace {
-
-// ---------------------------------------------------------------------------
-// float32: the CUDA-core kernels.
-
-constexpr int kBlock = 64;     // rows of a q tile and of a k tile
-constexpr int kThreads = 256;
-constexpr int kLdT = kBlock + 4;  // row stride of a 64 x 64 tile in shared
-
-// Copy 64 rows of D floats (row stride `rs` elements) into shared memory as
-// rows of stride LD.
-template <int D, int LD>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int64_t rs, int tid) {
-  constexpr int kChunks = D / 4;
-#pragma unroll 4
-  for (int i = tid; i < kBlock * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c = (i % kChunks) * 4;
-    *reinterpret_cast<float4*>(dst + r * LD + c) =
-        *reinterpret_cast<const float4*>(src + r * rs + c);
-  }
-}
-
-// out[i][j] = sum_d A[ty + 16 i][d] * B[tx + 16 j][d] over two 64-row tiles
-// of row stride LD.
-template <int D, int LD>
-__device__ __forceinline__ void tile_dots(const float* A, const float* B,
-                                          int ty, int tx, float out[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) out[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; d += 4) {
-    float4 a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      a[i] = *reinterpret_cast<const float4*>(A + (ty + 16 * i) * LD + d);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      b[j] = *reinterpret_cast<const float4*>(B + (tx + 16 * j) * LD + d);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float s = out[i][j];
-        s = fmaf(a[i].x, b[j].x, s);
-        s = fmaf(a[i].y, b[j].y, s);
-        s = fmaf(a[i].z, b[j].z, s);
-        s = fmaf(a[i].w, b[j].w, s);
-        out[i][j] = s;
-      }
-  }
-}
-
-// acc[i][jj*4 + e] += sum_r P[ty + 16 i][r] * X[r][jj*64 + tx*4 + e], with
-// P a 64 x 64 tile (row stride kLdT) and X a 64-row tile of row stride LD.
-template <int D, int LD>
-__device__ __forceinline__ void tile_accumulate(const float* P, const float* X,
-                                                int ty, int tx,
-                                                float acc[4][D / 16]) {
-#pragma unroll 2
-  for (int r = 0; r < kBlock; r += 4) {
-    float4 pa[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      pa[i] = *reinterpret_cast<const float4*>(P + (ty + 16 * i) * kLdT + r);
-#pragma unroll
-    for (int rr = 0; rr < 4; ++rr) {
-#pragma unroll
-      for (int jj = 0; jj < D / 64; ++jj) {
-        const float4 xb = *reinterpret_cast<const float4*>(
-            X + (r + rr) * LD + jj * 64 + tx * 4);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float p = rr == 0 ? pa[i].x
-                        : rr == 1 ? pa[i].y
-                        : rr == 2 ? pa[i].z : pa[i].w;
-          acc[i][jj * 4 + 0] = fmaf(p, xb.x, acc[i][jj * 4 + 0]);
-          acc[i][jj * 4 + 1] = fmaf(p, xb.y, acc[i][jj * 4 + 1]);
-          acc[i][jj * 4 + 2] = fmaf(p, xb.z, acc[i][jj * 4 + 2]);
-          acc[i][jj * 4 + 3] = fmaf(p, xb.w, acc[i][jj * 4 + 3]);
-        }
-      }
-    }
-  }
-}
-
-// Rows ty + 16 i of a tile starting at row `r0` of a contiguous [B, S, H, D]
-// output, columns tx*4 + 64 jj .. +3.
-template <int D>
-__device__ __forceinline__ void store_rows(float* out, int b, int h, int S,
-                                           int H, int r0, int ty, int tx,
-                                           const float acc[4][D / 16]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float* row = out + ((int64_t(b) * S + r0 + ty + 16 * i) * H + h) * D;
-#pragma unroll
-    for (int jj = 0; jj < D / 64; ++jj)
-      *reinterpret_cast<float4*>(row + jj * 64 + tx * 4) =
-          make_float4(acc[i][jj * 4 + 0], acc[i][jj * 4 + 1],
-                      acc[i][jj * 4 + 2], acc[i][jj * 4 + 3]);
-  }
-}
 
 struct Args {
   const void* q;
@@ -204,191 +128,396 @@ struct Args {
   float scale;
 };
 
+// ---------------------------------------------------------------------------
+// float32: the CUDA-core kernels.
+
+constexpr int kF32Rows = 32;         // rows of a block and of a streamed tile
+constexpr int kF32Threads = 128;     // four warps, two per product
+constexpr int kLdP = kF32Rows + 4;   // row stride of a 32 x 32 p or ds tile
+// A 32 x 32 product over the kF32Threads / 2 threads of one half: thread
+// (ty, tx) of a kPy x 8 grid owns rows ty + kPy i (i < kPi) and columns
+// tx + 8 j (j < 4).
+constexpr int kPy = kF32Threads / 2 / 8;
+constexpr int kPi = kF32Rows / kPy;
+// Sums over a 32 x D output: 16 threads share a row's D / 16-column groups.
+constexpr int kSumRows = kF32Rows * 16 / (kF32Threads / 2);   // one half
+constexpr int kSumRowsAll = kF32Rows * 16 / kF32Threads;      // all threads
+
+// Shared memory, in floats: the two resident tiles (K, V or Q, dO), two
+// stages of the two streamed tiles (Q, dO or K, V) with 32 floats each of
+// lse and di (read by dK/dV only), the 32 x 32 p and ds tiles, and dQ's
+// 32 di. Rows are D + 4 floats apart (16-byte aligned, and the eight rows
+// a quarter warp reads at one column start on distinct banks). About 111
+// KB at D 128, so two blocks share an SM.
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dkv_f32(const Args a) {
-  constexpr int LD = D + 4;
-  constexpr int NC = D / 16;
+struct F32Smem {
+  static constexpr int kLd = D + 4;
+  static constexpr int kTile = kF32Rows * kLd;
+  static constexpr int kStage = 2 * kTile + 2 * kF32Rows;
+  static constexpr int kStages = 2 * kTile;            // stage 0
+  static constexpr int kP = kStages + 2 * kStage;      // p, then ds
+  static constexpr int kBytes = (kP + 2 * kF32Rows * kLdP + kF32Rows) * 4;
+};
+
+// Start copying 32 rows of D floats (row stride `rs` elements) into a tile.
+template <int D>
+__device__ __forceinline__ void copy_tile(float* dst, const float* src,
+                                          int64_t rs, int tid) {
+  constexpr int kChunks = D / 4;
+#pragma unroll
+  for (int i = tid; i < kF32Rows * kChunks; i += kF32Threads) {
+    const int r = i / kChunks;
+    const int c = (i % kChunks) * 4;
+    cp_async16(dst + r * F32Smem<D>::kLd + c, src + r * rs + c);
+  }
+}
+
+// Block order: the (batch, head) pairs in groups of `group`, and within a
+// group the heaviest tile of every pair first. This block's pair, and its
+// tile's rank (0 = heaviest) among a pair's n_t.
+__device__ __forceinline__ void f32_block(int n_t, int group, int& bh,
+                                          int& rank) {
+  const int n_bh = gridDim.x / n_t;
+  const int g0 = blockIdx.x / (group * n_t) * group;   // its first pair
+  const int g_size = min(group, n_bh - g0);
+  const int r = blockIdx.x - g0 * n_t;
+  bh = g0 + r % g_size;
+  rank = r / g_size;
+}
+
+// out[i][j] = sum over d in order of A[ty + kPy i][d] B[tx + 8 j][d], two
+// 32-row tiles of row stride D + 4.
+template <int D>
+__device__ __forceinline__ void tile_dots(const float* A, const float* B,
+                                          int ty, int tx,
+                                          float out[kPi][4]) {
+  constexpr int kLd = F32Smem<D>::kLd;
+#pragma unroll
+  for (int i = 0; i < kPi; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) out[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < D; d += 4) {
+    float4 a[kPi], b[4];
+#pragma unroll
+    for (int i = 0; i < kPi; ++i)
+      a[i] = *reinterpret_cast<const float4*>(A + (ty + kPy * i) * kLd + d);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      b[j] = *reinterpret_cast<const float4*>(B + (tx + 8 * j) * kLd + d);
+#pragma unroll
+    for (int i = 0; i < kPi; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float s = out[i][j];
+        s = fmaf(a[i].x, b[j].x, s);
+        s = fmaf(a[i].y, b[j].y, s);
+        s = fmaf(a[i].z, b[j].z, s);
+        s = fmaf(a[i].w, b[j].w, s);
+        out[i][j] = s;
+      }
+  }
+}
+
+// acc[i][jj*4 + e] += sum over r < 32 in order of P[row0 + step i][r]
+// X[r][jj*64 + cx*4 + e]: P a 32 x 32 tile (row stride kLdP), X a 32-row
+// tile of row stride D + 4; RT rows, D / 16 columns a thread.
+template <int D, int RT>
+__device__ __forceinline__ void tile_accumulate(const float* P,
+                                                const float* X, int row0,
+                                                int step, int cx,
+                                                float acc[RT][D / 16]) {
+  constexpr int kLd = F32Smem<D>::kLd;
+#pragma unroll 2
+  for (int r = 0; r < kF32Rows; r += 4) {
+    float4 pa[RT];
+#pragma unroll
+    for (int i = 0; i < RT; ++i)
+      pa[i] = *reinterpret_cast<const float4*>(P + (row0 + step * i) * kLdP +
+                                               r);
+#pragma unroll
+    for (int rr = 0; rr < 4; ++rr) {
+#pragma unroll
+      for (int jj = 0; jj < D / 64; ++jj) {
+        const float4 xb = *reinterpret_cast<const float4*>(
+            X + (r + rr) * kLd + jj * 64 + cx * 4);
+#pragma unroll
+        for (int i = 0; i < RT; ++i) {
+          const float p = rr == 0 ? pa[i].x
+                        : rr == 1 ? pa[i].y
+                        : rr == 2 ? pa[i].z : pa[i].w;
+          acc[i][jj * 4 + 0] = fmaf(p, xb.x, acc[i][jj * 4 + 0]);
+          acc[i][jj * 4 + 1] = fmaf(p, xb.y, acc[i][jj * 4 + 1]);
+          acc[i][jj * 4 + 2] = fmaf(p, xb.z, acc[i][jj * 4 + 2]);
+          acc[i][jj * 4 + 3] = fmaf(p, xb.w, acc[i][jj * 4 + 3]);
+        }
+      }
+    }
+  }
+}
+
+// p = exp(x) and ds = p (dp - di) scale in place over a 32 x 32 tile: x
+// in P (-inf where masked, so p is 0), dp in dS; di by column (dK/dV's
+// transposed tiles) or, when kDiByRow, by row. Thread t takes row t / 4,
+// columns 8 (t % 4) .. + 7, as two float4 (a quarter warp's eight cover
+// all 32 banks).
+template <bool kDiByRow>
+__device__ __forceinline__ void p_and_ds(float* P, float* dS,
+                                         const float* di, float scale,
+                                         int tid) {
+  const int row = tid / 4, col0 = 8 * (tid % 4);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float4* pp = reinterpret_cast<float4*>(P + row * kLdP + col0 + 4 * h);
+    float4* dd = reinterpret_cast<float4*>(dS + row * kLdP + col0 + 4 * h);
+    const float4 x = *pp, dp = *dd;
+    const float4 d = kDiByRow
+        ? make_float4(di[row], di[row], di[row], di[row])
+        : *reinterpret_cast<const float4*>(di + col0 + 4 * h);
+    float4 p, ds;
+    p.x = expf(x.x);
+    p.y = expf(x.y);
+    p.z = expf(x.z);
+    p.w = expf(x.w);
+    ds.x = p.x * (dp.x - d.x) * scale;
+    ds.y = p.y * (dp.y - d.y) * scale;
+    ds.z = p.z * (dp.z - d.z) * scale;
+    ds.w = p.w * (dp.w - d.w) * scale;
+    *pp = p;
+    *dd = ds;
+  }
+}
+
+// Rows row0 + step i of a contiguous [B, S, H, D] float32 output, columns
+// jj*64 + cx*4 .. +3.
+template <int D, int RT>
+__device__ __forceinline__ void store_rows(float* out, int b, int h, int S,
+                                           int H, int row0, int step, int cx,
+                                           const float acc[RT][D / 16]) {
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    float* row = out + ((int64_t(b) * S + row0 + step * i) * H + h) * D;
+#pragma unroll
+    for (int jj = 0; jj < D / 64; ++jj)
+      *reinterpret_cast<float4*>(row + jj * 64 + cx * 4) =
+          make_float4(acc[i][jj * 4 + 0], acc[i][jj * 4 + 1],
+                      acc[i][jj * 4 + 2], acc[i][jj * 4 + 3]);
+  }
+}
+
+// dK/dV. Block: 32 keys k0.. of one (batch, head), the first k tile (the
+// most q tiles) first; the 32-query tiles from the diagonal down stream
+// in. Warps 0-1 compute S^T and then dV, warps 2-3 dP^T and then dK.
+template <int D>
+__global__ void __launch_bounds__(kF32Threads, 2)
+flash_bwd_dkv_f32(const Args a, int group) {
+  using L = F32Smem<D>;
   extern __shared__ float4 smem4[];
-  float* Ks = reinterpret_cast<float*>(smem4);
-  float* Vs = Ks + kBlock * LD;
-  float* Qs = Vs + kBlock * LD;
-  float* dOs = Qs + kBlock * LD;
-  float* Pt = dOs + kBlock * LD;   // p transposed: [key][query]
-  float* dSt = Pt + kBlock * kLdT; // ds transposed
-  float* rowv = dSt + kBlock * kLdT;  // lse, then di, of the q tile's rows
+  float* sm = reinterpret_cast<float*>(smem4);
+  float* Ks = sm;
+  float* Vs = sm + L::kTile;
+  float* Pt = sm + L::kP;             // the exponents, then p^T: [key][query]
+  float* dSt = Pt + kF32Rows * kLdP;  // dP^T, then ds^T
 
-  const float* q = static_cast<const float*>(a.q);
-  const float* k = static_cast<const float*>(a.k);
-  const float* v = static_cast<const float*>(a.v);
-  const float* dout = static_cast<const float*>(a.dout);
   const int S = a.S, H = a.H;
-  const int kt = blockIdx.x;
-  const int nt = gridDim.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  int bh, rank;
+  f32_block(S / kF32Rows, group, bh, rank);
+  const int h = bh % H, b = bh / H;
+  const int k0 = kF32Rows * rank;
+  const int nq = S / kF32Rows - rank;   // q tiles q0 = k0 + 32 i
   const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int k0 = kt * kBlock;
+  const bool first = tid < kF32Threads / 2;   // S^T and dV; else dP^T, dK
+  const int th = tid % (kF32Threads / 2);
+  const int ty = th / 8, tx = th % 8;     // products: keys ty + kPy i
+  const int ky = th / 16, cx = th % 16;   // sums: keys ky + kSumStep i
+  constexpr int kSumStep = kF32Rows / kSumRows;
 
-  load_tile<D, LD>(Ks, k + b * a.ksb + h * a.ksh + k0 * a.kss, a.kss, tid);
-  load_tile<D, LD>(Vs, v + b * a.vsb + h * a.vsh + k0 * a.vss, a.vss, tid);
-  const float* qbase = q + b * a.qsb + h * a.qsh;
+  const float* q = static_cast<const float*>(a.q) + b * a.qsb + h * a.qsh;
   const int64_t dos = int64_t(H) * D;
-  const float* dobase = dout + (int64_t(b) * S * H + h) * D;
+  const float* dout = static_cast<const float*>(a.dout) +
+                      (int64_t(b) * S * H + h) * D;
   const float* lse = a.lse + (int64_t(b) * H + h) * S;
   const float* di = a.di + (int64_t(b) * H + h) * S;
-
-  float dk[4][NC], dv[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) dk[i][c] = dv[i][c] = 0.f;
-
-  // kBlock rows per tile on both sides, so q tile kt is the diagonal one.
-  for (int qt = kt; qt < nt; ++qt) {
-    const int q0 = qt * kBlock;
-    __syncthreads();  // the previous tile's products are done with the tiles
-    load_tile<D, LD>(Qs, qbase + q0 * a.qss, a.qss, tid);
-    load_tile<D, LD>(dOs, dobase + q0 * dos, dos, tid);
-    if (tid < kBlock) {
-      rowv[tid] = lse[q0 + tid];
-      rowv[kBlock + tid] = di[q0 + tid];
+  auto issue = [&](int i) {   // q tile i into stage i % 2
+    float* st = sm + L::kStages + (i % 2) * L::kStage;
+    const int q0 = k0 + kF32Rows * i;
+    copy_tile<D>(st, q + q0 * a.qss, a.qss, tid);
+    copy_tile<D>(st + L::kTile, dout + q0 * dos, dos, tid);
+    if (tid < 16) {   // lse (chunks 0..7), then di
+      const float* src = tid < 8 ? lse + q0 + 4 * tid : di + q0 + 4 * (tid - 8);
+      cp_async16(st + 2 * L::kTile + 4 * tid, src);
     }
-    __syncthreads();
+  };
+  copy_tile<D>(Ks, static_cast<const float*>(a.k) + b * a.ksb + h * a.ksh +
+                       k0 * a.kss, a.kss, tid);
+  copy_tile<D>(Vs, static_cast<const float*>(a.v) + b * a.vsb + h * a.vsh +
+                       k0 * a.vss, a.vss, tid);
+  issue(0);
+  cp_async_commit();
 
-    float s[4][4], dp[4][4];
-    tile_dots<D, LD>(Qs, Ks, ty, tx, s);    // [query ty+16i][key tx+16j]
-    tile_dots<D, LD>(dOs, Vs, ty, tx, dp);
-    const bool diag = (qt == kt);
+  float acc[kSumRows][D / 16];   // dV (first warps) or dK
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = ty + 16 * i;
-      const float l = rowv[row];
-      const float d = rowv[kBlock + row];
+  for (int i = 0; i < kSumRows; ++i)
+#pragma unroll
+    for (int c = 0; c < D / 16; ++c) acc[i][c] = 0.f;
+  const float scale = a.scale;
+
+  // 32 rows on both sides, so q tile 0 is the diagonal one.
+  for (int i = 0; i < nq; ++i) {
+    cp_async_wait<0>();
+    __syncthreads();   // tile i has landed; every warp is done with i - 1
+    if (i + 1 < nq) issue(i + 1);
+    cp_async_commit();
+    const float* Qs = sm + L::kStages + (i % 2) * L::kStage;
+    const float* dOs = Qs + L::kTile;
+    const float* lse_t = Qs + 2 * L::kTile;
+    const float* di_t = lse_t + kF32Rows;
+
+    // S^T (first warps: the exponent s scale - lse, -inf where masked,
+    // into Pt) or dP^T (into dSt), [key][query]; then every thread turns
+    // 8 of them into p and ds in place.
+    float s[kPi][4];
+    tile_dots<D>(first ? Ks : Vs, first ? Qs : dOs, ty, tx, s);
+#pragma unroll
+    for (int ii = 0; ii < kPi; ++ii)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int col = tx + 16 * j;
-        const float p =
-            (diag && col > row) ? 0.f : expf(s[i][j] * a.scale - l);
-        Pt[col * kLdT + row] = p;
-        dSt[col * kLdT + row] = p * (dp[i][j] - d) * a.scale;
+        const int key = ty + kPy * ii, qry = tx + 8 * j;
+        if (first) {
+          Pt[key * kLdP + qry] = (i == 0 && key > qry)
+                                     ? -INFINITY
+                                     : s[ii][j] * scale - lse_t[qry];
+        } else {
+          dSt[key * kLdP + qry] = s[ii][j];
+        }
       }
-    }
-    __syncthreads();
-    tile_accumulate<D, LD>(Pt, dOs, ty, tx, dv);   // rows: keys
-    tile_accumulate<D, LD>(dSt, Qs, ty, tx, dk);
+    __syncthreads();   // the exponents and dP^T are complete
+    p_and_ds<false>(Pt, dSt, di_t, scale, tid);
+    __syncthreads();   // p^T and ds^T are complete
+    // dV += P^T dO (first warps), dK += dS^T Q
+    tile_accumulate<D, kSumRows>(first ? Pt : dSt, first ? dOs : Qs, ky,
+                                 kSumStep, cx, acc);
   }
 
-  store_rows<D>(static_cast<float*>(a.out0), b, h, S, H, k0, ty, tx, dk);
-  store_rows<D>(static_cast<float*>(a.out1), b, h, S, H, k0, ty, tx, dv);
+  store_rows<D, kSumRows>(static_cast<float*>(first ? a.out1 : a.out0), b, h,
+                          S, H, k0 + ky, kSumStep, cx, acc);
 }
 
+// dQ. Block: 32 queries q0.. of one (batch, head), the last q tile (the
+// most k tiles) first; the 32-key tiles up to the diagonal stream in.
+// Warps 0-1 compute S, warps 2-3 dP, then all four dQ.
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dq_f32(const Args a) {
-  constexpr int LD = D + 4;
-  constexpr int NC = D / 16;
-  static_assert(kLdT <= LD, "ds must fit in the V tile");
+__global__ void __launch_bounds__(kF32Threads, 2)
+flash_bwd_dq_f32(const Args a, int group) {
+  using L = F32Smem<D>;
   extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* dOs = Qs + kBlock * LD;
-  float* Ks = dOs + kBlock * LD;
-  float* Vs = Ks + kBlock * LD;
-  float* dSs = Vs;  // ds [query][key], once dO.v is done with Vs
+  float* sm = reinterpret_cast<float*>(smem4);
+  float* Qs = sm;
+  float* dOs = sm + L::kTile;
+  float* Ps = sm + L::kP;             // the exponents, then p: [query][key]
+  float* dSs = Ps + kF32Rows * kLdP;  // dP, then ds
+  float* di_s = dSs + kF32Rows * kLdP;   // di of the block's queries
 
-  const float* q = static_cast<const float*>(a.q);
-  const float* k = static_cast<const float*>(a.k);
-  const float* v = static_cast<const float*>(a.v);
-  const float* dout = static_cast<const float*>(a.dout);
-  const int S = a.S, H = a.H;
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int S = a.S, H = a.H, n_t = S / kF32Rows;
+  int bh, rank;
+  f32_block(n_t, group, bh, rank);
+  const int h = bh % H, b = bh / H;
+  const int qt = n_t - 1 - rank;
+  const int q0 = kF32Rows * qt;
   const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int q0 = qt * kBlock;
+  const bool first = tid < kF32Threads / 2;   // S; else dP
+  const int th = tid % (kF32Threads / 2);
+  const int ty = th / 8, tx = th % 8;       // products: queries ty + kPy i
+  const int qy = tid / 16, cx = tid % 16;   // sums: queries qy + kSumStep i
+  constexpr int kSumStep = kF32Rows / kSumRowsAll;
 
-  load_tile<D, LD>(Qs, q + b * a.qsb + h * a.qsh + q0 * a.qss, a.qss, tid);
+  const float* k = static_cast<const float*>(a.k) + b * a.ksb + h * a.ksh;
+  const float* v = static_cast<const float*>(a.v) + b * a.vsb + h * a.vsh;
+  auto issue = [&](int j) {   // k tile j into stage j % 2
+    float* st = sm + L::kStages + (j % 2) * L::kStage;
+    copy_tile<D>(st, k + kF32Rows * j * a.kss, a.kss, tid);
+    copy_tile<D>(st + L::kTile, v + kF32Rows * j * a.vss, a.vss, tid);
+  };
   const int64_t dos = int64_t(H) * D;
-  load_tile<D, LD>(dOs, dout + (int64_t(b) * S * H + h) * D + q0 * dos,
-                   dos, tid);
+  copy_tile<D>(Qs, static_cast<const float*>(a.q) + b * a.qsb + h * a.qsh +
+                       q0 * a.qss, a.qss, tid);
+  copy_tile<D>(dOs, static_cast<const float*>(a.dout) +
+                        (int64_t(b) * S * H + h) * D + q0 * dos, dos, tid);
+  issue(0);
+  cp_async_commit();
+
+  // lse of this thread's product rows (first warps); di of the block's.
   const float* lse = a.lse + (int64_t(b) * H + h) * S + q0;
-  const float* di = a.di + (int64_t(b) * H + h) * S + q0;
-  float l[4], dr[4];
+  float rv[kPi];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    l[i] = lse[ty + 16 * i];
-    dr[i] = di[ty + 16 * i];
-  }
-  const float* kbase = k + b * a.ksb + h * a.ksh;
-  const float* vbase = v + b * a.vsb + h * a.vsh;
+  for (int ii = 0; ii < kPi; ++ii) rv[ii] = lse[ty + kPy * ii];
+  if (tid < kF32Rows) di_s[tid] = a.di[(int64_t(b) * H + h) * S + q0 + tid];
+  float acc[kSumRowsAll][D / 16];   // dQ
+#pragma unroll
+  for (int i = 0; i < kSumRowsAll; ++i)
+#pragma unroll
+    for (int c = 0; c < D / 16; ++c) acc[i][c] = 0.f;
+  const float scale = a.scale;
 
-  float dq[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) dq[i][c] = 0.f;
+  for (int j = 0; j <= qt; ++j) {
+    cp_async_wait<0>();
+    __syncthreads();   // tile j has landed; every warp is done with j - 1
+    if (j < qt) issue(j + 1);
+    cp_async_commit();
+    const float* Ks = sm + L::kStages + (j % 2) * L::kStage;
+    const float* Vs = Ks + L::kTile;
 
-  for (int kt = 0; kt <= qt; ++kt) {
-    const int k0 = kt * kBlock;
-    __syncthreads();  // the previous ds.k is done with Ks and dSs (= Vs)
-    load_tile<D, LD>(Ks, kbase + k0 * a.kss, a.kss, tid);
-    load_tile<D, LD>(Vs, vbase + k0 * a.vss, a.vss, tid);
-    __syncthreads();
-
-    float s[4][4], ds[4][4];
-    tile_dots<D, LD>(Qs, Ks, ty, tx, s);
-    tile_dots<D, LD>(dOs, Vs, ty, tx, ds);   // dp, turned into ds below
-    const bool diag = (kt == qt);
+    // S (first warps: the exponent, as in dK/dV, into Ps) or dP (into
+    // dSs), [query][key]; then every thread turns 8 of them into p and
+    // ds.
+    float s[kPi][4];
+    tile_dots<D>(first ? Qs : dOs, first ? Ks : Vs, ty, tx, s);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = ty + 16 * i;
+    for (int ii = 0; ii < kPi; ++ii)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = tx + 16 * j;
-        const float p =
-            (diag && col > row) ? 0.f : expf(s[i][j] * a.scale - l[i]);
-        ds[i][j] = p * (ds[i][j] - dr[i]) * a.scale;
+      for (int jj = 0; jj < 4; ++jj) {
+        const int qry = ty + kPy * ii, key = tx + 8 * jj;
+        if (first) {
+          Ps[qry * kLdP + key] = (j == qt && key > qry)
+                                     ? -INFINITY
+                                     : s[ii][jj] * scale - rv[ii];
+        } else {
+          dSs[qry * kLdP + key] = s[ii][jj];
+        }
       }
-    }
-    __syncthreads();  // every thread is done reading Vs
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        dSs[(ty + 16 * i) * kLdT + tx + 16 * j] = ds[i][j];
-    __syncthreads();
-    tile_accumulate<D, LD>(dSs, Ks, ty, tx, dq);
+    __syncthreads();   // the exponents and dP are complete
+    p_and_ds<true>(Ps, dSs, di_s, scale, tid);
+    __syncthreads();   // ds is complete
+    tile_accumulate<D, kSumRowsAll>(dSs, Ks, qy, kSumStep, cx, acc);  // dS K
   }
 
-  store_rows<D>(static_cast<float*>(a.out0), b, h, S, H, q0, ty, tx, dq);
+  store_rows<D, kSumRowsAll>(static_cast<float*>(a.out0), b, h, S, H, q0 + qy,
+                             kSumStep, cx, acc);
 }
 
+// `dkv`: the dK/dV kernel; else the dQ kernel.
 template <int D>
-cudaError_t launch_dkv_f32(const Args& a, int B, cudaStream_t stream) {
-  constexpr int kSmem =
-      (4 * kBlock * (D + 4) + 2 * kBlock * kLdT + 2 * kBlock) * sizeof(float);
-  static SmemLimit limit{reinterpret_cast<const void*>(&flash_bwd_dkv_f32<D>),
-                        kSmem};
-  const cudaError_t err = limit.apply();
+cudaError_t launch_f32(bool dkv, const Args& a, int B, cudaStream_t stream) {
+  constexpr int kSmem = F32Smem<D>::kBytes;
+  static SmemLimit dkv_limit{
+      reinterpret_cast<const void*>(&flash_bwd_dkv_f32<D>), kSmem};
+  static SmemLimit dq_limit{
+      reinterpret_cast<const void*>(&flash_bwd_dq_f32<D>), kSmem};
+  const cudaError_t err = (dkv ? dkv_limit : dq_limit).apply();
   if (err != cudaSuccess) return err;
-  flash_bwd_dkv_f32<D>
-      <<<dim3(a.S / kBlock, a.H, B), kThreads, kSmem, stream>>>(a);
-  return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t launch_dq_f32(const Args& a, int B, cudaStream_t stream) {
-  constexpr int kSmem = 4 * kBlock * (D + 4) * sizeof(float);
-  static SmemLimit limit{reinterpret_cast<const void*>(&flash_bwd_dq_f32<D>),
-                        kSmem};
-  const cudaError_t err = limit.apply();
-  if (err != cudaSuccess) return err;
-  flash_bwd_dq_f32<D>
-      <<<dim3(a.S / kBlock, a.H, B), kThreads, kSmem, stream>>>(a);
+  // Heaviest first across all pairs balances the causal grid; groups of
+  // pairs whose streamed tensors (Q and dO, or K and V) fill about 32 MB
+  // of the 50 MB L2 keep them there while the group's blocks read them.
+  const int64_t pair_bytes = int64_t(2) * a.S * D * 4;
+  const int group = static_cast<int>(std::max<int64_t>(
+      1, std::min<int64_t>(int64_t(B) * a.H,
+                           (int64_t(32) << 20) / pair_bytes)));
+  const dim3 grid(B * a.H * (a.S / kF32Rows));
+  if (dkv) {
+    flash_bwd_dkv_f32<D><<<grid, kF32Threads, kSmem, stream>>>(a, group);
+  } else {
+    flash_bwd_dq_f32<D><<<grid, kF32Threads, kSmem, stream>>>(a, group);
+  }
   return cudaGetLastError();
 }
 
@@ -775,8 +904,8 @@ int flash_attn_bwd_dkv(int dtype, const void* q, const void* k, const void* v,
   const Args a = make_args(q, k, v, dout, lse, di, dk, dv, S, H, qs, ks, vs,
                            scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64) return launch_dkv_f32<64>(a, B, st);
-  if (dtype == 0 && D == 128) return launch_dkv_f32<128>(a, B, st);
+  if (dtype == 0 && D == 64) return launch_f32<64>(true, a, B, st);
+  if (dtype == 0 && D == 128) return launch_f32<128>(true, a, B, st);
   if (dtype == 1 && D == 64) return launch_tc<64>(true, a, B, st);
   if (dtype == 1 && D == 128) return launch_tc<128>(true, a, B, st);
   return static_cast<int>(cudaErrorInvalidValue);
@@ -790,8 +919,8 @@ int flash_attn_bwd_dq(int dtype, const void* q, const void* k, const void* v,
   const Args a = make_args(q, k, v, dout, lse, di, dq, nullptr, S, H, qs, ks,
                            vs, scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64) return launch_dq_f32<64>(a, B, st);
-  if (dtype == 0 && D == 128) return launch_dq_f32<128>(a, B, st);
+  if (dtype == 0 && D == 64) return launch_f32<64>(false, a, B, st);
+  if (dtype == 0 && D == 128) return launch_f32<128>(false, a, B, st);
   if (dtype == 1 && D == 64) return launch_tc<64>(false, a, B, st);
   if (dtype == 1 && D == 128) return launch_tc<128>(false, a, B, st);
   return static_cast<int>(cudaErrorInvalidValue);

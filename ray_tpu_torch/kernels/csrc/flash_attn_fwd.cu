@@ -76,7 +76,7 @@
 
 #include <algorithm>
 
-#include "hopper.cuh"  // TMA, mbarriers, wgmma, tensor maps
+#include "hopper.cuh"  // TMA, mbarriers, wgmma, tensor maps, cp.async
 
 namespace {
 
@@ -93,19 +93,6 @@ constexpr int kTy = kF32Rows / kRT;  // the threads: a kTy x kTx grid
 constexpr int kTx = kF32Keys / kCT;
 constexpr int kF32Threads = kTy * kTx;
 static_assert(32 % kTx == 0, "a row's lanes sit in one warp");
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
-               :: "r"(smem_addr(dst)), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-// Wait until at most N of this thread's committed groups are pending.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
-}
 
 // Start copying `rows` rows of D floats (row stride `rs` elements) into
 // shared memory as rows of stride LD.

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the port's attention kernels
 // (flash_attn_fwd.cu, flash_attn_bwd.cu) and tools/wgmma_products.cu: TMA
 // loads and mbarriers, wgmma products of bf16 tiles in 128-byte swizzled
-// shared memory with float32 sums in registers, the accumulator layout, and
-// the host-side tensor maps. Everything sits in an anonymous namespace, so
-// each source that includes this header gets its own copy.
+// shared memory with float32 sums in registers, the accumulator layout,
+// the host-side tensor maps, and cp.async copies. Everything sits in an
+// anonymous namespace, so each source that includes this header gets its
+// own copy.
 //
 // Layout conventions: a tile of R rows and D bf16 columns is D / 64 slabs
 // of [R][64] (128-byte rows, 1024-byte aligned), as a TMA box of 64 columns
@@ -289,6 +290,21 @@ __device__ __forceinline__ void zero(float (&acc)[D / 64][32]) {
   for (int slab = 0; slab < D / 64; ++slab)
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[slab][i] = 0.f;
+}
+
+// cp.async: 16-byte copies from device memory into shared memory that run
+// under later instructions, in groups a thread commits and waits for.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+               :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+// Wait until at most N of this thread's committed groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
 }
 
 __device__ __forceinline__ uint8_t* align1024(uint8_t* p) {

@@ -3,8 +3,11 @@ versions: the forward (`csrc/flash_attn_fwd.cu`, the port of K1) and the
 backward (`csrc/flash_attn_bwd.cu`: dK/dV, the port of K2, and dQ, the port
 of K3) of the Pallas TPU kernel behind
 `ray_tpu.ops.attention.flash_attention_tpu`. Both sources run bf16 on the
-tensor cores (TMA and wgmma) and float32 on the CUDA cores; their header
-notes say why.
+tensor cores (TMA and wgmma) and float32 on the CUDA cores. The float32
+backward sums q.k and dO.v by sequential FMAs, the plain version's order:
+on the tensor cores as 3xTF32 (three TF32 passes) its error is 1.6-3x
+float32 FMA's, which a peaked softmax (q and k x4) turns into a miss of
+the float32 tolerance. The sources' header notes say more.
 
 Each wrapper checks its inputs, then launches its kernel for CUDA tensors
 or runs its plain version for CPU tensors. There is no other path: a CUDA

@@ -170,25 +170,33 @@ def test_forward_and_engine_prefill_on_card_match_cpu(card):
     assert (g_kv.cpu() - c_kv).abs().max().item() <= 1e-3
 
 
-@pytest.mark.parametrize("shape,dtype,layout,tol", [
-    ((2, 256, 3, 64), torch.float32, "contiguous", F32_TOL),
-    ((1, 384, 2, 128), torch.float32, "qkv", F32_TOL),
-    ((2, 256, 3, 128), torch.bfloat16, "contiguous", BF16_TOL),
-    ((1, 256, 4, 64), torch.bfloat16, "qkv", BF16_TOL),
+@pytest.mark.parametrize("shape,dtype,layout,qk_scale,tol", [
+    ((2, 256, 3, 64), torch.float32, "contiguous", 1.0, F32_TOL),
+    ((1, 384, 2, 128), torch.float32, "qkv", 1.0, F32_TOL),
+    ((2, 256, 3, 128), torch.bfloat16, "contiguous", 1.0, BF16_TOL),
+    ((1, 256, 4, 64), torch.bfloat16, "qkv", 1.0, BF16_TOL),
+    ((1, 256, 4, 64), torch.float32, "qkv", 1.0, F32_TOL),
+    ((2, 384, 3, 128), torch.float32, "contiguous", 1.0, F32_TOL),
+    ((1, 512, 2, 128), torch.float32, "qkv", 4.0, F32_TOL),
 ])
-def test_flash_bwd_kernels_match_plain(card, shape, dtype, layout, tol):
+def test_flash_bwd_kernels_match_plain(card, shape, dtype, layout, qk_scale,
+                                       tol):
     """K2 and K3 against `flash_attn_bwd_plain` on the same inputs; layout
-    "qkv" passes q, k, v as views of one [B, S, 3, H, D] tensor. Tolerance
-    relative to each output's largest element: float32 differs in
-    summation order; bf16 also in a rare flipped rounding of p or ds."""
+    "qkv" passes q, k, v as views of one [B, S, 3, H, D] tensor, and q and
+    k are scaled by `qk_scale` (4: a peaked softmax). Tolerance relative
+    to each output's largest element: float32 differs in summation order;
+    bf16 also in a rare flipped rounding of p or ds."""
     gen = torch.Generator(device=card).manual_seed(2)
     if layout == "qkv":
         b, s, h, d = shape
-        q, k, v = torch.randn((b, s, 3, h, d), generator=gen,
-                              device=card).to(dtype).unbind(2)
+        qkv = torch.randn((b, s, 3, h, d), generator=gen, device=card)
+        qkv[:, :, :2] *= qk_scale
+        q, k, v = qkv.to(dtype).unbind(2)
     else:
-        q, k, v = (torch.randn(shape, generator=gen, device=card).to(dtype)
+        q, k, v = (torch.randn(shape, generator=gen, device=card)
                    for _ in range(3))
+        q, k, v = ((q * qk_scale).to(dtype), (k * qk_scale).to(dtype),
+                   v.to(dtype))
     do = torch.randn(shape, generator=gen, device=card).to(dtype)
     o, lse = flash_attn.flash_attn_fwd(q, k, v, return_lse=True)
     before = (flash_attn.dkv_launches, flash_attn.dq_launches)
@@ -204,14 +212,14 @@ def test_flash_bwd_kernels_match_plain(card, shape, dtype, layout, tol):
         assert err <= tol * (1 + w.abs().max().item()), (name, err)
 
 
-def _bf16_bwd_inputs(card, shape, layout, seed):
+def _bwd_inputs(card, shape, layout, seed, dtype=torch.bfloat16):
     gen = torch.Generator(device=card).manual_seed(seed)
     b, s, h, d = shape
     qkv = torch.randn((b, s, 3, h, d), generator=gen, device=card)
-    q, k, v = qkv.to(torch.bfloat16).unbind(2)
+    q, k, v = qkv.to(dtype).unbind(2)
     if layout == "contiguous":
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    do = torch.randn(shape, generator=gen, device=card).to(torch.bfloat16)
+    do = torch.randn(shape, generator=gen, device=card).to(dtype)
     o, lse = flash_attn.flash_attn_fwd(q, k, v, return_lse=True)
     return q, k, v, o, do, lse
 
@@ -233,7 +241,7 @@ def test_bf16_bwd_tensor_core_kernels_match_plain(card, shape, layout):
     rounding of a term: each output within 2e-2 of its largest element
     (about two ulps of it) and within 1e-2 relative L2 of the plain
     version's."""
-    q, k, v, o, do, lse = _bf16_bwd_inputs(card, shape, layout, 3)
+    q, k, v, o, do, lse = _bwd_inputs(card, shape, layout, 3)
     got = flash_attn.flash_attn_bwd(q, k, v, o, do, lse)
     torch.cuda.synchronize()
     want = flash_attn.flash_attn_bwd_plain(q, k, v, o, do, lse)
@@ -246,10 +254,12 @@ def test_bf16_bwd_tensor_core_kernels_match_plain(card, shape, layout):
         assert ((g - w).norm() / w.norm()).item() <= 1e-2, name
 
 
-def test_bf16_bwd_kernels_are_deterministic(card):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bwd_kernels_are_deterministic(card, dtype):
     """Each block owns the rows it writes (no atomics), so two launches
     on the same inputs give bitwise-equal dQ, dK and dV."""
-    q, k, v, o, do, lse = _bf16_bwd_inputs(card, (2, 384, 3, 128), "qkv", 4)
+    q, k, v, o, do, lse = _bwd_inputs(card, (2, 384, 3, 128), "qkv", 4,
+                                      dtype)
     first = flash_attn.flash_attn_bwd(q, k, v, o, do, lse)
     second = flash_attn.flash_attn_bwd(q, k, v, o, do, lse)
     torch.cuda.synchronize()

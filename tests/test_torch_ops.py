@@ -287,3 +287,48 @@ def test_flash_wrappers_count_strides_in_bytes(dtype, taken):
         else:
             with pytest.raises(ValueError, match="multiples of 16 bytes"):
                 call()
+
+
+def _tf32(x):
+    """cvt.rna.tf32.f32 in numpy: float32 rounded to TF32's 10 mantissa
+    bits, to nearest with ties away from zero (add half of the 13 dropped
+    bits' place to the magnitude, then drop them)."""
+    u = np.asarray(x, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+@pytest.mark.parametrize("d,factor", [(64, 1.0), (128, 1.0), (64, 4.0),
+                                      (128, 4.0)])
+def test_3xtf32_products_keep_float32_accuracy(d, factor):
+    """The numerics of float32 products on the tensor cores as 3xTF32,
+    which tools/tf32x3_products.py measures on the card: a b summed as
+    lo_a hi_b + hi_a lo_b + hi_a hi_b in float32 (hi = tf32(x), lo =
+    tf32(x - hi), each product exact in float32) comes within 4x of a
+    sequential float32 FMA's error against float64, over sum |a b|, on
+    200 dot products; one TF32 pass (hi_a hi_b) does not. Within 4x is
+    not within the float32 backward's tolerance at a peaked softmax,
+    which is why those kernels stay on the CUDA cores."""
+    rng = np.random.default_rng(d + int(factor))
+    a, b = (factor * rng.standard_normal((200, d))).astype(np.float32), \
+        (factor * rng.standard_normal((200, d))).astype(np.float32)
+    exact = (a.astype(np.float64) * b.astype(np.float64)).sum(1)
+    mag = np.abs(a.astype(np.float64) * b.astype(np.float64)).sum(1)
+    hi_a, hi_b = _tf32(a), _tf32(b)
+    lo_a, lo_b = _tf32(a - hi_a), _tf32(b - hi_b)
+    fma = np.zeros(200, np.float32)
+    split = np.zeros(200, np.float32)
+    single = np.zeros(200, np.float32)
+    for i in range(d):
+        # FMA: the exact product added to the float32 sum, rounded once.
+        fma = (fma.astype(np.float64)
+               + a[:, i].astype(np.float64) * b[:, i]).astype(np.float32)
+        for term in (lo_a[:, i] * hi_b[:, i], hi_a[:, i] * lo_b[:, i],
+                     hi_a[:, i] * hi_b[:, i]):
+            split = split + term
+        single = single + hi_a[:, i] * hi_b[:, i]
+
+    def worst(x):
+        return float((np.abs(x.astype(np.float64) - exact) / mag).max())
+
+    assert worst(split) <= 4 * worst(fma), (worst(split), worst(fma))
+    assert worst(single) > 4 * worst(fma), (worst(single), worst(fma))

@@ -1,22 +1,25 @@
 #!/usr/bin/env python3
-"""A/B of the bf16 attention backward kernels (K2: dK, dV; K3: dQ) on one
-CUDA card: another source of `flash_attn_bwd.cu` (BASE) against the
-tree's, in one process.
+"""A/B of the attention backward kernels (K2: dK, dV; K3: dQ), bf16 and
+float32, on one CUDA card: another source of `flash_attn_bwd.cu` (BASE)
+against the tree's, in one process.
 
     python3 tools/bwd_ab.py BASE.cu [--launches 60] [--repeats 3]
+                            [--dtype bfloat16|float32]
                                               # from the repository root
 
 BASE is built with the tree's nvcc flags (and `kernels/csrc` on the include
 path, so it may include `hopper.cuh`) into the kernels' build directory
-and called through the same C entry points. For each case (the train
-step's shape, D 64, a ragged S 384 and peaked rows with q, k scaled by 4)
-and each side it prints the worst diff/tol of dQ, dK and dV under
-`chip_smoke.py`'s gate (BWD_TOL plus the flip bound; above 1 fails), and
-how many of `--launches` further launches on the same inputs differ
-bitwise from the first; then whether the two sides agree bitwise, and
-each kernel's time over alternating runs (base, tree, tree, base, ...;
-CUDA events over 20 launches each). Exits 1 if the tree's side fails the
-gate or differs between launches.
+and called through the same C entry points. For each case (bf16: the
+train step's shape, D 64, a ragged S 384 and peaked rows with q, k scaled
+by 4; float32: the serving width contiguous and as QKV views, a peaked row
+and a ragged S 384; `--dtype` keeps one type's cases) and each side it
+prints the worst diff/tol of dQ, dK and dV under `chip_smoke.py`'s gate
+(BWD_TOL, in bf16 plus the flip bound; above 1 fails), and how many of
+`--launches` further launches on the same inputs differ bitwise from the
+first; then whether the two sides agree bitwise, and each kernel's time
+over alternating runs (base, tree, tree, base, ...; CUDA events over 20
+launches each) and the base's fastest over the tree's. Exits 1 if the
+tree's side fails the gate or differs between launches.
 """
 
 from __future__ import annotations
@@ -36,14 +39,18 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 from ray_tpu_torch.kernels import build, flash_attn  # noqa: E402
 
-# (shape [B, S, H, D], layout, factor on q and k, seed)
+# (shape [B, S, H, D], dtype, layout, factor on q and k, seed)
 CASES = [
-    ((16, 1024, 12, 128), "qkv", 1.0, 7),
-    ((16, 1024, 12, 64), "qkv", 1.0, 7),
-    ((2, 384, 3, 128), "contiguous", 1.0, 5),
-    ((4, 1024, 12, 128), "qkv", 4.0, 112),
-    ((4, 1024, 12, 128), "qkv", 4.0, 4),
-    ((4, 1024, 12, 64), "qkv", 4.0, 112),
+    ((16, 1024, 12, 128), "bfloat16", "qkv", 1.0, 7),
+    ((16, 1024, 12, 64), "bfloat16", "qkv", 1.0, 7),
+    ((2, 384, 3, 128), "bfloat16", "contiguous", 1.0, 5),
+    ((4, 1024, 12, 128), "bfloat16", "qkv", 4.0, 112),
+    ((4, 1024, 12, 128), "bfloat16", "qkv", 4.0, 4),
+    ((4, 1024, 12, 64), "bfloat16", "qkv", 4.0, 112),
+    ((1, 1024, 12, 128), "float32", "contiguous", 1.0, 7),
+    ((1, 1024, 12, 128), "float32", "qkv", 1.0, 7),
+    ((4, 1024, 12, 128), "float32", "qkv", 4.0, 112),
+    ((2, 384, 3, 128), "float32", "contiguous", 1.0, 5),
 ]
 
 
@@ -75,8 +82,9 @@ def load_base(path: str) -> ctypes.CDLL:
 def launch(lib, name, q, k, v, do, lse, di, *outs):
     b, s, h, d = q.shape
     err = getattr(lib, name)(
-        1, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), di.data_ptr(), *(t.data_ptr() for t in outs),
+        flash_attn._DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), do.data_ptr(), lse.data_ptr(), di.data_ptr(),
+        *(t.data_ptr() for t in outs),
         b, s, h, d, flash_attn._strides(q), flash_attn._strides(k),
         flash_attn._strides(v), d ** -0.5,
         torch.cuda.current_stream().cuda_stream)
@@ -95,6 +103,8 @@ def main() -> int:
     parser.add_argument("base", help="another flash_attn_bwd.cu")
     parser.add_argument("--launches", type=int, default=60)
     parser.add_argument("--repeats", type=int, default=3)
+    parser.add_argument("--dtype", choices=("bfloat16", "float32"),
+                        help="only this type's cases")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("bwd_ab: no CUDA device", file=sys.stderr)
@@ -104,19 +114,21 @@ def main() -> int:
     libs = {"base": load_base(args.base),
             "tree": flash_attn._bwd_library()}
     ok = True
-    for shape, layout, qk, seed in CASES:
+    for shape, dtype, layout, qk, seed in CASES:
+        if args.dtype not in (None, dtype):
+            continue
+        dt = getattr(torch, dtype)
         b, s, h, d = shape
         gen = torch.Generator(device="cuda").manual_seed(seed)
         qkv = torch.randn((b, s, 3, h, d), generator=gen, device="cuda")
         qkv[:, :, :2] *= qk
-        q, k, v = qkv.to(torch.bfloat16).unbind(2)
+        q, k, v = qkv.to(dt).unbind(2)
         if layout == "contiguous":
             q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        do = torch.randn(shape, generator=gen,
-                         device="cuda").to(torch.bfloat16)
+        do = torch.randn(shape, generator=gen, device="cuda").to(dt)
         o, lse = flash_attn.flash_attn_fwd(q, k, v, return_lse=True)
         di = flash_attn.attention_di(o, do)
-        tag = f"{list(shape)} {layout} q,k x{qk:g} seed {seed}"
+        tag = f"{dtype} {list(shape)} {layout} q,k x{qk:g} seed {seed}"
         first = {}
         for side, lib in libs.items():
             outs = [torch.empty_like(do) for _ in range(3)]
@@ -152,14 +164,16 @@ def main() -> int:
                 times[(side, "dq")].append(cs.cuda_ms(
                     lambda: launch(lib, "flash_attn_bwd_dq", q, k, v, do,
                                    lse, di, outs[0]), 20))
-        bounds = cs.bwd_bounds(shape, "bfloat16", 0.0)
+        bounds = cs.bwd_bounds(shape, dtype, 0.0)
         print(f"   base and tree bitwise-equal: {same}", flush=True)
         for kn in ("dkv", "dq"):
             line = "; ".join(
                 f"{side} " + " ".join(f"{t:.4f}" for t in times[(side, kn)])
                 for side in libs)
-            print(f"   {kn} ms: {line}; bound {bounds[kn][0]:.4f}",
-                  flush=True)
+            speedup = (min(times[("base", kn)])
+                       / min(times[("tree", kn)]))
+            print(f"   {kn} ms: {line}; bound {bounds[kn][0]:.4f}; base "
+                  f"over tree (fastest of each) {speedup:.3f}", flush=True)
         del q, k, v, do, o, lse, di, qkv, first, outs
         torch.cuda.empty_cache()
     print("tree OK" if ok else "tree FAILED", flush=True)

@@ -55,7 +55,25 @@ result line:
    kernel launches per step; every loss must be finite, the last below the
    first, and K1, K2 and K3 must each run once per layer per step. One
    more step runs under `torch.profiler`, which splits the card's time
-   over its kernels.
+   over its kernels;
+10. MoE float32 gradients: the same widths with 4 experts (top 2, capacity
+    factor 1.25), depth 2, float32, 2 x 1024 tokens, remat
+    "save_attn_qkv": `lm_loss` gradients through K1, K2 and K3's float32
+    kernels against plain attention. First the routing: each layer's
+    choices per token on both paths (and in the kernel path's recompute),
+    with the number of token-layer pairs that differ; a difference is a
+    tie only where the router probabilities it turns on lie within 1e-5,
+    and anything else fails. With equal routing every part (wqkv split
+    into q, k, v; router, moe_w1, moe_w2 whole) must agree within 1e-4
+    rel L2; a tie is printed and excuses that bound for the run;
+11. MoE train: that model at full depth (1,069,659,648 parameters; bf16,
+    remat "save_attn_qkv", AdamW 1e-4, 8 x 1024 tokens of one fixed
+    batch), 1 warm-up and 5 timed steps: step ms, tokens/s, peak memory;
+    every loss and every step's aux finite, aux > 0, the last loss below
+    the first, and K1, K2, K3 once per layer per step. Then one profiled
+    step and the forward FLOPs of the dispatch and combine products
+    against the experts' (by count), beside each part's CUDA-event time in
+    one layer at the step's shapes.
 
 Then it prints a `{"kernels": [...]}` line and, last, the result line
 `{"ok": true, "device": {...}}`. It imports nothing of JAX or of `ray_tpu`.
@@ -65,6 +83,7 @@ prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
@@ -111,10 +130,12 @@ MIN_TOKEN_AGREEMENT = 0.98
 # prefills f32. Layout "qkv" passes q, k, v as views of one [B, S, 3, H, D]
 # tensor, the fused QKV projection's layout the engine hands the kernel
 # (its v is such a view), so rows are 3 H D elements apart. Row i draws its
-# inputs from seed i, so new rows go at the end. The last three: a ragged
-# block count (S 384: three 128-row blocks), D 64 at the train shape, and
-# q and k scaled by 4, whose peaked softmax moves the running max from tile
-# to tile and puts p near 1 and 0, where the rounding of p acts.
+# inputs from seed i, so new rows go at the end. Then: a ragged block
+# count (S 384: three 128-row blocks), D 64 at the train shape, q and k
+# scaled by 4, whose peaked softmax moves the running max from tile to
+# tile and puts p near 1 and 0, where the rounding of p acts, and the MoE
+# train step's shape (96 (batch, head) pairs: K1's block groups of 64
+# pairs at D 128 split 64 + 32 there, as at no other row).
 KERNEL_SHAPES = [
     ((1, 128, 12, 128), "float32", "contiguous", 1.0),
     ((1, 256, 12, 128), "float32", "contiguous", 1.0),
@@ -128,10 +149,13 @@ KERNEL_SHAPES = [
     ((2, 384, 3, 128), "bfloat16", "contiguous", 1.0),
     ((16, 1024, 12, 64), "bfloat16", "qkv", 1.0),
     ((4, 1024, 12, 128), "bfloat16", "qkv", 4.0),
+    ((8, 1024, 12, 128), "bfloat16", "qkv", 1.0),    # the MoE train step's
 ]
-# The engine's largest bucket, and the train step's shape.
+# The engine's largest bucket, the train step's shape and the MoE train
+# step's.
 MAIN_SHAPE = ((1, 1024, 12, 128), "float32", "contiguous", 1.0)
 TRAIN_SHAPE = ((16, 1024, 12, 128), "bfloat16", "qkv", 1.0)
+MOE_TRAIN_SHAPE = ((8, 1024, 12, 128), "bfloat16", "qkv", 1.0)
 # K2 and K3: (shape, dtype, layout, factor on q and k). The train step's
 # shape (bf16, bench.py's batch; q and k come out of the rotary embedding,
 # v is a view of the fused QKV projection, so "qkv" is the stricter
@@ -140,7 +164,7 @@ TRAIN_SHAPE = ((16, 1024, 12, 128), "bfloat16", "qkv", 1.0)
 # and q and k scaled by 4, whose peaked softmax puts p near 1 and 0 on and
 # off the diagonal, where the mask and the rounding of p act. Then the
 # float32 route at the serving width as QKV views, D 64, a ragged block
-# count and a peaked softmax. Row i draws its inputs from seed 100 +
+# count and a peaked softmax; last, the MoE train step's shape. Row i draws its inputs from seed 100 +
 # 2 i, so new rows go at the end.
 BWD_SHAPES = [
     ((1, 1024, 12, 128), "float32", "contiguous", 1.0),
@@ -154,6 +178,7 @@ BWD_SHAPES = [
     ((1, 1024, 12, 64), "float32", "contiguous", 1.0),
     ((2, 384, 3, 128), "float32", "contiguous", 1.0),
     ((4, 1024, 12, 128), "float32", "qkv", 4.0),
+    MOE_TRAIN_SHAPE,
 ]
 MAIN_BWD_SHAPE = ((16, 1024, 12, 128), "bfloat16", "qkv", 1.0)
 # The float32 route's row reported in the kernels line.
@@ -183,6 +208,20 @@ GRAD_ERR_RATIO = 1.25
 # relative L2); the depth is cut to F32_GRAD_LAYERS.
 F32_GRAD_REL_L2 = 1e-4
 F32_GRAD_LAYERS = 2
+# The MoE flagship: bench.py's widths with 4 experts (as
+# `__graft_entry__.py`'s MoE flagship), top 2, capacity factor 1.25. Its
+# train step takes 8 x 1024 tokens: the dense dispatch and combine tensors
+# [T, E, C] grow as T^2 / E (C = 5120 at T = 8192: 0.67 GB in float32).
+MOE = dict(num_experts=4, moe_top_k=2, capacity_factor=1.25)
+MOE_TRAIN_BATCH, MOE_TRAIN_STEPS = 8, 5
+# A routing choice that differs between two paths is a tie when the
+# consecutive router probabilities it turns on (among the top k + 1 of its
+# token) lie within this: the paths' float32 attention differs by some
+# 1e-6 relative.
+ROUTE_TIE_GAP = 1e-5
+# Token batches of the MoE float32 gradient phase, tried in turn until one
+# routes alike on both paths.
+MOE_GRAD_SEEDS = (31, 32, 33)
 
 
 class PhaseError(RuntimeError):
@@ -383,17 +422,17 @@ def phase_forward(params, cfg, card: str):
     tokens = torch.randint(0, cfg.vocab_size, (1, 1024), generator=gen,
                            device="cuda")
     flash_attn.launches = 0
-    logits = forward(params, tokens, cfg)
+    logits, _ = forward(params, tokens, cfg)
     torch.cuda.synchronize()
     launches = flash_attn.launches
-    plain = forward(params, tokens, cfg, positions=torch.arange(1024))
+    plain, _ = forward(params, tokens, cfg, positions=torch.arange(1024))
     check(flash_attn.launches == launches,
           "the plain-attention forward launched the kernel")
     check(tuple(logits.shape) == (1, 1024, cfg.vocab_size),
           f"forward logits have shape {tuple(logits.shape)}")
     check(bool(torch.isfinite(logits).all()), "forward logits not finite")
-    exact = forward(params, tokens, replace(cfg, dtype=torch.float32),
-                    positions=torch.arange(1024))
+    exact, _ = forward(params, tokens, replace(cfg, dtype=torch.float32),
+                       positions=torch.arange(1024))
 
     def rel_l2(x, y):
         return ((x.float() - y).norm() / y.norm()).item()
@@ -493,7 +532,8 @@ def phase_engine(params, cfg, card: str):
     worst = 0.0
     for prompt, gen in zip(prompts, outs):
         seq = prompt + gen[:-1]
-        ref = forward(params, [seq], cfg, positions=torch.arange(len(seq)))
+        ref, _ = forward(params, [seq], cfg,
+                         positions=torch.arange(len(seq)))
         ref = ref[0].float().cpu().numpy()
         n = len(prompt)
         got = model.first_logits[tuple(prompt)]
@@ -772,6 +812,19 @@ def _split_qkv(names, tensors):
     return out_names, out
 
 
+def plain_lm_loss(params, tokens, cfg):
+    """`lm_loss` of tokens [B, S+1] with explicit positions, which take
+    plain attention."""
+    import torch
+
+    from ray_tpu_torch.models.transformer import _token_nll, backbone
+
+    positions = torch.arange(tokens.shape[1] - 1, device=tokens.device)
+    x, aux = backbone(params, tokens[:, :-1], cfg, positions)
+    logits = torch.einsum("bsd,vd->bsv", x, params["embed"].to(cfg.dtype))
+    return _token_nll(logits, tokens[:, 1:]) + cfg.aux_loss_weight * aux
+
+
 def grad_errors(params, cfg):
     """`lm_loss` gradients (in cfg's dtype, GRAD_BATCH x TRAIN_SEQ tokens)
     through the kernels and through plain attention, each leaf's relative
@@ -783,7 +836,6 @@ def grad_errors(params, cfg):
 
     from ray_tpu_torch.kernels import flash_attn
     from ray_tpu_torch.models import lm_loss
-    from ray_tpu_torch.models.transformer import _token_nll, backbone
 
     leaves = _leaves(params)
     for t in leaves:
@@ -791,13 +843,9 @@ def grad_errors(params, cfg):
     gen = torch.Generator(device="cuda").manual_seed(21)
     tokens = torch.randint(0, cfg.vocab_size, (GRAD_BATCH, TRAIN_SEQ + 1),
                            generator=gen, device="cuda")
-    positions = torch.arange(TRAIN_SEQ, device="cuda")
 
     def plain_loss(c):
-        # lm_loss with explicit positions, which take plain attention.
-        x = backbone(params, tokens[:, :-1], c, positions)
-        logits = torch.einsum("bsd,vd->bsv", x, params["embed"].to(c.dtype))
-        return _token_nll(logits, tokens[:, 1:])
+        return plain_lm_loss(params, tokens, c)
 
     try:
         flash_attn.launches = flash_attn.dkv_launches = 0
@@ -966,6 +1014,334 @@ def phase_train(params, cfg, card: str, power_w: float):
                           peak_memory_bytes=peak)
 
 
+class RoutingRecorder:
+    """While open, keeps each `ops.moe.top_k_gating` call's router logits
+    and aux loss, in call order (`moe_ffn` looks the function up in its
+    module at each call): a model's forward calls it once per MoE layer,
+    first to last, and a remat backward once more per layer, last to
+    first."""
+
+    def __enter__(self):
+        import importlib
+
+        self._moe = importlib.import_module("ray_tpu_torch.ops.moe")
+        self._real = real = self._moe.top_k_gating
+        self.calls = []
+
+        def record(logits, k, capacity):
+            out = real(logits, k, capacity)
+            self.calls.append((logits.detach(), out[2].detach()))
+            return out
+
+        self._moe.top_k_gating = record
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.top_k_gating = self._real
+
+
+def route_choices(logits, k: int):
+    """([T, k] experts in the order `top_k_gating` picks them, by rounds of
+    argmax; [T] the least gap between consecutive ones of the token's k + 1
+    largest router probabilities: how near a tie its choices are)."""
+    import torch
+
+    probs = torch.softmax(logits.float(), dim=-1)
+    remaining, picks = probs.clone(), []
+    for _ in range(k):
+        idx = remaining.argmax(dim=-1)
+        picks.append(idx)
+        remaining.scatter_(1, idx[:, None], 0.0)
+    top = probs.topk(min(k + 1, probs.shape[1]), dim=-1).values
+    return torch.stack(picks, 1), (top[:, :-1] - top[:, 1:]).amin(-1)
+
+
+def routing_flips(calls, ref_calls, k: int):
+    """(token-layer pairs whose choices differ, the largest tie gap among
+    them or 0.0) between two lists of recorded gating calls, layer by
+    layer; the gaps are read on `ref_calls`' probabilities."""
+    import torch
+
+    flips, worst = 0, 0.0
+    for (logits, _), (ref_logits, _) in zip(calls, ref_calls):
+        choice, _ = route_choices(logits, k)
+        ref_choice, gap = route_choices(ref_logits, k)
+        differ = (choice != ref_choice).any(-1)
+        flips += int(differ.sum())
+        if bool(differ.any()):
+            worst = max(worst, gap[differ].max().item())
+    torch.cuda.synchronize()
+    return flips, worst
+
+
+def moe_grad_attempt(params, cfg, seed: int):
+    """One float32 MoE gradient comparison on a token batch drawn from
+    `seed`: the `lm_loss` gradients through the kernels and through plain
+    attention, each with its recorded gating calls. Returns (K1, K2, K3
+    launches of the kernel path, kernel-path and plain losses, gradients
+    and routing recorders)."""
+    import torch
+
+    from ray_tpu_torch.kernels import flash_attn
+    from ray_tpu_torch.models import lm_loss
+
+    leaves = _leaves(params)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (GRAD_BATCH, TRAIN_SEQ + 1),
+                           generator=gen, device="cuda")
+    for t in leaves:
+        t.requires_grad_(True)
+    try:
+        flash_attn.launches = flash_attn.dkv_launches = 0
+        flash_attn.dq_launches = 0
+        with RoutingRecorder() as kernel_route:
+            loss_k = lm_loss(params, {"tokens": tokens}, cfg)
+            g_kernel = torch.autograd.grad(loss_k, leaves)
+        torch.cuda.synchronize()
+        counts = (flash_attn.launches, flash_attn.dkv_launches,
+                  flash_attn.dq_launches)
+        with RoutingRecorder() as plain_route:
+            loss_p = plain_lm_loss(params, tokens, cfg)
+            g_plain = torch.autograd.grad(loss_p, leaves)
+        torch.cuda.synchronize()
+        check(flash_attn.dkv_launches == counts[1],
+              "the plain-attention gradient launched a kernel")
+    finally:
+        for t in leaves:
+            t.requires_grad_(False)
+    return (counts, (loss_k, loss_p), (g_kernel, g_plain),
+            (kernel_route, plain_route))
+
+
+def phase_moe_grad_f32(params, cfg, card: str):
+    """The float32 MoE gradients through K1, K2 and K3's float32 route
+    against plain attention's, routing compared first. Where a tie flips a
+    routing choice, the next token batch is drawn, so the rel L2 bound is
+    held on one batch of every run; ties on all MOE_GRAD_SEEDS fail.
+    Returns the K1, K2, K3 launches of the last batch."""
+    from dataclasses import replace
+
+    import torch
+
+    cfg = replace(cfg, n_layers=F32_GRAD_LAYERS, dtype=torch.float32)
+    params = dict(params, layers=params["layers"][:F32_GRAD_LAYERS])
+    n, k = cfg.n_layers, cfg.moe_top_k
+    tokens_routed = GRAD_BATCH * TRAIN_SEQ * n
+    for seed in MOE_GRAD_SEEDS:
+        counts, (loss_k, loss_p), (g_kernel, g_plain), (kernel_route,
+                                                         plain_route) = \
+            moe_grad_attempt(params, cfg, seed)
+        check(len(kernel_route.calls) == 2 * n
+              and len(plain_route.calls) == 2 * n,
+              f"gating ran {len(kernel_route.calls)} and "
+              f"{len(plain_route.calls)} times, expected {2 * n} (a "
+              f"forward and a recompute per layer)")
+        flips, flip_gap = routing_flips(kernel_route.calls[:n],
+                                        plain_route.calls[:n], k)
+        re_flips, re_gap = routing_flips(kernel_route.calls[n:][::-1],
+                                         kernel_route.calls[:n], k)
+        names, parts_k = _split_qkv(_leaf_names(params), g_kernel)
+        parts_p = _split_qkv(_leaf_names(params), g_plain)[1]
+        rel = [((a - b).norm() / b.norm()).item()
+               for a, b in zip(parts_k, parts_p)]
+        worst = max(range(len(names)), key=rel.__getitem__)
+        moe_parts = [i for i, name in enumerate(names)
+                     if name.split(".")[-1] in ("router", "moe_w1",
+                                                "moe_w2")]
+        worst_moe = max(moe_parts, key=rel.__getitem__)
+        aux_k = sum(a for _, a in kernel_route.calls[:n]).item()
+        aux_p = sum(a for _, a in plain_route.calls[:n]).item()
+        print(f"moe grad flagship f32 depth {n} experts {cfg.num_experts} "
+              f"top {k} capacity_factor {cfg.capacity_factor} "
+              f"[{GRAD_BATCH}, {TRAIN_SEQ}] tokens seed {seed} remat "
+              f"{cfg.remat_policy}: routing differs kernels vs plain in "
+              f"{flips} of {tokens_routed} token-layer pairs (largest tie "
+              f"gap {flip_gap:.3e}, limit {ROUTE_TIE_GAP:g}), recompute vs "
+              f"forward in {re_flips} (largest gap {re_gap:.3e}); loss "
+              f"kernels {loss_k.item():.6f} plain {loss_p.item():.6f}, aux "
+              f"kernels {aux_k:.6f} plain {aux_p:.6f}; rel_l2 kernels vs "
+              f"plain over {len(names)} parts: max {rel[worst]:.3e} "
+              f"({names[worst]}), MoE parts max {rel[worst_moe]:.3e} "
+              f"({names[worst_moe]}), mean {sum(rel) / len(rel):.3e} "
+              f"(limit {F32_GRAD_REL_L2:g}); launches K1 {counts[0]} K2 "
+              f"{counts[1]} K3 {counts[2]} [{card}]", flush=True)
+        check(all(c == n for c in counts),
+              f"the MoE float32 gradient launched K1, K2, K3 {counts} "
+              f"times, expected {n} each")
+        check(flip_gap <= ROUTE_TIE_GAP and re_gap <= ROUTE_TIE_GAP,
+              f"routing differs where no tie explains it: gaps "
+              f"{flip_gap:.3e} (kernels vs plain), {re_gap:.3e} "
+              f"(recompute vs forward)")
+        check(all(bool(torch.isfinite(g).all()) for g in g_kernel),
+              "MoE float32 kernel-path gradients are not finite")
+        if not (flips or re_flips):
+            check(rel[worst] <= F32_GRAD_REL_L2,
+                  f"the MoE float32 kernel-path gradient of {names[worst]} "
+                  f"is {rel[worst]:.3e} from plain attention's (rel L2), "
+                  f"over {F32_GRAD_REL_L2:g}")
+            return counts
+        print(f"moe grad: {flips + re_flips} tied routing choices differ "
+              f"on seed {seed}'s tokens; the rel L2 bound is held on the "
+              f"next batch", flush=True)
+        del g_kernel, g_plain, kernel_route, plain_route
+    raise PhaseError(f"tied routing choices differed on all "
+                     f"{len(MOE_GRAD_SEEDS)} token batches "
+                     f"{MOE_GRAD_SEEDS}: the rel L2 bound held on none")
+
+
+def moe_flops(cfg, n_tokens: int):
+    """Forward operations of one MoE layer by count: (dispatch, combine,
+    experts), 2 T E C D each for the dispatch and combine products and
+    4 E C D F for the two expert products."""
+    from ray_tpu_torch.ops.moe import capacity
+
+    e, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
+    c = capacity(n_tokens, e, cfg.moe_top_k, cfg.capacity_factor)
+    return 2.0 * n_tokens * e * c * d, 2.0 * n_tokens * e * c * d, \
+        4.0 * e * c * d * f
+
+
+def moe_layer_ms(lp, cfg, n_tokens: int):
+    """One MoE layer's forward at [n_tokens, D] random tokens in cfg's
+    dtype with `lp`'s weights: CUDA-event ms of `ops.moe.top_k_gating` on
+    the router logits and of `ops.moe.moe_ffn` whole, and the card time of
+    one `moe_ffn` call under `torch.profiler` by the aten op that launched
+    each kernel ({op: ms})."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.ops.moe import capacity, moe_ffn, top_k_gating
+
+    e, k = cfg.num_experts, cfg.moe_top_k
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    with torch.no_grad():
+        x = torch.randn((1, n_tokens, cfg.d_model), generator=gen,
+                        device="cuda").to(cfg.dtype)
+        logits = x[0].float() @ lp["router"].float()
+        c = capacity(n_tokens, e, k, cfg.capacity_factor)
+
+        def ffn():
+            return moe_ffn(x, lp["router"], lp["moe_w1"], lp["moe_w2"],
+                           top_k=k, capacity_factor=cfg.capacity_factor)
+
+        gating_ms = cuda_ms(lambda: top_k_gating(logits, k, c), 5, warmup=1)
+        ffn_ms = cuda_ms(ffn, 5, warmup=1)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            ffn()
+            torch.cuda.synchronize()
+    # The ops' own device time; the kernels' events, which repeat it, are
+    # left out.
+    by_op = {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CPU:
+            continue
+        us = (ev.self_device_time_total
+              if hasattr(ev, "self_device_time_total")
+              else ev.self_cuda_time_total)
+        if us > 0:
+            by_op[ev.key] = by_op.get(ev.key, 0.0) + us / 1e3
+    del x, logits
+    torch.cuda.empty_cache()
+    return gating_ms, ffn_ms, by_op
+
+
+def phase_moe_train(params, cfg, card: str, power_w: float):
+    """The MoE model's train step at full depth. Returns the K1, K2, K3
+    launches of the timed steps."""
+    import torch
+
+    from ray_tpu_torch.kernels import flash_attn
+    from ray_tpu_torch.models import lm_loss
+    from ray_tpu_torch.parallel import adamw, make_train_step
+
+    n = cfg.n_layers
+    n_params = sum(t.numel() for t in _leaves(params))
+    optimizer = adamw(1e-4)
+    opt_state = optimizer.init(params)
+    step = make_train_step(lambda p, b: lm_loss(p, b, cfg), optimizer)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                     (MOE_TRAIN_BATCH, TRAIN_SEQ + 1),
+                                     generator=gen, device="cuda")}
+    with RoutingRecorder() as route:
+        t0 = time.perf_counter()
+        params, opt_state, loss = step(params, opt_state, batch)
+        losses = [loss]
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        flash_attn.launches = flash_attn.dkv_launches = 0
+        flash_attn.dq_launches = 0
+        t0 = time.perf_counter()
+        for _ in range(MOE_TRAIN_STEPS):
+            params, opt_state, loss = step(params, opt_state, batch)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    launches = (flash_attn.launches, flash_attn.dkv_launches,
+                flash_attn.dq_launches)
+    peak = torch.cuda.max_memory_allocated()
+    values = [x.item() for x in losses]
+    # Each step's gating calls: the forward's n, then the recompute's n.
+    check(len(route.calls) == 2 * n * len(values),
+          f"gating ran {len(route.calls)} times in {len(values)} steps, "
+          f"expected {2 * n} a step")
+    auxes = [sum(a for _, a in route.calls[i * 2 * n:i * 2 * n + n]).item()
+             for i in range(len(values))]
+    n_tokens = MOE_TRAIN_BATCH * TRAIN_SEQ
+    step_ms = dt / MOE_TRAIN_STEPS * 1e3
+    per_step = [c / MOE_TRAIN_STEPS for c in launches]
+    print(f"moe train flagship bf16 experts {cfg.num_experts} top "
+          f"{cfg.moe_top_k} capacity_factor {cfg.capacity_factor} remat "
+          f"{cfg.remat_policy} AdamW 1e-4 [{MOE_TRAIN_BATCH}, {TRAIN_SEQ}], "
+          f"{n_params} params: warm-up step {warm_s:.3f} s; "
+          f"{MOE_TRAIN_STEPS} steps in {dt:.4f} s, step_ms {step_ms:.2f}, "
+          f"tokens_per_s {n_tokens * MOE_TRAIN_STEPS / dt:.1f}, "
+          f"peak_memory_bytes {peak} ({peak / 2 ** 30:.2f} GiB), launches "
+          f"per step K1 {per_step[0]:g} K2 {per_step[1]:g} K3 "
+          f"{per_step[2]:g} [{card}]", flush=True)
+    print(f"moe train losses {' '.join(f'{x:.5f}' for x in values)}; aux "
+          f"{' '.join(f'{x:.5f}' for x in auxes)}", flush=True)
+    check(all(x == x and abs(x) != float("inf") for x in values + auxes),
+          "an MoE train loss or aux is not finite")
+    check(all(x > 0 for x in auxes), "an MoE step's aux loss is not > 0")
+    check(values[-1] < values[0],
+          f"the MoE loss did not fall: {values[0]:.5f} -> {values[-1]:.5f}")
+    check(all(c == n * MOE_TRAIN_STEPS for c in launches),
+          f"the MoE train steps launched K1, K2, K3 {launches} times, "
+          f"expected {n * MOE_TRAIN_STEPS} each (once per layer per step)")
+    profile_step(lambda: step(params, opt_state, batch), step_ms, card,
+                 label="moe train step")
+    dispatch, combine, experts = moe_flops(cfg, n_tokens)
+    gating_ms, ffn_ms, by_op = moe_layer_ms(params["layers"][0], cfg,
+                                            n_tokens)
+    mm_ms, bmm_ms = by_op.get("aten::mm", 0.0), by_op.get("aten::bmm", 0.0)
+
+    def rate(flops, ms):
+        return f"{flops / ms / 1e9:.1f} TFLOP/s" if ms > 0 else "not recorded"
+
+    rest = sorted(((ms, op) for op, ms in by_op.items()
+                   if op not in ("aten::mm", "aten::bmm")), reverse=True)
+    print(f"moe layer forward at [{MOE_TRAIN_BATCH}, {TRAIN_SEQ}] by count: "
+          f"dispatch {dispatch / 1e12:.4f} + combine {combine / 1e12:.4f} "
+          f"TFLOP against experts {experts / 1e12:.4f} TFLOP (ratio "
+          f"{(dispatch + combine) / experts:.3f}); by CUDA events, bf16: "
+          f"moe_ffn {ffn_ms:.3f} ms, of which top_k_gating {gating_ms:.3f} "
+          f"ms and the rest (router, casts, products, activation) "
+          f"{ffn_ms - gating_ms:.3f} ms; one moe_ffn under the profiler, "
+          f"card time by aten op: mm (router, dispatch, combine) "
+          f"{mm_ms:.3f} ms ({rate(dispatch + combine, mm_ms)} on the "
+          f"dispatch and combine count), bmm (experts) {bmm_ms:.3f} ms "
+          f"({rate(experts, bmm_ms)}), "
+          f"others {sum(ms for ms, _ in rest):.3f} ms ("
+          + ", ".join(f"{op} {ms:.3f}" for ms, op in rest[:6])
+          + f") [{card}]", flush=True)
+    del opt_state
+    return launches
+
+
 def busy_union(intervals) -> float:
     """Length of the union of [start, end) intervals."""
     total, reach = 0.0, float("-inf")
@@ -976,7 +1352,8 @@ def busy_union(intervals) -> float:
     return total
 
 
-def profile_step(run, step_ms: float, card: str) -> None:
+def profile_step(run, step_ms: float, card: str,
+                 label: str = "train step") -> None:
     """One train step under `torch.profiler`: the card's kernel time by
     group (the port's attention kernels, matrix products, the rest), the
     largest kernels, each attention kernel's time, and the card's idle
@@ -1021,7 +1398,7 @@ def profile_step(run, step_ms: float, card: str) -> None:
         groups[group] += (b - a) / 1e3
         ms, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (ms + (b - a) / 1e3, n + 1)
-    print(f"profile train step: {len(events)} device activities "
+    print(f"profile {label}: {len(events)} device activities "
           f"({len(by_name)} distinct) sum to {total:.2f} ms; their union "
           f"{busy_ms:.2f} ms over the {span_ms:.2f} ms from the first "
           f"start to the last end, card idle share "
@@ -1123,6 +1500,16 @@ def main() -> int:
         phase_grad(params, train_cfg, card)
         f32_launches = phase_grad_f32(params, train_cfg, card)
         train_launches, _ = phase_train(params, train_cfg, card, power_w)
+        # The dense model's params, gradients and optimizer state go
+        # before the MoE model is made.
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        moe_cfg = replace(train_cfg, **MOE)
+        params = init_params(moe_cfg,
+                             torch.Generator(device="cuda").manual_seed(2))
+        moe_f32_launches = phase_moe_grad_f32(params, moe_cfg, card)
+        moe_launches = phase_moe_train(params, moe_cfg, card, power_w)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1130,14 +1517,20 @@ def main() -> int:
     main_row = rows[MAIN_SHAPE]
     shape, dtype, layout, qk_scale = MAIN_BWD_SHAPE
     jax_site = "jax/experimental/pallas/ops/tpu/flash_attention.py"
+    moe_shape, _, _, _ = MOE_TRAIN_SHAPE
     bwd = [dict(name=f"flash_attn_bwd_{kname}", route="cuda",
                 source="ray_tpu_torch/kernels/csrc/flash_attn_bwd.cu",
                 replaces="ray_tpu/ops/attention.py:28",
                 pallas_call=f"{jax_site}:{line}", launches=n,
+                moe_train_launches=m,
                 shape=list(shape), dtype=dtype, layout=layout,
-                **bwd_rows[(kname, shape, dtype, layout, qk_scale)])
-           for kname, line, n in (("dkv", 1121, train_launches[1]),
-                                  ("dq", 1456, train_launches[2]))]
+                **bwd_rows[(kname, shape, dtype, layout, qk_scale)],
+                at_moe_train_shape=dict(
+                    shape=list(moe_shape), dtype=dtype, layout=layout,
+                    **bwd_rows[(kname,) + MOE_TRAIN_SHAPE]))
+           for kname, line, n, m in (
+               ("dkv", 1121, train_launches[1], moe_launches[1]),
+               ("dq", 1456, train_launches[2], moe_launches[2]))]
     shape, dtype, layout, qk_scale = F32_BWD_SHAPE
     bwd += [dict(name=f"flash_attn_bwd_{kname}_f32", route="cuda",
                  kernel=f"flash_bwd_{kname}_f32",
@@ -1145,21 +1538,29 @@ def main() -> int:
                  replaces="ray_tpu/ops/attention.py:28",
                  pallas_call=f"{jax_site}:{line}", launches=n,
                  launches_in="float32 gradient phase",
+                 moe_f32_grad_launches=m,
                  shape=list(shape), dtype=dtype, layout=layout,
                  **bwd_rows[(kname, shape, dtype, layout, qk_scale)])
-            for kname, line, n in (("dkv", 1121, f32_launches[1]),
-                                   ("dq", 1456, f32_launches[2]))]
+            for kname, line, n, m in (
+                ("dkv", 1121, f32_launches[1], moe_f32_launches[1]),
+                ("dq", 1456, f32_launches[2], moe_f32_launches[2]))]
     print(json.dumps({"kernels": [dict(
         name="flash_attn_fwd", route="cuda",
         source="ray_tpu_torch/kernels/csrc/flash_attn_fwd.cu",
         replaces="ray_tpu/ops/attention.py:28",
         pallas_call=f"{jax_site}:758", launches=launches,
         train_launches=train_launches[0],
+        moe_train_launches=moe_launches[0],
+        moe_f32_grad_launches=moe_f32_launches[0],
         shape=list(MAIN_SHAPE[0]), dtype=MAIN_SHAPE[1],
         layout=MAIN_SHAPE[2], **main_row,
         at_train_shape=dict(shape=list(TRAIN_SHAPE[0]),
                             dtype=TRAIN_SHAPE[1], layout=TRAIN_SHAPE[2],
-                            **rows[TRAIN_SHAPE]))] + bwd}))
+                            **rows[TRAIN_SHAPE]),
+        at_moe_train_shape=dict(shape=list(moe_shape),
+                                dtype=MOE_TRAIN_SHAPE[1],
+                                layout=MOE_TRAIN_SHAPE[2],
+                                **rows[MOE_TRAIN_SHAPE]))] + bwd}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,18 +1,22 @@
 """Flagship decoder-only transformer LM in PyTorch: forward, loss and the
 per-layer rematerialization policies.
 
-The port of `ray_tpu/models/transformer.py` for the dense configuration:
-pre-norm RMSNorm blocks with a fused QKV projection, rotary embeddings,
-causal attention through `ops.attention.attention` (the flash kernels at
-eligible shapes), a SiLU-gated FFN and tied embeddings; `lm_loss` is the
-next-token cross-entropy, whole or in sequence chunks.
+The port of `ray_tpu/models/transformer.py`, single-device: pre-norm
+RMSNorm blocks with a fused QKV projection, rotary embeddings, causal
+attention through `ops.attention.attention` (the flash kernels at eligible
+shapes), a SiLU-gated FFN or, with `num_experts > 1`, a mixture of experts
+(`ops.moe.moe_ffn`), and tied embeddings. `backbone` and `forward` return
+the sum of the layers' load-balancing losses beside their output, as JAX's
+do; `lm_loss` is the next-token cross-entropy, whole or in sequence chunks,
+plus `aux_loss_weight` times that sum.
 
 Parameters are a plain dict in the JAX package's leaf layouts, one dict per
 layer instead of stacked `[L, ...]` leaves: `embed [V, D]`, and per layer
-`ln1 [D]`, `wqkv [D, 3, H*hd]`, `wo [H*hd, D]`, `ln2 [D]`,
-`w13 [D, 2, F]`, `w2 [F, D]`; then `ln_f [D]`. `params_from_jax` turns
-the JAX package's params (as numpy arrays) into this form without
-transposes, so both packages run the same weights.
+`ln1 [D]`, `wqkv [D, 3, H*hd]`, `wo [H*hd, D]`, `ln2 [D]`, then either
+`w13 [D, 2, F]`, `w2 [F, D]` (dense) or `router [D, E]`, `moe_w1 [E, D, F]`,
+`moe_w2 [E, F, D]` (MoE); then `ln_f [D]`. `params_from_jax` turns the JAX
+package's params (as numpy arrays) into this form without transposes, so
+both packages run the same weights.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ import contextlib
 import contextvars
 import functools
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,9 +36,11 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ray_tpu_torch.device import DeviceLike, resolve_device
 from ray_tpu_torch.ops.attention import FLASH_FWD_OP, attention
+from ray_tpu_torch.ops.moe import moe_ffn
 from ray_tpu_torch.ops.rotary import apply_rotary, rotary_freqs
 
-_LAYER_KEYS = ("ln1", "wqkv", "wo", "ln2", "w13", "w2")
+_DENSE_KEYS = ("ln1", "wqkv", "wo", "ln2", "w13", "w2")
+_MOE_KEYS = ("ln1", "wqkv", "wo", "ln2", "router", "moe_w1", "moe_w2")
 
 
 @dataclass(frozen=True)
@@ -46,13 +52,16 @@ class TransformerConfig:
     d_ff: int = 1376
     max_seq_len: int = 2048
     rope_theta: float = 10000.0
-    num_experts: int = 0          # MoE is not ported: > 1 raises
+    num_experts: int = 0          # 0 => dense FFN in every layer
+    moe_top_k: int = 2
+    capacity_factor: float = 1.25
     dtype: torch.dtype = torch.bfloat16      # activation/compute dtype
     param_dtype: torch.dtype = torch.float32
     # Recompute each layer in the backward (`torch.utils.checkpoint`),
     # saving what `remat_policy` names (a key of `_REMAT_POLICIES`).
     remat: bool = False
     remat_policy: Optional[str] = None
+    aux_loss_weight: float = 0.01
     # > 0: `lm_loss` makes the [B, chunk, V] logits one sequence chunk at a
     # time and recomputes each chunk's logits GEMM in the backward, so the
     # [B, S, V] logits never exist at once.
@@ -70,18 +79,13 @@ class TransformerConfig:
 Params = Dict[str, Any]
 
 
-def _check_dense(cfg: TransformerConfig) -> None:
-    if cfg.is_moe:
-        raise NotImplementedError(
-            "MoE layers are not ported yet (ROADMAP.md, 'MoE')")
-
-
 def init_params(cfg: TransformerConfig,
                 generator: Optional[torch.Generator] = None,
                 device: DeviceLike = None) -> Params:
     """Random weights, each leaf N(0, 1/fan_in), norms at 1. `generator`
-    must live on `device` (default: a generator seeded with 0 there)."""
-    _check_dense(cfg)
+    must live on `device` (default: a generator seeded with 0 there).
+    MoE layers take `router`, `moe_w1`, `moe_w2` (fan-in D, D, F) in place
+    of `w13`, `w2`."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -95,10 +99,18 @@ def init_params(cfg: TransformerConfig,
     def ones(n):
         return torch.ones((n,), device=dev, dtype=cfg.param_dtype)
 
-    layers = [{"ln1": ones(d), "wqkv": norm((d, 3, hh), d),
-               "wo": norm((hh, d), hh), "ln2": ones(d),
-               "w13": norm((d, 2, f), d), "w2": norm((f, d), f)}
-              for _ in range(cfg.n_layers)]
+    def layer():
+        lp = {"ln1": ones(d), "wqkv": norm((d, 3, hh), d),
+              "wo": norm((hh, d), hh), "ln2": ones(d)}
+        if cfg.is_moe:
+            e = cfg.num_experts
+            lp.update(router=norm((d, e), d), moe_w1=norm((e, d, f), d),
+                      moe_w2=norm((e, f, d), f))
+        else:
+            lp.update(w13=norm((d, 2, f), d), w2=norm((f, d), f))
+        return lp
+
+    layers = [layer() for _ in range(cfg.n_layers)]
     return {"embed": norm((v, d), d), "layers": layers, "ln_f": ones(d)}
 
 
@@ -108,16 +120,17 @@ def params_from_jax(np_tree: Params, device: DeviceLike = None) -> Params:
     takes slice `i` of every stacked leaf; no leaf is transposed."""
     dev = resolve_device(device)
     layers_np = np_tree["layers"]
-    extra = set(layers_np) - set(_LAYER_KEYS)
-    if extra:
-        raise NotImplementedError(
-            f"layer leaves {sorted(extra)} (MoE) are not ported yet")
+    keys = next((keys for keys in (_DENSE_KEYS, _MOE_KEYS)
+                 if set(layers_np) == set(keys)), None)
+    if keys is None:
+        raise ValueError(f"layer leaves {sorted(layers_np)} are neither "
+                         f"the dense {_DENSE_KEYS} nor the MoE {_MOE_KEYS}")
 
     def t(a):
         return torch.from_numpy(np.array(a)).to(dev)
 
     n_layers = int(np.shape(layers_np["ln1"])[0])
-    layers = [{key: t(np.asarray(layers_np[key])[i]) for key in _LAYER_KEYS}
+    layers = [{key: t(np.asarray(layers_np[key])[i]) for key in keys}
               for i in range(n_layers)]
     return {"embed": t(np_tree["embed"]), "layers": layers,
             "ln_f": t(np_tree["ln_f"])}
@@ -155,7 +168,8 @@ _MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 # everything else in a layer is recomputed in the backward. The sets are
 # those of the JAX policies: "dots" saves matmuls without batch dims
 # (`dots_with_no_batch_dims_saveable`), "dots_batch" all of them
-# (`dots_saveable`; on the flash path no batched matmul is left), and the
+# (`dots_saveable`; on the flash path only the MoE experts' products are
+# batched: `ops/moe.py` runs router, dispatch and combine as `mm`), and the
 # named policies what `save_only_these_names` saves, plus K1's logsumexp.
 _REMAT_POLICIES = {
     None: ((), ()),
@@ -225,8 +239,9 @@ def _layer(x: torch.Tensor, lp: Params, cfg: TransformerConfig, rope: Rope,
            attend: Attend):
     """One block on x [B, S, D]: `rope` rotates q and k ([B, S, H, hd]),
     `attend(q, k, v)` returns the attention output [B, S, H, hd]. Returns
-    (x, k, v) so the serving engine can cache the rotated keys and the
-    values."""
+    (x, aux, k, v): aux is an MoE layer's load-balancing loss (float32
+    scalar) and None for a dense layer; k and v let the serving engine
+    cache the rotated keys and the values."""
     b, s, d = x.shape
     h, hd = cfg.n_heads, cfg.head_dim
     act = x.dtype
@@ -242,18 +257,26 @@ def _layer(x: torch.Tensor, lp: Params, cfg: TransformerConfig, rope: Rope,
         o = attend(q, k, v)
     x = x + o.reshape(b, s, h * hd) @ lp["wo"].to(act)
     y = _rmsnorm(x, lp["ln2"])
-    gu = (y @ lp["w13"].to(act).reshape(d, -1)).view(b, s, 2, cfg.d_ff)
-    x = x + (F.silu(gu[:, :, 0]) * gu[:, :, 1]) @ lp["w2"].to(act)
-    return x, k, v
+    if cfg.is_moe:
+        ff, aux = moe_ffn(y, lp["router"], lp["moe_w1"], lp["moe_w2"],
+                          top_k=cfg.moe_top_k,
+                          capacity_factor=cfg.capacity_factor)
+    else:
+        gu = (y @ lp["w13"].to(act).reshape(d, -1)).view(b, s, 2, cfg.d_ff)
+        ff = (F.silu(gu[:, :, 0]) * gu[:, :, 1]) @ lp["w2"].to(act)
+        aux = None
+    return x + ff, aux, k, v
 
 
 def backbone(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
-             positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """tokens [B, S] -> final hidden states [B, S, D] in `cfg.dtype`.
-    `positions=None` means arange and keeps the flash kernel eligible;
-    explicit positions take the plain attention path. With `cfg.remat`
-    each layer is recomputed in the backward under `cfg.remat_policy`."""
-    _check_dense(cfg)
+             positions: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens [B, S] -> (final hidden states [B, S, D] in `cfg.dtype`, the
+    layers' summed load-balancing loss, a float32 scalar: zero for a dense
+    model). `positions=None` means arange and keeps the flash kernel
+    eligible; explicit positions take the plain attention path. With
+    `cfg.remat` each layer, its MoE routing included, is recomputed in
+    the backward under `cfg.remat_policy`."""
     x = params["embed"][tokens].to(cfg.dtype)
     cos, sin = rotary_freqs(cfg.head_dim, cfg.max_seq_len, cfg.rope_theta,
                             device=x.device)
@@ -265,13 +288,16 @@ def backbone(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
         return attention(q, k, v, causal=True, positions=positions)
 
     def block(x, lp):
-        return _layer(x, lp, cfg, rope, attend)[0]
+        return _layer(x, lp, cfg, rope, attend)[:2]
 
     if cfg.remat:
         block = _checkpoint_layer(block, cfg.remat_policy)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in params["layers"]:
-        x = block(x, lp)
-    return _rmsnorm(x, params["ln_f"])
+        x, layer_aux = block(x, lp)
+        if layer_aux is not None:
+            aux = aux + layer_aux
+    return _rmsnorm(x, params["ln_f"]), aux
 
 
 def _device_tokens(params: Params, tokens, cfg: TransformerConfig,
@@ -292,15 +318,16 @@ def _device_tokens(params: Params, tokens, cfg: TransformerConfig,
 
 def forward(params: Params, tokens, cfg: TransformerConfig,
             positions: Optional[torch.Tensor] = None,
-            device: DeviceLike = None) -> torch.Tensor:
-    """tokens [B, S] (ints) -> logits [B, S, V] in `cfg.dtype`, through the
-    tied embedding. The params must already live on `device`."""
+            device: DeviceLike = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens [B, S] (ints) -> (logits [B, S, V] in `cfg.dtype`, through
+    the tied embedding; the load-balancing loss, as `backbone` gives it).
+    The params must already live on `device`."""
     tokens = _device_tokens(params, tokens, cfg, device)
     if positions is not None:
         positions = torch.as_tensor(positions, dtype=torch.long,
                                     device=tokens.device)
-    x = backbone(params, tokens, cfg, positions)
-    return torch.einsum("bsd,vd->bsv", x, params["embed"].to(cfg.dtype))
+    x, aux = backbone(params, tokens, cfg, positions)
+    return torch.einsum("bsd,vd->bsv", x, params["embed"].to(cfg.dtype)), aux
 
 
 def _token_nll(logits: torch.Tensor, targets: torch.Tensor,
@@ -343,18 +370,20 @@ def _chunked_nll(x: torch.Tensor, embed: torch.Tensor, targets: torch.Tensor,
 def lm_loss(params: Params, batch: Dict[str, Any], cfg: TransformerConfig,
             device: DeviceLike = None) -> torch.Tensor:
     """Next-token cross-entropy (float32 scalar); batch = {"tokens":
-    [B, S+1] ints, optional "mask": [B, S]}. The params must already live
-    on `device`. A dense model adds no auxiliary loss."""
+    [B, S+1] ints, optional "mask": [B, S]}, plus `cfg.aux_loss_weight`
+    times the layers' load-balancing loss (zero for a dense model). The
+    params must already live on `device`."""
     tokens = _device_tokens(params, batch["tokens"], cfg, device)
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
     mask = batch.get("mask")
     if mask is not None:
         mask = torch.as_tensor(mask, dtype=torch.float32,
                                device=tokens.device)
+    x, aux = backbone(params, inputs, cfg)
+    embed = params["embed"].to(cfg.dtype)
     if cfg.loss_chunk and inputs.shape[1] % cfg.loss_chunk == 0:
-        x = backbone(params, inputs, cfg)
-        return _chunked_nll(x, params["embed"].to(cfg.dtype), targets, mask,
-                            cfg.loss_chunk)
-    x = backbone(params, inputs, cfg)
-    logits = torch.einsum("bsd,vd->bsv", x, params["embed"].to(cfg.dtype))
-    return _token_nll(logits, targets, mask)
+        loss = _chunked_nll(x, embed, targets, mask, cfg.loss_chunk)
+    else:
+        loss = _token_nll(torch.einsum("bsd,vd->bsv", x, embed), targets,
+                          mask)
+    return loss + cfg.aux_loss_weight * aux

@@ -4,9 +4,12 @@ flash-attention kernel.
 The dispatch rule is `ray_tpu/ops/attention.py`'s single-device half: causal
 attention over standard positions with a flash-eligible shape goes to the
 kernels (`kernels/flash_attn.py`), everything else to `plain_attention`.
-Eligibility looks at the shape only; the kernels' wrappers decide by the
-tensors' device (CUDA launches the kernels, CPU runs their plain versions),
-so the CPU tests walk the same dispatch as the card.
+Eligibility is the JAX rule on the shape, cut to what the kernels take:
+their head dims, float32 or bfloat16 (other dtypes take plain attention, as
+JAX off the TPU does), and their layout (a view that fails it goes to the
+kernels as a contiguous copy). The kernels' wrappers decide by the tensors'
+device (CUDA launches the kernels, CPU runs their plain versions), so the
+CPU tests walk the same dispatch as the card.
 """
 
 from __future__ import annotations
@@ -15,8 +18,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from ray_tpu_torch.kernels.flash_attn import (HEAD_DIMS, flash_attn_bwd,
-                                              flash_attn_fwd)
+from ray_tpu_torch.kernels.flash_attn import (_DTYPE_CODE, HEAD_DIMS,
+                                              flash_attn_bwd, flash_attn_fwd)
 
 _NEG_INF = -1e30
 
@@ -73,6 +76,30 @@ def _flash_eligible(q: torch.Tensor) -> bool:
     return (d % 128 == 0 or d == 64) and d in HEAD_DIMS and s % 128 == 0
 
 
+def _kernel_layout(t: torch.Tensor) -> bool:
+    """`check_inputs`' layout rule: a contiguous last dimension, the other
+    strides multiples of 16 bytes, a 16-byte-aligned base."""
+    per_16_bytes = 16 // t.element_size()
+    return (t.stride(3) == 1
+            and all(t.stride(i) % per_16_bytes == 0 for i in range(3))
+            and t.data_ptr() % 16 == 0)
+
+
+def _kernel_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                     ) -> Optional[Tuple[torch.Tensor, ...]]:
+    """q, k, v as the kernels take them, beside `_flash_eligible`'s shape
+    rule: None unless all three are float32 or all bfloat16; a tensor whose
+    layout the kernels refuse becomes a fresh contiguous copy (a new
+    allocation, so its base is aligned too), which gives the same
+    result."""
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        return None
+    return tuple(t if _kernel_layout(t)
+                 else t.clone(memory_format=torch.contiguous_format)
+                 for t in (q, k, v))
+
+
 def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     positions: Optional[torch.Tensor] = None
@@ -97,7 +124,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               positions: Optional[torch.Tensor] = None,
               manual_sp: bool = False) -> torch.Tensor:
     """Single-device dispatch: the flash kernel for causal attention over
-    standard (arange) positions at an eligible shape, else plain
+    standard (arange) positions at an eligible shape and dtype, else plain
     attention. Sequence-parallel ring attention (`manual_sp`, or a mesh)
     is not ported yet (ROADMAP.md, "Parallel layer")."""
     if manual_sp or mesh is not None:
@@ -105,5 +132,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             "ring/sequence-parallel attention is not ported yet; see "
             "ROADMAP.md, 'Parallel layer'")
     if positions is None and causal and _flash_eligible(q):
-        return flash_attention(q, k, v)
+        operands = _kernel_operands(q, k, v)
+        if operands is not None:
+            return flash_attention(*operands)
     return plain_attention(q, k, v, causal=causal, positions=positions)

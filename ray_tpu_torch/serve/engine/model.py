@@ -267,7 +267,7 @@ class TransformerEngineModel:
 
         kvs = []
         for lp in self._params["layers"]:
-            x, k, v = _layer(x, lp, cfg, rope, attend)
+            x, _, k, v = _layer(x, lp, cfg, rope, attend)
             kvs.append(torch.stack([k[0], v[0]], dim=1))  # [S, 2, H, hd]
         return self._logits(x[0, length - 1]), torch.stack(kvs, dim=1)
 
@@ -308,7 +308,7 @@ class TransformerEngineModel:
                         + torch.einsum("bhqk,bkhd->bqhd",
                                        probs[..., p_pad:], v))
 
-            x, k, v = _layer(x, lp, cfg, rope, attend)
+            x, _, k, v = _layer(x, lp, cfg, rope, attend)
             kvs.append(torch.stack([k[0], v[0]], dim=1))  # [T, 2, H, hd]
         return self._logits(x[0, t_len - 1]), torch.stack(kvs, dim=1)
 
@@ -346,7 +346,7 @@ class TransformerEngineModel:
                 probs = torch.softmax(scores, dim=-1)
                 return torch.einsum("bhqs,bshd->bqhd", probs, vals)
 
-            x, k, v = _layer(x, lp, cfg, rope, attend)
+            x, _, k, v = _layer(x, lp, cfg, rope, attend)
             new_kv.append(torch.stack([k[:, 0], v[:, 0]], dim=1))
         # new_kv: L x [B, 2, H, hd] -> [B, L, 2, H, hd]
         return self._logits(x[:, 0]), torch.stack(new_kv, dim=1)

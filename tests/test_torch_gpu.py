@@ -157,9 +157,9 @@ def test_forward_and_engine_prefill_on_card_match_cpu(card):
                       for lp in cpu["layers"]]}
     tokens = np.random.default_rng(0).integers(0, 64, (1, 256))
     before = flash_attn.launches
-    got = forward(gpu, tokens, cfg).cpu()
+    got = forward(gpu, tokens, cfg)[0].cpu()
     assert flash_attn.launches == before + cfg.n_layers
-    want = forward(cpu, tokens, cfg, device="cpu")
+    want = forward(cpu, tokens, cfg, device="cpu")[0]
     assert (got - want).abs().max().item() <= 1e-3
     prompt = tokens[0, :130].tolist()
     g_logits, g_kv = TransformerEngineModel(gpu, cfg).prefill(prompt)
@@ -304,6 +304,80 @@ def test_lm_loss_grads_on_card_match_cpu(card):
         for t in leaves:
             t.requires_grad_(True)
         loss = lm_loss(params, batch, cfg, device=device)
+        return loss, torch.autograd.grad(loss, leaves)
+
+    counts = (flash_attn.launches, flash_attn.dkv_launches,
+              flash_attn.dq_launches)
+    g_loss, g_grads = grads(gpu, card)
+    assert (flash_attn.launches, flash_attn.dkv_launches,
+            flash_attn.dq_launches) == tuple(
+                c + cfg.n_layers for c in counts)
+    c_loss, c_grads = grads(cpu, "cpu")
+    assert abs(g_loss.item() - c_loss.item()) <= 1e-4 * c_loss.item()
+    for g, c in zip(g_grads, c_grads):
+        assert (g.cpu() - c).abs().max().item() <= \
+            1e-3 * c.abs().max().item()
+
+
+def test_moe_forward_and_loss_on_card_match_cpu(card, monkeypatch):
+    """A small MoE model (4 experts, top 2) on the card, through K1, K2 and
+    K3, against the same weights on the CPU, in float32. The routing
+    first: every layer's choices per token, recorded from `top_k_gating`,
+    must agree, except where the router probabilities they turn on tie
+    within 1e-5; a batch with such a tie is replaced by the next seed's,
+    and ties on all three fail. Then logits and aux, and the `lm_loss`
+    gradients (remat save_attn_qkv), with the dense model's card
+    tolerances."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    moe = importlib.import_module("ray_tpu_torch.ops.moe")
+    cfg = TransformerConfig(vocab_size=64, d_model=128, n_layers=2,
+                            n_heads=1, d_ff=256, max_seq_len=256,
+                            dtype=torch.float32, num_experts=4,
+                            remat=True, remat_policy="save_attn_qkv")
+    cpu = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gpu = {"embed": cpu["embed"].to(card), "ln_f": cpu["ln_f"].to(card),
+           "layers": [{k: t.to(card) for k, t in lp.items()}
+                      for lp in cpu["layers"]]}
+    calls = []
+    real = moe.top_k_gating
+    monkeypatch.setattr(moe, "top_k_gating", lambda logits, k, c: calls.append(
+        logits.detach().cpu()) or real(logits, k, c))
+
+    ties = []
+    for seed in (2, 3, 4):
+        tokens = np.random.default_rng(seed).integers(0, 64, (2, 257))
+        calls.clear()
+        before = flash_attn.launches
+        g_logits, g_aux = forward(gpu, tokens[:, :-1], cfg)
+        assert flash_attn.launches == before + cfg.n_layers
+        c_logits, c_aux = forward(cpu, tokens[:, :-1], cfg, device="cpu")
+        assert len(calls) == 2 * cfg.n_layers
+        tied = 0
+        for g, c in zip(calls[:cfg.n_layers], calls[cfg.n_layers:]):
+            g_choice, _ = smoke.route_choices(g, cfg.moe_top_k)
+            c_choice, gap = smoke.route_choices(c, cfg.moe_top_k)
+            differ = (g_choice != c_choice).any(-1)
+            assert bool((gap[differ] <= 1e-5).all()), gap[differ]
+            tied += int(differ.sum())
+        ties.append(tied)
+        if not tied:
+            break
+    assert not ties[-1], f"tied routing choices on every batch: {ties}"
+    assert (g_logits.cpu() - c_logits).abs().max().item() <= 1e-3
+    assert abs(g_aux.item() - c_aux.item()) <= 1e-5 * c_aux.item()
+
+    def grads(params, device):
+        leaves = [params["embed"], params["ln_f"]] + [
+            t for lp in params["layers"] for t in lp.values()]
+        for t in leaves:
+            t.requires_grad_(True)
+        loss = lm_loss(params, {"tokens": tokens}, cfg, device=device)
         return loss, torch.autograd.grad(loss, leaves)
 
     counts = (flash_attn.launches, flash_attn.dkv_launches,

@@ -16,10 +16,14 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from ray_tpu.models import TransformerConfig as JaxConfig
+from ray_tpu.models import init_params as jax_init_params
 from ray_tpu.models.transformer import _rmsnorm as jax_rmsnorm
+from ray_tpu.models.transformer import forward as jax_forward
 from ray_tpu.ops.rotary import apply_rotary as jax_apply_rotary
 from ray_tpu.ops.rotary import rotary_freqs as jax_rotary_freqs
 from ray_tpu_torch.kernels import flash_attn
+from ray_tpu_torch.models import TransformerConfig, forward, params_from_jax
 from ray_tpu_torch.models.transformer import _rmsnorm
 from ray_tpu_torch.ops.rotary import apply_rotary, rotary_freqs
 
@@ -32,6 +36,8 @@ F32_TOL = 1e-5
 # bf16 keeps 8 mantissa bits: probabilities and outputs round at 2^-8
 # relative on both sides, at the same places (p cast to v's dtype).
 BF16_TOL = 2e-2
+# float16 keeps 11: a few of its ulps (2^-11 relative) of the largest logit.
+F16_TOL = 2e-3
 
 
 def _qkv(seed, shape, dtype=np.float32):
@@ -202,6 +208,103 @@ def test_flash_eligible_matches_jax_rule(s, d, monkeypatch):
     x = np.zeros((1, s, 2, d), np.float32)
     assert torch_attention._flash_eligible(torch.from_numpy(x)) == (
         jax_attention._flash_eligible(x) and d in flash_attn.HEAD_DIMS)
+
+
+def _count_flash(monkeypatch):
+    calls = []
+    real = torch_attention.flash_attention
+    monkeypatch.setattr(torch_attention, "flash_attention",
+                        lambda *a: calls.append(a) or real(*a))
+    return calls
+
+
+def _offset_view(shape, dtype, offset):
+    """A contiguous tensor of `shape` whose base lies `offset` elements
+    into its storage."""
+    n = int(np.prod(shape))
+    return (torch.arange(n + offset, dtype=dtype) / n)[offset:].view(shape)
+
+
+@pytest.mark.parametrize("case", [
+    "float32", "bfloat16", "qkv views", "float16", "float64", "mixed",
+    "strided views", "misaligned base"])
+def test_kernel_operands_follow_check_inputs(case):
+    """Beside the shape rule: the kernels take q, k, v as they are when
+    `check_inputs` would, as fresh contiguous copies when only the layout
+    rule fails, and not at all (None: plain attention) for a dtype other
+    than float32 or bfloat16, or for mixed dtypes."""
+    shape = (1, 128, 2, 64)
+    q, k, v = (_t(a) for a in _qkv(9, shape))
+    if case == "bfloat16":
+        q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    elif case == "qkv views":
+        q, k, v = torch.zeros(1, 128, 3, 2, 64).unbind(2)
+    elif case == "float16":
+        q, k, v = q.half(), k.half(), v.half()
+    elif case == "float64":
+        q, k, v = q.double(), k.double(), v.double()
+    elif case == "mixed":
+        k = k.bfloat16()
+    elif case == "strided views":
+        q, k, v = torch.zeros(1, 128, 2, 3, 66).unbind(3)
+        q, k, v = q[..., :64], k[..., :64], v[..., :64]
+    elif case == "misaligned base":
+        q = _offset_view(shape, torch.float32, 1)
+        assert q.is_contiguous() and q.data_ptr() % 16
+    got = torch_attention._kernel_operands(q, k, v)
+    if case in ("float16", "float64", "mixed"):
+        assert got is None
+        return
+    flash_attn.check_inputs(*got)              # the kernels take them
+    for t, g in zip((q, k, v), got):
+        assert torch.equal(g, t)
+        copied = case in ("strided views", "misaligned base") and (
+            case == "strided views" or t is q)
+        assert (g.data_ptr() != t.data_ptr()) == copied
+        if copied:
+            assert g.is_contiguous()
+
+
+def test_float16_flash_shaped_model_matches_jax(monkeypatch):
+    """A float16 model at a flash-eligible shape (head_dim 64, S 128): JAX
+    off the TPU takes plain attention and returns float16 logits; so does
+    the port (the kernels take float32 and bfloat16 only)."""
+    widths = dict(vocab_size=64, d_model=128, n_layers=1, n_heads=2,
+                  d_ff=64)
+    jcfg = JaxConfig(dtype=jnp.float16, **widths)
+    jparams = jax_init_params(jax.random.PRNGKey(0), jcfg)
+    params = params_from_jax(jax.tree.map(np.asarray, jparams),
+                             device="cpu")
+    cfg = TransformerConfig(dtype=torch.float16, **widths)
+    calls = _count_flash(monkeypatch)
+    tokens = np.random.default_rng(0).integers(0, 64, (1, 128))
+    got, _ = forward(params, tokens, cfg, device="cpu")
+    want, _ = jax_forward(jparams, jnp.asarray(tokens), jcfg)
+    assert got.dtype == torch.float16 and want.dtype == jnp.float16
+    assert calls == []
+    want = np.asarray(want, np.float32)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                               atol=F16_TOL * np.abs(want).max())
+
+
+def test_strided_views_take_the_kernel_as_copies(monkeypatch):
+    """q, k, v as `[..., :64]` views of a float32 [1, 128, 2, 3, 66]
+    tensor (rows 198 elements apart, not a multiple of 16 bytes): the port
+    runs the kernel on contiguous copies and returns JAX's result, and
+    the same values as on contiguous inputs."""
+    x = np.random.default_rng(10).standard_normal(
+        (1, 128, 2, 3, 66)).astype(np.float32)
+    q, k, v = (torch.from_numpy(x)[:, :, :, i, :64] for i in range(3))
+    calls = _count_flash(monkeypatch)
+    got = torch_attention.attention(q, k, v)
+    assert len(calls) == 1 and all(t.is_contiguous() for t in calls[0])
+    want = jax_attention.attention(
+        *(jnp.asarray(x[:, :, :, i, :64]) for i in range(3)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=F32_TOL,
+                               rtol=F32_TOL)
+    same = torch_attention.attention(q.contiguous(), k.contiguous(),
+                                     v.contiguous())
+    assert torch.equal(got, same)
 
 
 def test_attention_dispatch_routes_like_jax(monkeypatch):

@@ -193,7 +193,7 @@ def test_calls_without_grad_skip_names_and_lse(grad, monkeypatch):
     if grad:
         params["embed"].requires_grad_(True)
     tokens = make_batch(cfg, 1, 128)["tokens"][:, :-1]
-    out = forward(params, tokens, cfg, device="cpu")
+    out, _ = forward(params, tokens, cfg, device="cpu")
     assert lse == [grad] * cfg.n_layers
     assert out.requires_grad == grad
 
@@ -216,7 +216,7 @@ def test_wide_head_dim_matches_jax(monkeypatch):
                         lambda *a: calls.append(1) or real(*a))
     batch = make_batch(cfg, 2, 128, seed=5)
     tokens = batch["tokens"][:, :-1]
-    got = forward(params, tokens, cfg, device="cpu").detach().numpy()
+    got = forward(params, tokens, cfg, device="cpu")[0].detach().numpy()
     want, _ = jax.jit(jax_forward, static_argnums=2)(
         jparams, jnp.asarray(tokens), jcfg)
     want = np.asarray(want)

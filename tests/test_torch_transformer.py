@@ -58,9 +58,12 @@ def test_forward_matches_jax(widths, seq, flash_calls, monkeypatch):
     calls = _count_flash(monkeypatch)
     tokens = np.random.default_rng(1).integers(
         0, cfg.vocab_size, (2, seq)).astype(np.int32)
-    got = forward(params, tokens, cfg, device="cpu").numpy()
-    want, _ = jax_forward(jparams, jnp.asarray(tokens), jcfg)
+    got, aux = forward(params, tokens, cfg, device="cpu")
+    got = got.numpy()
+    want, want_aux = jax_forward(jparams, jnp.asarray(tokens), jcfg)
     want = np.asarray(want)
+    # A dense model's load-balancing loss: a float32 zero on both sides.
+    assert aux.dtype == torch.float32 and aux.item() == float(want_aux) == 0
     assert got.shape == want.shape == (2, seq, cfg.vocab_size)
     assert len(calls) == flash_calls          # one per layer when eligible
     scale = np.abs(want).max()
@@ -72,9 +75,9 @@ def test_forward_explicit_positions_take_the_plain_path(monkeypatch):
     jparams, jcfg, params, cfg = make_pair(FLASH)
     calls = _count_flash(monkeypatch)
     tokens = np.random.default_rng(2).integers(0, 64, (1, 256))
-    flash = forward(params, tokens, cfg, device="cpu")
-    plain = forward(params, tokens, cfg, positions=np.arange(256),
-                    device="cpu")
+    flash, _ = forward(params, tokens, cfg, device="cpu")
+    plain, _ = forward(params, tokens, cfg, positions=np.arange(256),
+                       device="cpu")
     assert len(calls) == cfg.n_layers
     np.testing.assert_allclose(plain.numpy(), flash.numpy(), atol=1e-5)
 
@@ -101,7 +104,7 @@ def test_init_params_layouts_and_seed():
     assert tuple(a["layers"][1]["w13"].shape) == (32, 2, 64)
     assert a["embed"].dtype == torch.float32
     torch.testing.assert_close(a["layers"][1]["wqkv"], b["layers"][1]["wqkv"])
-    logits = forward(a, [[1, 2, 3]], cfg, device="cpu")
+    logits, _ = forward(a, [[1, 2, 3]], cfg, device="cpu")
     assert logits.shape == (1, 3, 64) and torch.isfinite(logits).all()
 
 
@@ -115,11 +118,3 @@ def test_entry_points_need_a_card_or_an_explicit_cpu(monkeypatch):
         forward(params, [[1, 2]], cfg)
     with pytest.raises(ValueError, match="token ids"):
         forward(params, [[1, 64]], cfg, device="cpu")
-
-
-def test_moe_is_not_ported():
-    cfg = TransformerConfig(num_experts=4, **TINY)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        params_from_jax({"layers": {"router": 0, "ln1": 0}}, device="cpu")

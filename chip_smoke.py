@@ -73,7 +73,24 @@ result line:
     the first, and K1, K2, K3 once per layer per step. Then one profiled
     step and the forward FLOPs of the dispatch and combine products
     against the experts' (by count), beside each part's CUDA-event time in
-    one layer at the step's shapes.
+    one layer at the step's shapes;
+12. mesh train: the parallel layer on `make_mesh()` of this one card (every
+    axis 1, which JAX treats as unsharded): bench.py's dense step through
+    `init_sharded` (DTensor params), `batch_sharding`, `make_train_step`
+    and `lm_loss(..., mesh=mesh)`. Its first 3 steps against two
+    mesh-free runs from the same init and batch: bitwise equal losses and
+    params when the two mesh-free runs agree bitwise, else within twice
+    their difference. Then 10 timed steps (K1, K2, K3 once per layer per
+    step, the loss falling) and one profiled step, each beside the
+    mesh-free step of phase 9: the host cost of the mesh path;
+13. pipeline float32: `lm_loss_pipelined` (one stage, 2 microbatches) at
+    depth 2 on 2 x 1024 tokens against the unpipelined plain-attention
+    path from the same weights: the loss and every gradient part within
+    1e-5 rel L2; K1-K3 launch no time (the pipelined path takes plain
+    attention, as JAX's does);
+14. pipeline train: the bf16 pipelined step at full depth, 16 x 1024
+    tokens in 2 microbatches, 1 warm-up and 3 timed steps: step ms and
+    peak memory, losses finite and falling.
 
 Then it prints a `{"kernels": [...]}` line and, last, the result line
 `{"ok": true, "device": {...}}`. It imports nothing of JAX or of `ray_tpu`.
@@ -222,6 +239,22 @@ ROUTE_TIE_GAP = 1e-5
 # Token batches of the MoE float32 gradient phase, tried in turn until one
 # routes alike on both paths.
 MOE_GRAD_SEEDS = (31, 32, 33)
+
+
+# The parallel layer on the mesh of one card (all axes 1): the mesh train
+# step is checked against the mesh-free step for MESH_CHECK_STEPS steps
+# from the same init and batch, then timed for TRAIN_STEPS more. The
+# pipeline runs PIPE_MICRO microbatches: in float32 at depth
+# PIPE_F32_LAYERS on PIPE_F32_BATCH x TRAIN_SEQ tokens against the
+# unpipelined plain-attention path (the same float32 math cut into
+# microbatches, so some 1e-7 relative; JAX's pipeline takes plain
+# attention too), then in bf16 at full depth for 1 + PIPE_TRAIN_STEPS
+# steps.
+MESH_CHECK_STEPS = 3
+PIPE_MICRO = 2
+PIPE_F32_LAYERS, PIPE_F32_BATCH = 2, 2
+PIPE_GRAD_REL_L2 = 1e-5
+PIPE_TRAIN_STEPS = 3
 
 
 class PhaseError(RuntimeError):
@@ -1008,10 +1041,11 @@ def phase_train(params, cfg, card: str, power_w: float):
     check(all(n == cfg.n_layers * TRAIN_STEPS for n in launches),
           f"the train steps launched K1, K2, K3 {launches} times, expected "
           f"{cfg.n_layers * TRAIN_STEPS} each (once per layer per step)")
-    profile_step(lambda: step(params, opt_state, batch),
-                 dt / TRAIN_STEPS * 1e3, card)
+    prof = profile_step(lambda: step(params, opt_state, batch),
+                        dt / TRAIN_STEPS * 1e3, card)
     return launches, dict(tokens_per_s=tokens_per_s, mfu=mfu,
-                          peak_memory_bytes=peak)
+                          peak_memory_bytes=peak,
+                          step_ms=dt / TRAIN_STEPS * 1e3, profile=prof)
 
 
 class RoutingRecorder:
@@ -1342,6 +1376,317 @@ def phase_moe_train(params, cfg, card: str, power_w: float):
     return launches
 
 
+def _zero_counts():
+    from ray_tpu_torch.kernels import flash_attn
+
+    flash_attn.launches = flash_attn.dkv_launches = 0
+    flash_attn.dq_launches = 0
+
+
+def _counts():
+    from ray_tpu_torch.kernels import flash_attn
+
+    return (flash_attn.launches, flash_attn.dkv_launches,
+            flash_attn.dq_launches)
+
+
+def _flat(params):
+    """[(name, tensor)] of a params tree, layer leaves stacked or not; a
+    DTensor leaf as its local block (the whole, on a mesh of one)."""
+    from torch.distributed.tensor import DTensor
+
+    def local(t):
+        return t.to_local() if isinstance(t, DTensor) else t
+
+    out = [("embed", local(params["embed"])),
+           ("ln_f", local(params["ln_f"]))]
+    layers = params["layers"]
+    if isinstance(layers, dict):        # to_pipelined: [1, L, ...]
+        for key, t in layers.items():
+            t = local(t)[0]
+            out += [(f"layers.{i}.{key}", t[i]) for i in range(t.shape[0])]
+    else:
+        out += [(f"layers.{i}.{key}", local(t))
+                for i, lp in enumerate(layers) for key, t in lp.items()]
+    return sorted(out, key=lambda kv: kv[0])
+
+
+def phase_mesh_train(cfg, card: str, base: dict):
+    """bench.py's dense step on `make_mesh()` of this one card (every axis
+    1): params from `init_sharded` (DTensors), the batch placed by
+    `batch_sharding`, `make_train_step` over `lm_loss(..., mesh=mesh)`.
+    First MESH_CHECK_STEPS steps against the mesh-free step from the same
+    init and batch: losses and every updated param bitwise equal (the
+    mesh path runs the same kernels on the same local blocks; it adds no
+    collective on an axis of one). Then TRAIN_STEPS timed steps (K1, K2,
+    K3 once per layer per step) and one profiled step, beside the
+    mesh-free step of the train phase (`base`): the difference is the host
+    cost of the mesh path. Returns (mesh, K1/K2/K3 launches of the timed
+    steps)."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from ray_tpu_torch.models import init_params, lm_loss, param_specs
+    from ray_tpu_torch.parallel import (adamw, batch_sharding, init_sharded,
+                                        make_mesh, make_train_step)
+
+    mesh = make_mesh()
+    check(tuple(mesh.shape) == (1, 1, 1, 1),
+          f"make_mesh() on one card is {tuple(mesh.shape)}, not all 1")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                           generator=gen, device="cuda")
+
+    def init():
+        return init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+
+    def run(params, loss_fn, batch, steps):
+        optimizer = adamw(1e-4)
+        state = optimizer.init(params)
+        step = make_train_step(loss_fn, optimizer)
+        losses = []
+        for _ in range(steps):
+            params, state, loss = step(params, state, batch)
+            losses.append(loss)
+        return params, state, step, [x.item() for x in losses]
+
+    def mesh_free():
+        params, state, _, losses = run(
+            init(), lambda p, b: lm_loss(p, b, cfg), {"tokens": tokens},
+            MESH_CHECK_STEPS)
+        del state
+        return [(n, t.detach()) for n, t in _flat(params)], losses
+
+    def largest(a, b):
+        return max((x.float() - y.float()).abs().max().item()
+                   for (_, x), (_, y) in zip(a, b))
+
+    # Two mesh-free runs: their difference is the card's own run-to-run
+    # noise at these steps (zero if every kernel on the path is
+    # deterministic), the floor of any comparison with a third run.
+    ref, ref_losses = mesh_free()
+    again, again_losses = mesh_free()
+    noise = largest(ref, again)
+    noise_loss = max(abs(x - y) for x, y in zip(ref_losses, again_losses))
+    del again
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    params = init_sharded(init, param_specs(cfg), mesh)
+    check(all(isinstance(t, DTensor) for t in _leaves(params)),
+          "init_sharded gave plain tensors")
+    place = batch_sharding(mesh)
+    batch = {"tokens": DTensor.from_local(tokens, mesh, place)}
+    t0 = time.perf_counter()
+    params, state, step, losses = run(
+        params, lambda p, b: lm_loss(p, b, cfg, mesh=mesh), batch,
+        MESH_CHECK_STEPS)
+    torch.cuda.synchronize()
+    check_s = time.perf_counter() - t0
+    got = _flat(params)
+    diff = largest(ref, got)
+    n_equal = sum(torch.equal(a, t.detach())
+                  for (_, a), (_, t) in zip(ref, got))
+    diff_loss = max(abs(x - y) for x, y in zip(ref_losses, losses))
+    axes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    print(f"mesh train check: make_mesh() {axes} on one card, {len(ref)} "
+          f"DTensor leaves; {MESH_CHECK_STEPS} steps ({check_s:.3f} s, the "
+          f"first a warm-up): losses mesh "
+          f"{' '.join(f'{x:.6f}' for x in losses)} mesh-free "
+          f"{' '.join(f'{x:.6f}' for x in ref_losses)}, bitwise equal "
+          f"{losses == ref_losses}; params bitwise equal {n_equal} of "
+          f"{len(ref)}, largest difference {diff:.3e}; two mesh-free runs "
+          f"differ by {noise:.3e} (params), {noise_loss:.3e} (losses) "
+          f"[{card}]", flush=True)
+    if noise == 0 and noise_loss == 0:
+        # The mesh-free step is deterministic here: the mesh step must be
+        # the same computation, bit for bit.
+        check(losses == ref_losses and n_equal == len(ref),
+              f"the mesh step is not bitwise the mesh-free step: losses "
+              f"{losses} vs {ref_losses}, {len(ref) - n_equal} params "
+              f"differ, by up to {diff:.3e}")
+    else:
+        # The card's run-to-run noise: the mesh step may differ from the
+        # mesh-free one as much as two mesh-free runs do, twice over.
+        check(diff <= 2 * noise and diff_loss <= 2 * noise_loss,
+              f"the mesh step differs from the mesh-free step by {diff:.3e}"
+              f" (params) and {diff_loss:.3e} (losses), over twice two "
+              f"mesh-free runs' {noise:.3e} and {noise_loss:.3e}")
+    del ref
+    gc.collect()
+
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        params, state, loss = step(params, state, batch)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    values = losses[:MESH_CHECK_STEPS] + [x.item() for x in
+                                          losses[MESH_CHECK_STEPS:]]
+    step_ms = dt / TRAIN_STEPS * 1e3
+    tokens_per_s = TRAIN_BATCH * TRAIN_SEQ * TRAIN_STEPS / dt
+    print(f"mesh train flagship bf16 remat {cfg.remat_policy} [{TRAIN_BATCH}"
+          f", {TRAIN_SEQ}] on make_mesh(): {TRAIN_STEPS} steps in "
+          f"{dt:.4f} s, step_ms {step_ms:.2f} (mesh-free step in the train "
+          f"phase {base['step_ms']:.2f}: {step_ms - base['step_ms']:+.2f} "
+          f"ms, {step_ms / base['step_ms']:.4f}x), tokens_per_s "
+          f"{tokens_per_s:.1f} (mesh-free {base['tokens_per_s']:.1f}), "
+          f"peak_memory_bytes {peak} ({peak / 2 ** 30:.2f} GiB), launches "
+          f"K1 {launches[0]} K2 {launches[1]} K3 {launches[2]} in "
+          f"{TRAIN_STEPS} steps; losses "
+          f"{' '.join(f'{x:.5f}' for x in values)} [{card}]", flush=True)
+    check(all(x == x and abs(x) != float("inf") for x in values),
+          "a mesh train loss is not finite")
+    check(values[-1] < values[0], f"the mesh train loss did not fall: "
+          f"{values[0]:.5f} -> {values[-1]:.5f}")
+    check(all(n == cfg.n_layers * TRAIN_STEPS for n in launches),
+          f"the mesh train steps launched K1, K2, K3 {launches} times, "
+          f"expected {cfg.n_layers * TRAIN_STEPS} each (once per layer per "
+          f"step)")
+    prof = profile_step(lambda: step(params, state, batch), step_ms, card,
+                        label="mesh train step")
+    if prof and base.get("profile"):
+        b = base["profile"]
+        print(f"mesh train vs mesh-free, one profiled step each: card busy "
+              f"{prof['busy_ms']:.2f} vs {b['busy_ms']:.2f} ms, idle share "
+              f"{prof['idle']:.4f} vs {b['idle']:.4f}, host clock "
+              f"{prof['host_ms']:.2f} vs {b['host_ms']:.2f} ms [{card}]",
+              flush=True)
+    return mesh, launches
+
+
+def phase_pipeline_f32(mesh, cfg, card: str):
+    """`lm_loss_pipelined` on the one-card mesh (one stage, PIPE_MICRO
+    microbatches), float32 at depth PIPE_F32_LAYERS, PIPE_F32_BATCH x
+    TRAIN_SEQ tokens, against the unpipelined plain-attention path
+    (`plain_lm_loss`) from the same weights: the loss and every gradient
+    part (wqkv split into q, k, v) within PIPE_GRAD_REL_L2 rel L2. The
+    pipelined path takes plain attention (explicit positions, as JAX's),
+    so K1-K3 launch no time."""
+    from dataclasses import replace
+
+    import torch
+
+    from ray_tpu_torch.models import (init_params, lm_loss_pipelined,
+                                      pipelined_param_specs, to_pipelined)
+    from ray_tpu_torch.parallel import shard_pytree
+
+    cfg = replace(cfg, n_layers=PIPE_F32_LAYERS, dtype=torch.float32)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(4))
+    tokens = torch.randint(0, cfg.vocab_size,
+                           (PIPE_F32_BATCH, TRAIN_SEQ + 1),
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(5), device="cuda")
+    pp = shard_pytree(to_pipelined(params, 1), pipelined_param_specs(cfg),
+                      mesh)
+    names, leaves = zip(*_flat(params))
+    for t in leaves:
+        t.requires_grad_(True)
+    ref = plain_lm_loss(params, tokens, cfg)
+    ref.backward()
+    ref_grads = [t.grad for _, t in _flat(params)]
+    for t in (pp["embed"], pp["ln_f"], *pp["layers"].values()):
+        t.requires_grad_(True)
+    _zero_counts()
+    loss = lm_loss_pipelined(pp, {"tokens": tokens}, cfg, mesh,
+                             num_microbatches=PIPE_MICRO)
+    loss.backward()
+    launches = _counts()
+    grads = {"embed": pp["embed"].grad, "ln_f": pp["ln_f"].grad,
+             "layers": {k: t.grad for k, t in pp["layers"].items()}}
+    got = [t for _, t in _flat(grads)]
+    part_names, ref_parts = _split_qkv(names, ref_grads)
+    _, parts = _split_qkv(names, got)
+    rel = [((a - b).norm() / b.norm()).item()
+           for a, b in zip(parts, ref_parts)]
+    worst = max(range(len(rel)), key=rel.__getitem__)
+    loss_v, ref_v = loss.item(), ref.item()
+    loss_rel = abs(loss_v - ref_v) / abs(ref_v)
+    print(f"pipeline f32 depth {cfg.n_layers} [{PIPE_F32_BATCH}, "
+          f"{TRAIN_SEQ}] {PIPE_MICRO} microbatches, one stage: loss "
+          f"{loss_v:.6f} unpipelined plain {ref_v:.6f} (rel {loss_rel:.3e});"
+          f" rel_l2 over {len(rel)} parts (wqkv split into q, k, v): max "
+          f"{rel[worst]:.3e} ({part_names[worst]}), mean "
+          f"{sum(rel) / len(rel):.3e} (limit {PIPE_GRAD_REL_L2:g}); "
+          f"launches K1 {launches[0]} K2 {launches[1]} K3 {launches[2]} "
+          f"[{card}]", flush=True)
+    check(loss_rel <= PIPE_GRAD_REL_L2,
+          f"the pipelined loss is {loss_rel:.3e} from the unpipelined one")
+    check(rel[worst] <= PIPE_GRAD_REL_L2,
+          f"the pipelined gradient of {part_names[worst]} is "
+          f"{rel[worst]:.3e} from the unpipelined one (rel L2), over "
+          f"{PIPE_GRAD_REL_L2:g}")
+    check(launches == (0, 0, 0), f"the pipelined path launched K1, K2, K3 "
+          f"{launches} times; it takes plain attention, as JAX's")
+
+
+def phase_pipeline_train(mesh, cfg, card: str):
+    """The bf16 pipelined train step at full depth on the one-card mesh
+    (one stage, PIPE_MICRO microbatches, plain attention), TRAIN_BATCH x
+    TRAIN_SEQ tokens: 1 warm-up and PIPE_TRAIN_STEPS timed steps, step ms
+    and peak memory; losses finite and falling."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from ray_tpu_torch.models import (init_params, lm_loss_pipelined,
+                                      pipelined_param_specs, to_pipelined)
+    from ray_tpu_torch.parallel import (adamw, batch_sharding, init_sharded,
+                                        make_train_step)
+
+    params = init_sharded(
+        lambda: to_pipelined(init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0)), 1),
+        pipelined_param_specs(cfg), mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(1), device="cuda")
+    batch = {"tokens": DTensor.from_local(tokens, mesh,
+                                          batch_sharding(mesh))}
+    optimizer = adamw(1e-4)
+    state = optimizer.init(params)
+    step = make_train_step(
+        lambda p, b: lm_loss_pipelined(p, b, cfg, mesh,
+                                       num_microbatches=PIPE_MICRO),
+        optimizer)
+    t0 = time.perf_counter()
+    params, state, loss = step(params, state, batch)
+    losses = [loss]
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    for _ in range(PIPE_TRAIN_STEPS):
+        params, state, loss = step(params, state, batch)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    values = [x.item() for x in losses]
+    step_ms = dt / PIPE_TRAIN_STEPS * 1e3
+    print(f"pipeline train flagship bf16 remat {cfg.remat_policy} "
+          f"[{TRAIN_BATCH}, {TRAIN_SEQ}] {PIPE_MICRO} microbatches, one "
+          f"stage, plain attention: warm-up step {warm_s:.3f} s; "
+          f"{PIPE_TRAIN_STEPS} steps in {dt:.4f} s, step_ms {step_ms:.2f}, "
+          f"tokens_per_s {TRAIN_BATCH * TRAIN_SEQ / dt * PIPE_TRAIN_STEPS:.1f}"
+          f", peak_memory_bytes {peak} ({peak / 2 ** 30:.2f} GiB), launches "
+          f"K1 {launches[0]} K2 {launches[1]} K3 {launches[2]}; losses "
+          f"{' '.join(f'{x:.5f}' for x in values)} [{card}]", flush=True)
+    check(all(x == x and abs(x) != float("inf") for x in values),
+          "a pipelined train loss is not finite")
+    check(values[-1] < values[0], f"the pipelined train loss did not fall: "
+          f"{values[0]:.5f} -> {values[-1]:.5f}")
+    check(launches == (0, 0, 0), f"the pipelined step launched K1, K2, K3 "
+          f"{launches} times; it takes plain attention, as JAX's")
+
+
 def busy_union(intervals) -> float:
     """Length of the union of [start, end) intervals."""
     total, reach = 0.0, float("-inf")
@@ -1353,13 +1698,14 @@ def busy_union(intervals) -> float:
 
 
 def profile_step(run, step_ms: float, card: str,
-                 label: str = "train step") -> None:
+                 label: str = "train step"):
     """One train step under `torch.profiler`: the card's kernel time by
     group (the port's attention kernels, matrix products, the rest), the
     largest kernels, each attention kernel's time, and the card's idle
     share, read from this step's own trace: the union of its kernels'
     intervals over the span from the first kernel's start to the last
-    one's end."""
+    one's end. Returns {busy_ms, span_ms, idle, host_ms}, or None when the
+    profiler saw no kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1378,7 +1724,7 @@ def profile_step(run, step_ms: float, card: str,
     if not events:
         print("profile: the profiler recorded no kernel on the card",
               flush=True)
-        return
+        return None
     spans = [(e.time_range.start, e.time_range.end) for e in events]
     span_ms = (max(b for _, b in spans) - min(a for a, _ in spans)) / 1e3
     busy_ms = busy_union(spans) / 1e3
@@ -1414,6 +1760,8 @@ def profile_step(run, step_ms: float, card: str,
         if "flash_fwd" in kname or "flash_bwd" in kname:
             print(f"  attention kernel {ms:9.3f} ms  x{n:<5d} "
                   f"{kname[:110]}", flush=True)
+    return dict(busy_ms=busy_ms, span_ms=span_ms,
+                idle=1 - busy_ms / span_ms, host_ms=host_ms)
 
 
 def main() -> int:
@@ -1499,7 +1847,8 @@ def main() -> int:
         train_cfg = replace(cfg, remat=True, remat_policy="save_attn_qkv")
         phase_grad(params, train_cfg, card)
         f32_launches = phase_grad_f32(params, train_cfg, card)
-        train_launches, _ = phase_train(params, train_cfg, card, power_w)
+        train_launches, train_stats = phase_train(params, train_cfg, card,
+                                                  power_w)
         # The dense model's params, gradients and optimizer state go
         # before the MoE model is made.
         del params
@@ -1510,6 +1859,20 @@ def main() -> int:
                              torch.Generator(device="cuda").manual_seed(2))
         moe_f32_launches = phase_moe_grad_f32(params, moe_cfg, card)
         moe_launches = phase_moe_train(params, moe_cfg, card, power_w)
+        # The parallel layer on the mesh of this one card, dense flagship.
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        try:
+            mesh, mesh_launches = phase_mesh_train(train_cfg, card,
+                                                   train_stats)
+            phase_pipeline_f32(mesh, train_cfg, card)
+            phase_pipeline_train(mesh, train_cfg, card)
+        finally:
+            import torch.distributed as dist
+
+            if dist.is_initialized():
+                dist.destroy_process_group()
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1531,6 +1894,8 @@ def main() -> int:
            for kname, line, n, m in (
                ("dkv", 1121, train_launches[1], moe_launches[1]),
                ("dq", 1456, train_launches[2], moe_launches[2]))]
+    for entry, n in zip(bwd, mesh_launches[1:]):
+        entry["mesh_train_launches"] = n
     shape, dtype, layout, qk_scale = F32_BWD_SHAPE
     bwd += [dict(name=f"flash_attn_bwd_{kname}_f32", route="cuda",
                  kernel=f"flash_bwd_{kname}_f32",
@@ -1552,6 +1917,7 @@ def main() -> int:
         train_launches=train_launches[0],
         moe_train_launches=moe_launches[0],
         moe_f32_grad_launches=moe_f32_launches[0],
+        mesh_train_launches=mesh_launches[0],
         shape=list(MAIN_SHAPE[0]), dtype=MAIN_SHAPE[1],
         layout=MAIN_SHAPE[2], **main_row,
         at_train_shape=dict(shape=list(TRAIN_SHAPE[0]),

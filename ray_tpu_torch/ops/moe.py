@@ -6,14 +6,26 @@ outside Pallas). Gradients reach the router only through its softmax
 probabilities: through each choice's gate into `combine`, and through the
 mean probability into the load-balancing loss. The choices, positions and
 one-hots carry none.
+
+Under a mesh (`ExpertParallel`, inside the sharded model's manual region)
+one call's tokens lie over the batch (dp) and, outside a pipeline stage,
+sequence (sp) ranks, as JAX's global arrays do: the router logits are
+gathered so that the gating, its capacity and its token order are those
+of the whole call; each rank keeps its tokens' dispatch and combine rows.
+The experts lie over dp (expert parallel) and their hidden dim over tp.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from dataclasses import dataclass
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed import ProcessGroup
+
+from ray_tpu_torch.parallel.collectives import (all_gather, axis_index,
+                                                psum, psum_scatter)
 
 
 def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -84,10 +96,54 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+@dataclass(frozen=True)
+class ExpertParallel:
+    """Where one `moe_ffn` call's tokens and experts lie, for a rank inside
+    a manual region: the groups of ranks whose blocks make up the call's
+    batch rows and sequence (None: this rank holds the whole dim), the
+    group that splits the experts, and the one that splits their hidden
+    dim F. Groups of one rank cost nothing."""
+
+    batch: ProcessGroup
+    seq: Optional[ProcessGroup]
+    experts: ProcessGroup
+    hidden: ProcessGroup
+
+    def _groups(self):
+        return ((1, self.seq), (0, self.batch))
+
+    def gather_tokens(self, t: torch.Tensor) -> torch.Tensor:
+        """[b, s, ...] blocks -> the call's [B, S, ...]."""
+        for dim, group in self._groups():
+            if group is not None:
+                t = all_gather(t, group, dim)
+        return t
+
+    def own_tokens(self, t: torch.Tensor, b: int, s: int) -> torch.Tensor:
+        """The call's [B, S, ...] -> this rank's [b, s, ...] block."""
+        for dim, group in self._groups():
+            if group is not None:
+                n = (b, s)[dim]
+                t = t.narrow(dim, axis_index(group) * n, n)
+        return t
+
+    def own_experts(self, expert_in: torch.Tensor) -> torch.Tensor:
+        """[E, C, D] partial sums over this rank's tokens -> this rank's
+        experts' [E/dp, C, D] sums over the call's tokens."""
+        if self.seq is not None:
+            expert_in = psum(expert_in, self.seq)
+        return psum_scatter(expert_in, self.experts, 0)
+
+    def all_experts(self, expert_out: torch.Tensor) -> torch.Tensor:
+        """[E/dp, C, D] partial sums over this rank's F block -> [E, C, D]."""
+        return all_gather(psum(expert_out, self.hidden), self.experts, 0)
+
+
 def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, w1: torch.Tensor,
             w2: torch.Tensor, *, top_k: int = 2,
             capacity_factor: float = 1.25,
-            activation: Callable[[torch.Tensor], torch.Tensor] = gelu_tanh
+            activation: Callable[[torch.Tensor], torch.Tensor] = gelu_tanh,
+            shards: Optional[ExpertParallel] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """MoE feed-forward. x [B, S, D]; router_w [D, E]; w1 [E, D, F];
     w2 [E, F, D]. Returns (y [B, S, D] in x's dtype, aux_loss float32).
@@ -95,24 +151,40 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, w1: torch.Tensor,
     Each expert has `capacity(B S, E, top_k, capacity_factor)` slots. The
     router runs in float32 (tokens and weights upcast);
     dispatch, combine and the expert weights are cast to x's dtype before
-    the dispatch, expert and combine products."""
+    the dispatch, expert and combine products.
+
+    With `shards`, x is this rank's block of the call's tokens, w1 and w2
+    its experts' [E/dp, D, F/tp] and [E/dp, F/tp, D] blocks; the gating
+    runs over the whole call (its capacity from the call's token count),
+    and y is this rank's block."""
     b, s, d = x.shape
     e = router_w.shape[-1]
     t = b * s
     tokens = x.reshape(t, d)
-    n_slots = capacity(t, e, top_k, capacity_factor)
 
     # JAX's einsums, written so that the batch-free ones (router, dispatch
     # "tec,td->ecd", combine "tec,ecd->td") are matrix products (`aten.mm`)
     # and the per-expert ones batched (`aten.bmm`): the split the "dots"
     # remat policy makes.
     logits = tokens.float() @ router_w.float()                  # [T, E]
+    if shards is not None:
+        call = shards.gather_tokens(logits.view(b, s, e))
+        logits = call.reshape(-1, e)
+    n_slots = capacity(logits.shape[0], e, top_k, capacity_factor)
     dispatch, combine, aux = top_k_gating(logits, top_k, n_slots)
+    if shards is not None:
+        dispatch, combine = (
+            shards.own_tokens(m.view(*call.shape[:2], e, n_slots), b, s)
+            .reshape(t, e, n_slots) for m in (dispatch, combine))
 
     dispatch = dispatch.to(x.dtype).view(t, e * n_slots)
     combine = combine.to(x.dtype).view(t, e * n_slots)
     expert_in = (dispatch.t() @ tokens).view(e, n_slots, d)     # [E, C, D]
+    if shards is not None:
+        expert_in = shards.own_experts(expert_in)
     h = activation(torch.bmm(expert_in, w1.to(x.dtype)))        # [E, C, F]
     expert_out = torch.bmm(h, w2.to(x.dtype))                   # [E, C, D]
+    if shards is not None:
+        expert_out = shards.all_experts(expert_out)
     y = combine @ expert_out.view(e * n_slots, d)               # [T, D]
     return y.view(b, s, d), aux

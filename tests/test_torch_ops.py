@@ -26,6 +26,10 @@ from ray_tpu_torch.kernels import flash_attn
 from ray_tpu_torch.models import TransformerConfig, forward, params_from_jax
 from ray_tpu_torch.models.transformer import _rmsnorm
 from ray_tpu_torch.ops.rotary import apply_rotary, rotary_freqs
+from ray_tpu_torch.parallel import make_mesh, shard_pytree
+
+import torch_parallel_ranks
+from torch_dist import run_ranks
 
 # The packages' `ops` re-export the `attention` function under the
 # submodule's name, so the modules are imported by path.
@@ -308,6 +312,12 @@ def test_strided_views_take_the_kernel_as_copies(monkeypatch):
 
 
 def test_attention_dispatch_routes_like_jax(monkeypatch):
+    """JAX's routing: no mesh or a mesh whose axes are all 1 takes the
+    flash kernels (causal, standard positions, an eligible shape), explicit
+    positions, non-causal or an ineligible shape plain attention; a mesh
+    with sp > 1 the ring, and `manual_sp` the ring body with positions
+    from the rank; any other mesh plain attention. The mesh cases run on
+    gloo ranks (2), the all-1 mesh in this process."""
     calls = []
     real = torch_attention.flash_attention
     monkeypatch.setattr(torch_attention, "flash_attention",
@@ -322,8 +332,30 @@ def test_attention_dispatch_routes_like_jax(monkeypatch):
     torch_attention.attention(q, k, v, causal=False)
     torch_attention.attention(q[:, :100], k[:, :100], v[:, :100])
     assert calls == [1]
-    with pytest.raises(NotImplementedError, match="Parallel layer"):
-        torch_attention.attention(q, k, v, manual_sp=True)
+    # A mesh whose axes are all 1 is unsharded: the kernels, for plain
+    # tensors and for DTensors (unwrapped to their local blocks).
+    try:
+        mesh = make_mesh((1, 1, 1, 1), device="cpu")
+        same = torch_attention.attention(q, k, v, mesh=mesh)
+        dq, dk, dv = (shard_pytree({"x": t}, {"x": None}, mesh)["x"]
+                      for t in (q, k, v))
+        dout = torch_attention.attention(dq, dk, dv, mesh=mesh)
+    finally:
+        torch.distributed.destroy_process_group()
+    assert calls == [1, 1, 1]
+    assert torch.equal(same, out) and torch.equal(dout.full_tensor(), out)
+
+    q, k, v = _qkv(6, (2, 32, 4, 8))
+    got = run_ranks(torch_parallel_ranks.dispatch, 2, q, k, v)
+    want = np.asarray(jax_attention.plain_attention(
+        *(jnp.asarray(x) for x in (q, k, v)), causal=True))
+    for r in got:
+        assert r["sp_routes"] == ["ring_attention_manual"]
+        assert r["manual_routes"] == ["ring_attention_manual"]
+        assert r["dp_routes"] == ["plain_attention"]
+        for key in ("sp", "manual", "dp"):
+            np.testing.assert_allclose(r[key], want, atol=F32_TOL,
+                                       rtol=F32_TOL, err_msg=key)
 
 
 def test_flash_wrapper_rejects_what_the_kernel_cannot_take():

@@ -30,7 +30,26 @@ result line:
    8 requests, 4 of them sharing a 256-token prefix, after a warm-up pass of
    the same requests on an engine of its own; the flash kernel must be
    launched by the prefills, and each request's prefill logits, first token
-   and greedy continuation are held against a no-cache float32 forward.
+   and greedy continuation are held against a no-cache float32 forward;
+5a. fleet: three replicas of that engine (pools of 512 blocks) over the
+   same weights behind `ServeFleet`. Twelve conversations of 32 new tokens
+   share a 512-token system prompt: cold (KV-aware routing and prefix
+   shipping off: each replica prefills the prompt through K1), then warm
+   (on, after one warm-up conversation: the burst spills onto the other
+   replicas with the prompt's 32 sealed blocks shipped ahead, card pool to
+   host frames to card pool). Tokens/s, TTFT p50 cold and of the shipped
+   conversations, ships and bytes, K1 launches (fewer warm than cold); every
+   conversation held to a no-cache float32 forward as in the engine phase,
+   and each shipped one's prefill logits to the same request's on the
+   holder. One ship timed by its parts: export (card to host),
+   encode+decode, install (host to card). Then a seeded kill of replica-0
+   on its 8th streamed token of a 40-token conversation: the survivor
+   finishes it, recovery ms (kill to first survivor token), the stream
+   held to the same request's no-fault stream (a difference only where the
+   forward's top two logits tie);
+5b. perf twins: `ray_tpu_torch.perf`'s `run_llm_serve_bench` (its paged
+   section's model on the card: paged parity 1, no host gather) and
+   `run_fleet_bench`, each printed as a JSON line.
 6. backward kernels: K2 (dK, dV) and K3 (dQ) against their plain versions
    at the shapes the train step gives them and a few more (bf16 and
    float32; a ragged block count, D 64, QKV views, a peaked softmax), with
@@ -560,6 +579,11 @@ def phase_engine(params, cfg, card: str):
           f"{model.full_prefills} no-prefix prefills of {cfg.n_layers} "
           f"layers")
     check(st["prefix_hit_tokens"] > 0, "no prefix was shared")
+    # The metrics push that `step` makes once a step, on this host.
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        engine._update_gauges()
+    gauge_us = (time.perf_counter() - t0) * 1e3
 
     agree = total = first_ok = 0
     worst = 0.0
@@ -585,8 +609,8 @@ def phase_engine(params, cfg, card: str):
           f"{launches}, preemptions {st['preemptions']}, "
           f"prefill_s {st['prefill_s']} decode_s {st['decode_s']} "
           f"(kv_gather_s {st['kv_gather_s']} model_step_s "
-          f"{st['model_step_s']}, {st['steps']} steps) [{card}]",
-          flush=True)
+          f"{st['model_step_s']}, {st['steps']} steps), gauge push "
+          f"{gauge_us:.2f} us a step [{card}]", flush=True)
     print(f"engine vs no-cache forward: prefill logits max_abs_err "
           f"{worst:.3e} (tol {ENGINE_LOGIT_ATOL:g}), first tokens "
           f"{first_ok}/{len(prompts)}, token agreement {agree}/{total} "
@@ -597,6 +621,353 @@ def phase_engine(params, cfg, card: str):
     check(share >= MIN_TOKEN_AGREEMENT,
           f"greedy token agreement {share:.4f} < {MIN_TOKEN_AGREEMENT}")
     return launches
+
+
+# The serving fleet: FLEET_REPLICAS flagship float32 replicas over one
+# parameter set, each an engine with a pool of FLEET_BLOCKS 16-token blocks
+# (147,456 B of KV a token: 1.2 GB a replica). FLEET_CONVS conversations of
+# FLEET_NEW new tokens share a FLEET_SHARED-token system prompt (32 sealed
+# blocks; a cold prefill's bucket of 1024 runs K1), each with its own tail
+# of 3 to 16 tokens. Recovery: replica-0 dies on its FLEET_KILL_AT-th
+# streamed token of one FLEET_RECOVER_NEW-token conversation. The ship
+# timing repeats one ship FLEET_SHIP_REPEATS times.
+FLEET_REPLICAS, FLEET_BLOCKS = 3, 512
+FLEET_SHARED, FLEET_CONVS, FLEET_NEW = 512, 12, 32
+FLEET_KILL_AT, FLEET_RECOVER_NEW = 8, 40
+FLEET_SHIP_REPEATS = 5
+
+
+def hold_to_forward(params, cfg, prompt, gen):
+    """A stream against a no-cache float32 forward over prompt + gen[:-1],
+    teacher-forced: (the forward's logits at the prompt's last position,
+    whether the first token is its argmax or ties it within
+    ENGINE_LOGIT_ATOL, tokens that are the forward's argmax, tokens)."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import forward
+
+    seq = prompt + gen[:-1]
+    ref, _ = forward(params, [seq], cfg, positions=torch.arange(len(seq)),
+                     device=params["embed"].device)
+    ref = ref[0].float().cpu().numpy()
+    n = len(prompt)
+    first = ref[n - 1]
+    first_ok = bool(gen[0] == int(first.argmax())
+                    or first.max() - first[gen[0]] <= ENGINE_LOGIT_ATOL)
+    picks = ref[n - 1:n - 1 + len(gen)].argmax(-1)
+    return first, first_ok, int((picks == np.asarray(gen)).sum()), len(gen)
+
+
+def phase_fleet(params, cfg, card: str):
+    """Three flagship replicas behind `ServeFleet`: a cold burst (KV-aware
+    routing and shipping off), a warm burst (on, after one warm-up
+    conversation), one ship timed by its parts, and a seeded replica kill.
+    Returns the K1 launches of each part."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.core.faults import FaultPlan
+    from ray_tpu_torch.serve.engine import (EngineConfig,
+                                            TransformerEngineModel)
+    from ray_tpu_torch.serve.fleet import (FleetConfig, ServeFleet,
+                                           decode_prefix_frames,
+                                           encode_prefix_frames)
+
+    class Recording(TransformerEngineModel):
+        """Keeps each prompt's first prefill logits (one dict a replica)."""
+
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.first_logits = {}
+
+        def prefill(self, tokens, prefix_kv=None):
+            logits, kv = super().prefill(tokens, prefix_kv)
+            self.first_logits.setdefault(tuple(tokens), logits)
+            return logits, kv
+
+        def prefill_paged(self, tokens, *a, **k):
+            logits, kv = super().prefill_paged(tokens, *a, **k)
+            self.first_logits.setdefault(tuple(tokens), logits)
+            return logits, kv
+
+    rng = np.random.default_rng(8)
+    shared = rng.integers(2, cfg.vocab_size, FLEET_SHARED).tolist()
+    prompts = [shared + rng.integers(2, cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(3, 17, FLEET_CONVS)]
+    engine_config = EngineConfig(max_batch_size=8, block_size=16,
+                                 num_blocks=FLEET_BLOCKS, paged_decode=True)
+
+    def make_fleet(kv_routing, shipping, plan=None):
+        return ServeFleet(FleetConfig(
+            model_factory=lambda: Recording(params, cfg,
+                                            params["embed"].device),
+            num_replicas=FLEET_REPLICAS, engine_config=engine_config,
+            kv_routing=kv_routing, shipping=shipping,
+            digest_max_age_s=0.01, fault_plan=plan))
+
+    def warm_up(fleet):
+        """One request on each replica's engine, straight past the
+        router, on a prompt of its own (no prefix of the measured
+        traffic): the first prefill at the 1024 bucket and the first
+        decode steps of each engine thread leave the timed burst."""
+        streams = [fleet.replica(rid).engine.submit(
+            rng.integers(2, cfg.vocab_size, FLEET_SHARED + 8).tolist(), 4)
+            for rid in fleet.live_replicas()]
+        for stream in streams:
+            list(stream)
+
+    def burst(fleet):
+        t0 = time.perf_counter()
+        convs = [fleet.submit(p, FLEET_NEW, session_id=f"s{i}")
+                 for i, p in enumerate(prompts)]
+        outs = [list(c.stream) for c in convs]   # raises a lost stream
+        wall = time.perf_counter() - t0
+        return convs, outs, wall
+
+    def engine_split(fleet):
+        """Engine time summed over the replicas (stats() are
+        cumulative, warm-up included)."""
+        sts = [fleet.replica(r).engine.stats() for r in fleet.live_replicas()]
+        return (f"engines: prefill_s {sum(s['prefill_s'] for s in sts):.3f} "
+                f"decode_s {sum(s['decode_s'] for s in sts):.3f} "
+                f"(model_step_s {sum(s['model_step_s'] for s in sts):.3f}) "
+                f"steps {sum(s['steps'] for s in sts)} prefills "
+                f"{sum(s['prefills'] for s in sts)}")
+
+    def p50_ms(convs):
+        ts = sorted(c.first_token_at - c.submitted_at for c in convs)
+        return round(ts[len(ts) // 2] * 1e3, 3) if ts else None
+
+    def hold(fleet, convs, outs, what):
+        """Every conversation against the no-cache forward: prefill logits
+        within ENGINE_LOGIT_ATOL, first token, token agreement."""
+        worst = 0.0
+        agree = total = first_ok = 0
+        for conv, gen in zip(convs, outs):
+            model = fleet.replica(conv.owner).engine.model
+            first, ok, a, t = hold_to_forward(params, cfg, conv.prompt, gen)
+            got = model.first_logits[tuple(conv.prompt)]
+            worst = max(worst, float(np.abs(got - first).max()))
+            first_ok += ok
+            agree += a
+            total += t
+        share = agree / total
+        print(f"fleet {what} vs no-cache forward: prefill logits "
+              f"max_abs_err {worst:.3e} (tol {ENGINE_LOGIT_ATOL:g}), first "
+              f"tokens {first_ok}/{len(convs)}, token agreement "
+              f"{agree}/{total} = {share:.4f} [{card}]", flush=True)
+        check(worst <= ENGINE_LOGIT_ATOL,
+              f"fleet {what}: prefill logits differ from forward by "
+              f"{worst:.3e}")
+        check(first_ok == len(convs), f"fleet {what}: a first token "
+              f"differs from forward")
+        check(share >= MIN_TOKEN_AGREEMENT, f"fleet {what}: greedy token "
+              f"agreement {share:.4f} < {MIN_TOKEN_AGREEMENT}")
+
+    launches = {}
+    # -- cold: least-loaded placement, every replica prefills the prompt --
+    fleet = make_fleet(kv_routing=False, shipping=False)
+    fleet.start()
+    try:
+        warm_up(fleet)
+        _zero_counts()
+        convs, outs, wall = burst(fleet)
+        launches["cold"] = _counts()[0]
+        cold = dict(tokens_per_s=sum(map(len, outs)) / wall,
+                    ttft_p50_ms=p50_ms(convs), lost=fleet.lost_conversations)
+        print(f"fleet cold: {FLEET_REPLICAS} replicas, {len(convs)} "
+              f"conversations, {sum(map(len, outs))} tokens in {wall:.3f} s, "
+              f"tokens_per_s {cold['tokens_per_s']:.2f}, ttft_p50_ms "
+              f"{cold['ttft_p50_ms']}, K1 launches {launches['cold']}, lost "
+              f"{cold['lost']}, {engine_split(fleet)} [{card}]", flush=True)
+        hold(fleet, convs, outs, "cold")
+    finally:
+        fleet.stop()
+    check(launches["cold"] >= FLEET_REPLICAS * cfg.n_layers,
+          f"the cold burst launched K1 {launches['cold']} times, fewer than "
+          f"one prefill a replica")
+
+    # -- warm: one holder, shipped to the replicas the burst spills onto --
+    fleet = make_fleet(kv_routing=True, shipping=True)
+    fleet.start()
+    try:
+        warm_up(fleet)
+        _zero_counts()
+        warm_conv = fleet.submit(shared + [2, 3, 4], 4, session_id="warmup")
+        list(warm_conv.stream)
+        time.sleep(0.05)   # the holder's digest publishes
+        convs, outs, wall = burst(fleet)
+        launches["warm"] = _counts()[0]
+        shipped = [c for c in convs if c.shipped]
+        warm = dict(tokens_per_s=sum(map(len, outs)) / wall,
+                    ttft_p50_ms=p50_ms(convs),
+                    shipped_ttft_p50_ms=p50_ms(shipped),
+                    ships=fleet.prefix_ships,
+                    ship_tokens=fleet.prefix_ship_tokens,
+                    lost=fleet.lost_conversations)
+        block_bytes = (engine_config.block_size * 4
+                       * int(np.prod(fleet.replica("replica-0").engine
+                                     .model.kv_token_shape)))
+        print(f"fleet warm: {len(convs)} conversations, "
+              f"{sum(map(len, outs))} tokens in {wall:.3f} s, tokens_per_s "
+              f"{warm['tokens_per_s']:.2f}, ttft_p50_ms "
+              f"{warm['ttft_p50_ms']}, shipped ttft_p50_ms "
+              f"{warm['shipped_ttft_p50_ms']} ({len(shipped)} shipped), "
+              f"ships {warm['ships']}, shipped tokens {warm['ship_tokens']} "
+              f"({warm['ship_tokens'] // engine_config.block_size * block_bytes}"
+              f" bytes), K1 launches {launches['warm']} (cold "
+              f"{launches['cold']}), lost {warm['lost']}, "
+              f"tokens_per_s warm/cold "
+              f"{warm['tokens_per_s'] / cold['tokens_per_s']:.3f}, "
+              f"{engine_split(fleet)} [{card}]",
+              flush=True)
+        check(warm["ships"] >= 1 and shipped, "the warm burst shipped no "
+              "prefix")
+        check(cold["lost"] == 0 and warm["lost"] == 0, "a conversation was "
+              "lost")
+        check(launches["warm"] < launches["cold"],
+              f"the warm burst launched K1 {launches['warm']} times, not "
+              f"fewer than the cold burst's {launches['cold']}")
+        hold(fleet, convs, outs, "warm")
+        # A shipped conversation's prefill against the same request on the
+        # holder: both read the same blocks, copied bitwise.
+        holder = fleet.replica(warm_conv.owner)
+        worst = 0.0
+        for conv in shipped:
+            list(holder.engine.submit(conv.prompt, 1))
+            got = fleet.replica(conv.owner).engine.model.first_logits[
+                tuple(conv.prompt)]
+            want = holder.engine.model.first_logits[tuple(conv.prompt)]
+            worst = max(worst, float(np.abs(got - want).max()))
+        print(f"fleet shipped vs holder: prefill logits max_abs_err "
+              f"{worst:.3e} over {len(shipped)} conversations (tol "
+              f"{ENGINE_LOGIT_ATOL:g}) [{card}]", flush=True)
+        check(worst <= ENGINE_LOGIT_ATOL, f"a shipped conversation's "
+              f"prefill differs from the holder's by {worst:.3e}")
+
+        # One ship timed by its parts: the holder's card pool to host
+        # frames and into another replica's card pool (the chain is held
+        # there already, so the installed copies free at once).
+        dst = next(fleet.replica(r) for r in fleet.live_replicas()
+                   if r != holder.rid)
+        on_card = params["embed"].device.type == "cuda"
+        sync = torch.cuda.synchronize if on_card else (lambda: None)
+        parts = []
+        for _ in range(FLEET_SHIP_REPEATS):
+            sync()
+            t0 = time.perf_counter()
+            chunks, kvs = holder.engine.export_prefix(shared)
+            t1 = time.perf_counter()
+            frames = encode_prefix_frames(chunks, kvs)
+            chunks2, kvs2 = decode_prefix_frames(frames)
+            t2 = time.perf_counter()
+            covered = dst.engine.import_prefix(chunks2, kvs2)
+            sync()
+            t3 = time.perf_counter()
+            parts.append(((t1 - t0) * 1e3, (t2 - t1) * 1e3,
+                          (t3 - t2) * 1e3))
+            check(covered == FLEET_SHARED, f"a ship covered {covered} "
+                  f"tokens, not {FLEET_SHARED}")
+            for a, b in zip(kvs, kvs2):
+                check(np.array_equal(a, b), "a block changed through the "
+                      "frames")
+        export_ms, codec_ms, install_ms = (
+            float(np.median([p[i] for p in parts])) for i in range(3))
+        nbytes = sum(k.nbytes for k in kvs)
+        print(f"fleet ship of {len(chunks)} blocks ({nbytes} bytes), median "
+              f"of {FLEET_SHIP_REPEATS}: export {export_ms:.3f} ms (card to "
+              f"host), encode+decode {codec_ms:.3f} ms, install "
+              f"{install_ms:.3f} ms (host to card), total "
+              f"{export_ms + codec_ms + install_ms:.3f} ms [{card}]",
+              flush=True)
+    finally:
+        fleet.stop()
+
+    # -- recovery: a seeded kill mid-decode, finished on a survivor --------
+    plan = FaultPlan(seed=19)
+    fleet = make_fleet(kv_routing=True, shipping=True, plan=plan)
+    t_kill = []
+
+    def kill(dst):
+        t_kill.append(time.perf_counter())
+        fleet.kill_replica(dst)
+
+    plan.crash_after("replica-0", FLEET_KILL_AT, method="token",
+                     on_crash=kill)
+    fleet.start()
+    try:
+        warm_up(fleet)
+        _zero_counts()
+        prompt = prompts[0]
+        conv = fleet.submit(prompt, FLEET_RECOVER_NEW, session_id="r0")
+        got = list(conv.stream)
+        for t in list(fleet._migrators):
+            t.join(timeout=30.0)
+        launches["recovery"] = _counts()[0]
+        check(bool(t_kill) and conv.recovered_token_at is not None,
+              "the seeded kill did not fire or nothing recovered")
+        recovery_ms = (conv.recovered_token_at - t_kill[0]) * 1e3
+        survivor = fleet.replica(conv.owner)
+        # The no-fault stream, from the live replica that never served the
+        # conversation: its cache holds none of the blocks the survivor
+        # re-prefilled, so it prefills the prompt cold, as replica-0 did.
+        fresh = next(fleet.replica(r) for r in fleet.live_replicas()
+                     if r != conv.owner)
+        check(not any(k[:len(prompt)] == tuple(prompt)
+                      for k in fresh.engine.model.first_logits),
+              f"{fresh.rid} served the recovered conversation")
+        want = list(fresh.engine.submit(prompt, FLEET_RECOVER_NEW))
+        first, first_ok, agree, total = hold_to_forward(params, cfg, prompt,
+                                                        got)
+        diverge = next((i for i, (a, b) in enumerate(zip(got, want))
+                        if a != b), None)
+        tie_ok = True
+        if diverge is not None:
+            ref, _, _, _ = hold_to_forward(params, cfg,
+                                           prompt + want[:diverge],
+                                           [want[diverge]])
+            tie_ok = ref.max() - ref[got[diverge]] <= ENGINE_LOGIT_ATOL
+        print(f"fleet recovery: replica-0 killed on its {FLEET_KILL_AT}th "
+              f"token, recovery_ms {recovery_ms:.3f} (kill to first survivor "
+              f"token), recoveries {fleet.recoveries}, lost "
+              f"{fleet.lost_conversations}, K1 launches "
+              f"{launches['recovery']}, stream vs no-fault stream: "
+              f"{'equal' if diverge is None else f'first differs at {diverge}'}"
+              f", vs forward: first token {'ok' if first_ok else 'differs'}, "
+              f"agreement {agree}/{total} [{card}]", flush=True)
+        eos = survivor.engine.model.eos_token
+        check((len(got) == FLEET_RECOVER_NEW or got[-1] == eos)
+              and fleet.recoveries == 1 and fleet.lost_conversations == 0,
+              f"the recovered stream has {len(got)} tokens, "
+              f"{fleet.recoveries} recoveries, "
+              f"{fleet.lost_conversations} lost")
+        check(tie_ok, f"the recovered stream differs from the no-fault "
+              f"stream at {diverge} where the forward has no tie")
+        check(first_ok and agree / total >= MIN_TOKEN_AGREEMENT,
+              f"the recovered stream against forward: first token "
+              f"{first_ok}, agreement {agree}/{total}")
+    finally:
+        fleet.stop()
+    return launches
+
+
+def phase_perf_twins(card: str):
+    """`python -m ray_tpu_torch.perf --llm-serve` (paged section on the
+    card) and `--fleet`, once each, each printed as a JSON line."""
+    from ray_tpu_torch.perf import run_fleet_bench, run_llm_serve_bench
+
+    llm = run_llm_serve_bench(device="cuda")
+    print(f"perf llm_serve [{card}]: {json.dumps(llm)}", flush=True)
+    check(llm["llm_paged_parity"] == 1 and llm["llm_paged_host_gathers"] == 0,
+          f"paged decode: parity {llm['llm_paged_parity']}, host gathers "
+          f"{llm['llm_paged_host_gathers']}")
+    fleet = run_fleet_bench()
+    print(f"perf fleet [{card}]: {json.dumps(fleet)}", flush=True)
+    check(fleet["fleet_prefix_ships"] >= 1
+          and fleet["fleet_lost_conversations"] == 0,
+          f"fleet bench: ships {fleet['fleet_prefix_ships']}, lost "
+          f"{fleet['fleet_lost_conversations']}")
 
 
 def bwd_bounds(shape, dtype: str, power_w: float):
@@ -1843,6 +2214,11 @@ def main() -> int:
         phase_forward(params, cfg, card)
         launches = phase_engine(params, replace(cfg, dtype=torch.float32),
                                 card)
+        fleet_launches = phase_fleet(params,
+                                     replace(cfg, dtype=torch.float32), card)
+        gc.collect()             # the fleets' pools
+        torch.cuda.empty_cache()
+        phase_perf_twins(card)
         bwd_rows = phase_bwd_kernels(card, power_w)
         train_cfg = replace(cfg, remat=True, remat_policy="save_attn_qkv")
         phase_grad(params, train_cfg, card)
@@ -1914,6 +2290,8 @@ def main() -> int:
         source="ray_tpu_torch/kernels/csrc/flash_attn_fwd.cu",
         replaces="ray_tpu/ops/attention.py:28",
         pallas_call=f"{jax_site}:758", launches=launches,
+        fleet_launches=sum(fleet_launches.values()),
+        fleet_launches_by_part=fleet_launches,
         train_launches=train_launches[0],
         moe_train_launches=moe_launches[0],
         moe_f32_grad_launches=moe_f32_launches[0],

@@ -17,6 +17,7 @@ tensor a kernel cannot take raises.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -28,6 +29,15 @@ from ray_tpu_torch.kernels import build
 launches = 0
 dkv_launches = 0
 dq_launches = 0
+_count_lock = threading.Lock()
+
+
+def _count_launch(counter: str) -> None:
+    """Add one to the module-level count `counter`. Engines on several
+    threads launch at once (a serving fleet), and `+=` on a module global
+    is not atomic across threads."""
+    with _count_lock:
+        globals()[counter] += 1
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)
@@ -131,7 +141,6 @@ def _strides(t: torch.Tensor) -> ctypes.Array:
 
 
 def _launch(q, k, v, return_lse):
-    global launches
     lib = _library()
     b, s, h, d = q.shape
     o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
@@ -148,7 +157,7 @@ def _launch(q, k, v, return_lse):
     if err:
         raise RuntimeError("flash_attn_fwd launch failed: "
                            + lib.flash_attn_error_string(err).decode())
-    launches += 1
+    _count_launch("launches")
     return o, lse
 
 
@@ -214,10 +223,9 @@ def flash_attn_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attn_bwd_dkv_plain(q, k, v, do, lse, di)
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention kernel for {q.device}")
-    global dkv_launches
     dk, dv = torch.empty_like(do), torch.empty_like(do)
     _launch_bwd("flash_attn_bwd_dkv", q, k, v, do, lse, di, dk, dv)
-    dkv_launches += 1
+    _count_launch("dkv_launches")
     return dk, dv
 
 
@@ -231,10 +239,9 @@ def flash_attn_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attn_bwd_dq_plain(q, k, v, do, lse, di)
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention kernel for {q.device}")
-    global dq_launches
     dq = torch.empty_like(do)
     _launch_bwd("flash_attn_bwd_dq", q, k, v, do, lse, di, dq)
-    dq_launches += 1
+    _count_launch("dq_launches")
     return dq
 
 

@@ -1,1 +1,2 @@
-"""Serving: the continuous-batching LLM engine (`serve.engine`)."""
+"""Serving: the continuous-batching LLM engine (`serve.engine`) and the
+multi-replica fleet over it (`serve.fleet`)."""

@@ -348,6 +348,10 @@ class KVCacheManager:
 
     # -- storage -------------------------------------------------------
     def _pool_values(self, values) -> torch.Tensor:
+        if isinstance(values, np.ndarray) and not values.flags.writeable:
+            # A decoded wire frame is a read-only view, which torch wraps
+            # only with a warning; copy it on the host first.
+            values = np.array(values)
         return torch.as_tensor(values, dtype=self._buffer.dtype,
                                device=self._buffer.device)
 

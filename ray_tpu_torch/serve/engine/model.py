@@ -37,6 +37,7 @@ Two implementations, the ports of `ray_tpu/serve/engine/model.py`'s:
 
 from __future__ import annotations
 
+import time
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -78,12 +79,19 @@ class TinyLM:
     supports_prefix_prefill = True
     supports_paged = True
 
-    def __init__(self, vocab_size: int = 32, eos_period: int = 0):
+    def __init__(self, vocab_size: int = 32, eos_period: int = 0,
+                 step_delay_s: float = 0.0,
+                 prefill_token_delay_s: float = 0.0):
         if vocab_size < 4:
             raise ValueError("vocab_size must be at least 4")
         self.vocab_size = vocab_size
         self.eos_token = 1
         self.eos_period = eos_period
+        # Simulated model costs: a sleep per decode call, and per
+        # prefilled token (a prefix hit pays only the tail), which make
+        # batching and shared-prefill savings measurable in the benches.
+        self.step_delay_s = step_delay_s
+        self.prefill_token_delay_s = prefill_token_delay_s
         self.prefill_calls = 0
         self.prefill_tokens = 0
         self.decode_calls = 0
@@ -99,6 +107,8 @@ class TinyLM:
         toks = np.asarray(tokens, np.int64)
         p = 0 if prefix_kv is None else int(prefix_kv.shape[0])
         self.prefill_tokens += len(toks) - p
+        if self.prefill_token_delay_s:
+            time.sleep(self.prefill_token_delay_s * (len(toks) - p))
         kv = toks[p:].astype(np.float32)[:, None]      # [S-P, 1]
         # The hash reads the CACHED prefix kv values, not the token
         # ids — an adoption bug (wrong block, stale COW source) changes
@@ -114,6 +124,8 @@ class TinyLM:
     def decode(self, kvs, last_tokens: Sequence[int],
                positions: Sequence[int]):
         self.decode_calls += 1
+        if self.step_delay_s:
+            time.sleep(self.step_delay_s)
         b = len(last_tokens)
         logits = np.full((b, self.vocab_size), -1e30, np.float32)
         new_kv = np.zeros((b,) + self.kv_token_shape, np.float32)

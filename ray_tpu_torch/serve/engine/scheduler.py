@@ -1,6 +1,7 @@
 """Iteration-level scheduler: the continuous-batching decode loop (the
-port of `ray_tpu/serve/engine/scheduler.py`; the Serve runtime's metric
-pushes are not ported, `stats()` reports the same counters).
+port of `ray_tpu/serve/engine/scheduler.py`). Every iteration sets the
+`serve_engine_*` instruments of `serve/_private/metrics.py` in the
+process registry; `stats()` reports the same counters.
 
 Reference: Yu et al., "Orca: A Distributed Serving System for
 Transformer-Based Generative Models" (OSDI'22) — scheduling decisions
@@ -17,6 +18,11 @@ capacity check/preemption → one decode step → retirements) and is what
 the tests call in a plain loop; `start()` merely runs
 `step()` on a daemon thread with an idle-event park, which is how a
 Serve replica hosts it.
+
+`policy="static"` runs the SAME loop but only admits into an empty
+batch (the `@serve.batch` shape: form once, hold to completion) — the
+honest baseline the `llm_serve` bench compares continuous batching
+against, paying identical per-step bookkeeping.
 
 Prefix sharing (on by default): admission consults a radix prefix
 index (`prefix_index.PrefixIndex`) and ADOPTS the longest cached prefix
@@ -67,6 +73,8 @@ class EngineConfig:
     max_queue: int = 64            # waiting-queue bound (backpressure)
     max_new_tokens_default: int = 64
     prefix_sharing: bool = True    # adopt cached prompt prefixes
+    policy: str = "continuous"     # "continuous" | "static"
+    replica_tag: str = ""          # fleet identity (metrics/digests)
     # Paged decode (the default): read KV inside the model's step
     # through block tables, with the pool on the model's device. Requires
     # a model with `supports_paged`; falls back to the host-gather loop
@@ -230,7 +238,8 @@ class InferenceEngine:
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self._ids = itertools.count()
-        # Counters (reported through stats()).
+        self.replica_tag = self.config.replica_tag or "replica-0"
+        # Counters (reported through stats() and the metrics).
         self.steps = 0
         self.prefills = 0
         self.preemptions = 0
@@ -392,11 +401,13 @@ class InferenceEngine:
         with self._lock:
             batch = list(self._running)
         if not batch:
+            self._update_gauges()
             return False
         self._ensure_capacity()
         with self._lock:
             batch = list(self._running)
         if not batch:
+            self._update_gauges()
             return False
         try:
             self._decode_once(batch)
@@ -404,6 +415,7 @@ class InferenceEngine:
             for seq in batch:
                 self._retire(seq, error=e)
         self.steps += 1
+        self._update_gauges()
         return True
 
     def _reap_cancelled(self) -> None:
@@ -417,7 +429,19 @@ class InferenceEngine:
             self._retire(s)
 
     def _admit(self) -> None:
-        """Pull waiting requests into the running batch (prefill)."""
+        """Pull waiting requests into the running batch (prefill). The
+        static policy only forms a batch when the previous one fully
+        retired — the `@serve.batch` behavior the bench compares
+        against. The in-flight check happens ONCE per pass (not per
+        admitted sequence: the first prefill populates `_running`, and
+        re-checking would cap static batches at size one — serial
+        decoding, not static batching)."""
+        with self._lock:
+            if self.config.policy == "static" and self._running:
+                # A batch is in flight: hold admissions until it
+                # completes; the loop below then drains the queue into
+                # a full batch.
+                return
         while True:
             with self._lock:
                 if not self._waiting:
@@ -634,6 +658,13 @@ class InferenceEngine:
             ttft = seq.first_token_at - seq.submitted_at
             self._ttfts.append(ttft)
             del self._ttfts[:-1024]
+            try:
+                from ray_tpu_torch.serve._private.metrics import \
+                    engine_metrics
+
+                engine_metrics()["ttft"].observe(ttft)
+            except Exception:
+                pass
         self.tokens_generated += 1
         seq.stream._push(tok)
 
@@ -740,6 +771,55 @@ class InferenceEngine:
             "ttft_p50_ms": (round(ttfts[len(ttfts) // 2] * 1e3, 3)
                             if ttfts else None),
         }
+
+    def _update_gauges(self) -> None:
+        try:
+            from ray_tpu_torch.serve._private.metrics import engine_metrics
+
+            m = engine_metrics()
+            m["batch_occupancy"].set(float(self.batch_occupancy()))
+            m["cache_utilization"].set(self.cache.utilization())
+            m["queue_depth"].set(float(self.queue_depth()))
+            # Counters take deltas since the last push (the registry
+            # instruments are cumulative; the engine's own fields are
+            # the source of truth for stats()).
+            for attr, key in (("preemptions", "preemptions"),
+                              ("tokens_generated", "tokens"),
+                              ("prefix_hit_tokens", "prefix_hit_tokens"),
+                              ("cow_copies", "cow")):
+                cur = getattr(self, attr)
+                last = self._pushed.get(attr, 0)
+                if cur > last:
+                    m[key].inc(cur - last)
+                    self._pushed[attr] = cur
+            for attr, phase in (("prefill_s", "prefill"),
+                                ("decode_s", "decode"),
+                                ("kv_gather_s", "kv_gather"),
+                                ("model_step_s", "model_step"),
+                                ("kv_write_s", "kv_write")):
+                cur = getattr(self, attr)
+                last = self._pushed.get(attr, 0.0)
+                if cur > last:
+                    m["step_phase"].inc(cur - last,
+                                        tags={"phase": phase})
+                    self._pushed[attr] = cur
+            m["kv_pool_bytes"].set(
+                float(self.cache.pool_bytes),
+                tags={"replica": self.replica_tag,
+                      "residency": self.cache.pool_residency})
+            if self.prefix_index is not None:
+                # Per-replica radix-index state on the scrape path:
+                # the fleet router's digest freshness rides this.
+                pst = self.prefix_index.stats()
+                tags = {"replica": self.replica_tag}
+                m["prefix_nodes"].set(float(pst["nodes"]), tags=tags)
+                m["prefix_sealed"].set(
+                    float(self.prefix_index.held_blocks()), tags=tags)
+                m["prefix_hits_state"].set(float(pst["hits"]), tags=tags)
+                m["prefix_evictions_state"].set(
+                    float(pst["evictions"]), tags=tags)
+        except Exception:
+            pass  # metrics must never fail the decode loop
 
 
 class EngineStoppedError(RuntimeError):

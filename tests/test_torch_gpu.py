@@ -391,3 +391,41 @@ def test_moe_forward_and_loss_on_card_match_cpu(card, monkeypatch):
     for g, c in zip(g_grads, c_grads):
         assert (g.cpu() - c).abs().max().item() <= \
             1e-3 * c.abs().max().item()
+
+
+def test_prefix_ship_moves_flagship_blocks_bitwise(card):
+    """Prefix shipping between two engines whose pools live on the card:
+    two sealed float32 blocks at the flagship width (12 layers, 12 heads,
+    head_dim 128: 2,359,296 bytes a block) go from one pool to host wire
+    frames and into the other pool, bitwise."""
+    from ray_tpu_torch.serve.engine import EngineConfig, InferenceEngine
+    from ray_tpu_torch.serve.fleet import encode_prefix_frames, ship_prefix
+
+    cfg = TransformerConfig(vocab_size=32768, d_model=1536, n_layers=12,
+                            n_heads=12, d_ff=6144, max_seq_len=1024,
+                            dtype=torch.float32)
+    params = init_params(cfg, torch.Generator(device=card).manual_seed(0),
+                         card)
+    src, dst = (InferenceEngine(TransformerEngineModel(params, cfg, card),
+                                EngineConfig(block_size=16, num_blocks=8))
+                for _ in range(2))
+    prompt = np.random.default_rng(3).integers(2, 32768, 40).tolist()
+    stream = src.submit(prompt, 2)
+    while src.step():
+        pass
+    assert len(list(stream)) == 2
+    chunks, kvs = src.export_prefix(prompt)
+    frames = encode_prefix_frames(chunks, kvs)
+    assert [len(f) for f in frames[1:]] == [len(frames[1])] * 2
+    assert len(frames[1]) > 16 * 12 * 2 * 12 * 128 * 4
+    assert ship_prefix(src, dst, prompt) == 32
+    pools = [eng.cache.with_pool(lambda pool: pool) for eng in (src, dst)]
+    assert all(pool.is_cuda for pool in pools)
+    pairs = zip(src.prefix_index.export_chain(prompt),
+                dst.prefix_index.export_chain(prompt))
+    n = 0
+    for (chunk_s, block_s), (chunk_d, block_d) in pairs:
+        assert chunk_s == chunk_d
+        assert torch.equal(pools[0][block_s], pools[1][block_d])
+        n += 1
+    assert n == 2

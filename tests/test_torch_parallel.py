@@ -2,9 +2,9 @@
 sharded model) against the JAX package's on the same inputs.
 
 Mesh arithmetic runs here; everything on a mesh runs on 8 gloo ranks on the
-CPU (`torch_dist.run_ranks`, bodies in `torch_parallel_ranks.py`), each
-spawn once per module, while the JAX side runs on the conftest's 8 virtual
-CPU devices. Inputs are numpy arrays made from a seed; the JAX package's
+CPU (`torch_dist.run_ranks`, bodies in `torch_parallel_ranks.py`), spawned
+once for the whole module, while the JAX side runs on the conftest's 8
+virtual CPU devices. Inputs are numpy arrays made from a seed; the JAX package's
 params cross over through `params_from_jax`.
 """
 
@@ -149,10 +149,33 @@ def _qkv(seed, shape=(2, 32, 4, 8)):
                  for _ in range(3))
 
 
+def _sharded_inputs():
+    jcfg = JaxConfig(dtype=jnp.float32, **WIDTHS)
+    jmoe = JaxConfig(dtype=jnp.float32, **MOE_WIDTHS)
+    jparams = jax_init_params(jax.random.PRNGKey(0), jcfg)
+    jmoe_params = jax_init_params(jax.random.PRNGKey(0), jmoe)
+    tokens = np.random.default_rng(1).integers(0, 128, (4, 32)).astype(
+        np.int32)
+    return jcfg, jmoe, jparams, jmoe_params, tokens
+
+
 @pytest.fixture(scope="module")
-def ring_run():
+def rank_runs():
+    """One spawn of 8 ranks for every case of this module: the ring, then
+    the sharded forward; each rank's results by case."""
     q, k, v = _qkv(0)
-    return (q, k, v), run_ranks(ranks.ring, 8, q, k, v)
+    _, _, jparams, jmoe_params, tokens = _sharded_inputs()
+    results = run_ranks(ranks.calls, 8, [
+        ("ring", (q, k, v)),
+        ("sharded_forward", (np_tree(jparams), np_tree(jmoe_params), tokens,
+                             WIDTHS, MOE_WIDTHS))])
+    return {"ring": [r[0] for r in results],
+            "sharded": [r[1] for r in results]}
+
+
+@pytest.fixture(scope="module")
+def ring_run(rank_runs):
+    return _qkv(0), rank_runs["ring"]
 
 
 def test_make_mesh_layout_matches_jax_device_ids(ring_run):
@@ -218,15 +241,9 @@ def test_manual_sp_takes_positions_from_the_rank(ring_run):
 
 
 @pytest.fixture(scope="module")
-def sharded_run():
-    jcfg = JaxConfig(dtype=jnp.float32, **WIDTHS)
-    jmoe = JaxConfig(dtype=jnp.float32, **MOE_WIDTHS)
-    jparams = jax_init_params(jax.random.PRNGKey(0), jcfg)
-    jmoe_params = jax_init_params(jax.random.PRNGKey(0), jmoe)
-    tokens = np.random.default_rng(1).integers(0, 128, (4, 32)).astype(
-        np.int32)
-    results = run_ranks(ranks.sharded_forward, 8, np_tree(jparams),
-                        np_tree(jmoe_params), tokens, WIDTHS, MOE_WIDTHS)
+def sharded_run(rank_runs):
+    jcfg, jmoe, jparams, jmoe_params, tokens = _sharded_inputs()
+    results = rank_runs["sharded"]
     want = {name: jax_forward(p, jnp.asarray(tokens), c)
             for name, p, c in (("dense", jparams, jcfg),
                                ("moe", jmoe_params, jmoe))}

@@ -3,8 +3,8 @@ package's: GPipe forward on two meshes, the pipelined MoE aux, the 4-D MoE
 train step of tests/test_pipeline.py, and `__graft_entry__._dryrun_one`'s
 configurations.
 
-Each mesh runs once per module on 8 gloo ranks on the CPU
-(`torch_dist.run_ranks`, bodies in `torch_parallel_ranks.py`); the JAX
+Every mesh runs in one spawn of 8 gloo ranks on the CPU for the whole
+module (`torch_dist.run_ranks`, bodies in `torch_parallel_ranks.py`); the JAX
 side runs on the conftest's 8 virtual CPU devices with the same numpy
 inputs and the JAX package's params.
 """
@@ -80,27 +80,24 @@ def jax_pipelined_fwd(params, toks, cfg, shape, m):
 # -- forward_pipelined -------------------------------------------------------
 
 
-@pytest.fixture(scope="module")
-def dp2_run():
+def _dp2_inputs():
     """Mesh (2, 2, 1, 2): the dense forward with 4 microbatches, and the
     MoE forward with 2 and 4 (its aux)."""
     dense = jax_init_params(jax.random.PRNGKey(0), jcfg(CFG))
     moe = jax_init_params(jax.random.PRNGKey(0), jcfg(MOE))
     toks = tokens(1, 8, 32, 128)
     moe_toks = tokens(1, 8, 32, 64)
-    results = run_ranks(ranks.cases, 8, (2, 2, 1, 2), [
-        ("dense", "pipelined", (np_tree(dense), toks, CFG, (4,))),
-        ("moe", "pipelined", (np_tree(moe), moe_toks, MOE, (2, 4)))])
-    return (dense, toks, moe, moe_toks), results
+    runs = [("dense", "pipelined", (np_tree(dense), toks, CFG, (4,))),
+            ("moe", "pipelined", (np_tree(moe), moe_toks, MOE, (2, 4)))]
+    return (dense, toks, moe, moe_toks), ((2, 2, 1, 2), runs)
 
 
-@pytest.fixture(scope="module")
-def sp2_run():
-    """Mesh (1, 2, 2, 2), one spawn for every case on it: the dense
-    forward with 2 microbatches (the ring inside the stages); the 4-D MoE
-    train step of tests/test_pipeline.py (2 experts, AdamW 3e-3, 8 steps,
-    2 microbatches); `_dryrun_one`'s configuration for this shape
-    (mesh_shape_for(8)), one AdamW 1e-3 step."""
+def _sp2_inputs():
+    """Mesh (1, 2, 2, 2): the dense forward with 2 microbatches (the ring
+    inside the stages); the 4-D MoE train step of tests/test_pipeline.py
+    (2 experts, AdamW 3e-3, 8 steps, 2 microbatches); `_dryrun_one`'s
+    configuration for this shape (mesh_shape_for(8)), one AdamW 1e-3
+    step."""
     dense = jax_init_params(jax.random.PRNGKey(0), jcfg(CFG))
     toks = tokens(1, 8, 32, 128)
     moe = jax_init_params(jax.random.PRNGKey(0), jcfg(MOE))
@@ -110,13 +107,46 @@ def sp2_run():
     dry_widths = _dryrun_cfg(shape)
     dry = jax_init_params(jax.random.PRNGKey(0), jcfg(dry_widths))
     dry_toks = tokens(1, 2, 33, dry_widths["vocab_size"])
-    results = run_ranks(ranks.cases, 8, shape, [
-        ("dense", "pipelined", (np_tree(dense), toks, CFG, (2,))),
-        ("4d", "train", (np_tree(moe), moe_toks, MOE, 3e-3, 8, 2)),
-        ("dryrun", "train", (np_tree(dry), dry_toks, dry_widths, 1e-3, 1,
-                             2))])
-    return dict(dense=(dense, toks), moe=(moe, moe_toks),
-                dryrun=(dry, dry_toks, dry_widths)), results
+    runs = [("dense", "pipelined", (np_tree(dense), toks, CFG, (2,))),
+            ("4d", "train", (np_tree(moe), moe_toks, MOE, 3e-3, 8, 2)),
+            ("dryrun", "train", (np_tree(dry), dry_toks, dry_widths, 1e-3,
+                                 1, 2))]
+    return (dict(dense=(dense, toks), moe=(moe, moe_toks),
+                 dryrun=(dry, dry_toks, dry_widths)), (shape, runs))
+
+
+def _pure_dp_inputs():
+    """`_dryrun_one`'s pure-dp shape (8, 1, 1, 1): 16 experts over dp,
+    lm_loss(mesh=), batch 16 x 33, one AdamW 1e-3 step."""
+    shape = (8, 1, 1, 1)
+    widths = _dryrun_cfg(shape)
+    params = jax_init_params(jax.random.PRNGKey(0), jcfg(widths))
+    toks = tokens(1, 16, 33, widths["vocab_size"])
+    runs = [("dryrun", "train", (np_tree(params), toks, widths, 1e-3, 1,
+                                 2))]
+    return (params, toks, widths), (shape, runs)
+
+
+@pytest.fixture(scope="module")
+def mesh_runs():
+    """One spawn of 8 ranks for every mesh of this module, in turn: (2, 2,
+    1, 2), (1, 2, 2, 2), (8, 1, 1, 1). Each mesh's (inputs, each rank's
+    {case: result})."""
+    inputs = [_dp2_inputs(), _sp2_inputs(), _pure_dp_inputs()]
+    results = run_ranks(ranks.calls, 8, [("cases", mesh_cases)
+                                         for _, mesh_cases in inputs])
+    return [(given, [r[i] for r in results])
+            for i, (given, _) in enumerate(inputs)]
+
+
+@pytest.fixture(scope="module")
+def dp2_run(mesh_runs):
+    return mesh_runs[0]
+
+
+@pytest.fixture(scope="module")
+def sp2_run(mesh_runs):
+    return mesh_runs[1]
 
 
 def test_pipelined_matches_plain(dp2_run):
@@ -254,16 +284,9 @@ def _dryrun_cfg(shape):
 
 
 @pytest.fixture(scope="module")
-def pure_dp_run():
-    """`_dryrun_one`'s pure-dp shape (8, 1, 1, 1): 16 experts over dp,
-    lm_loss(mesh=), batch 16 x 33, one AdamW 1e-3 step."""
-    shape = (8, 1, 1, 1)
-    widths = _dryrun_cfg(shape)
-    params = jax_init_params(jax.random.PRNGKey(0), jcfg(widths))
-    toks = tokens(1, 16, 33, widths["vocab_size"])
-    results = run_ranks(ranks.cases, 8, shape, [
-        ("dryrun", "train", (np_tree(params), toks, widths, 1e-3, 1, 2))])
-    return (params, toks, widths), [r["dryrun"] for r in results]
+def pure_dp_run(mesh_runs):
+    given, results = mesh_runs[2]
+    return given, [r["dryrun"] for r in results]
 
 
 def _spec_share(full, spec, sizes):

@@ -187,6 +187,14 @@ def train(mesh, np_params, tokens, cfg_kw, lr, steps, n_micro):
     return losses, delta, shares(params)
 
 
+def calls(plan):
+    """Several rank bodies of this module in one world, in order: `plan`
+    is a list of (function name, args); returns their results in order.
+    A test module spawns its ranks once and runs every case through
+    this."""
+    return [globals()[name](*args) for name, args in plan]
+
+
 def cases(shape, runs):
     """Each (name, body, args) of `runs` on one `shape` mesh: {name:
     body(mesh, *args)}."""

@@ -47,7 +47,24 @@ result line:
    finishes it, recovery ms (kill to first survivor token), the stream
    held to the same request's no-fault stream (a difference only where the
    forward's top two logits tie);
-5b. perf twins: `ray_tpu_torch.perf`'s `run_llm_serve_bench` (its paged
+5b. serve: that engine as one replica of an `LLM` deployment behind
+   `serve.run` on the port's in-process runtime, with `serve.start`'s HTTP
+   proxy on 127.0.0.1. The engine phase's 8 prompts at once, 4 streamed
+   over `handle.options(stream=True)` and 4 over HTTP POST with `Accept:
+   text/event-stream`, then one plain HTTP POST and one `handle.remote`;
+   then `serve.run` of version v2 while 4 HTTP streams are in flight, and
+   `serve.shutdown()` with the runtime's. Tokens/s beside the engine
+   phase's, client TTFT p50 per path beside the engine's own, the update's
+   time, `torch.cuda.memory_allocated()` before deploy, after v1, after
+   v2, after shutdown and after the orphaned engines stop. Gated: every
+   stream's tokens are the no-cache forward's argmax or tie it within
+   1e-3 (teacher-forced), K1 launched 12 times per no-prefix prefill the
+   replica's model counts, every first token reaches its client before
+   its stream ends, no stream fails during the update, which ends at one
+   RUNNING v2 replica with v1 drained and killed (two replicas built in
+   all), and shutdown returns within 10 s leaving no thread of the
+   runtime or Serve;
+5c. perf twins: `ray_tpu_torch.perf`'s `run_llm_serve_bench` (its paged
    section's model on the card: paged parity 1, no host gather) and
    `run_fleet_bench`, each printed as a JSON line.
 6. backward kernels: K2 (dK, dV) and K3 (dQ) against their plain versions
@@ -512,7 +529,28 @@ def phase_forward(params, cfg, card: str):
           f"than the plain one ({err_plain:.3e}) allows")
 
 
+# The engine phase's engine and traffic (the serve phase's too): a paged
+# pool of 256 16-token blocks, batch 8; 8 prompts of 128-640 tokens, 4 of
+# them sharing a 256-token prefix, ENGINE_NEW new tokens each.
+ENGINE_CONFIG = dict(paged_decode=True, block_size=16, num_blocks=256,
+                     max_batch_size=8)
+ENGINE_NEW = 32
+
+
+def engine_prompts(cfg):
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    shared = rng.integers(2, cfg.vocab_size, 256).tolist()
+    prompts = [rng.integers(2, cfg.vocab_size, n).tolist()
+               for n in (128, 200, 384, 520)]
+    prompts += [shared + rng.integers(2, cfg.vocab_size, n - 256).tolist()
+                for n in (320, 448, 576, 640)]
+    return prompts
+
+
 def phase_engine(params, cfg, card: str):
+    """Returns the K1 launches and the measured pass's tokens/s."""
     import numpy as np
     import torch
 
@@ -553,15 +591,9 @@ def phase_engine(params, cfg, card: str):
         return streams, outs, wall
 
     model = Recording(params, cfg)
-    config = EngineConfig(paged_decode=True, block_size=16, num_blocks=256,
-                          max_batch_size=8)
-    rng = np.random.default_rng(5)
-    shared = rng.integers(2, cfg.vocab_size, 256).tolist()
-    prompts = [rng.integers(2, cfg.vocab_size, n).tolist()
-               for n in (128, 200, 384, 520)]
-    prompts += [shared + rng.integers(2, cfg.vocab_size, n - 256).tolist()
-                for n in (320, 448, 576, 640)]
-    max_new = 32
+    config = EngineConfig(**ENGINE_CONFIG)
+    prompts = engine_prompts(cfg)
+    max_new = ENGINE_NEW
     # Warm-up pass on an engine of its own: cuBLAS picks its GEMMs and the
     # allocator grows on first use, which a single cold pass would time.
     serve(InferenceEngine(model, config))
@@ -620,7 +652,7 @@ def phase_engine(params, cfg, card: str):
     check(first_ok == len(prompts), "a first token differs from forward")
     check(share >= MIN_TOKEN_AGREEMENT,
           f"greedy token agreement {share:.4f} < {MIN_TOKEN_AGREEMENT}")
-    return launches
+    return launches, n_tokens / wall
 
 
 # The serving fleet: FLEET_REPLICAS flagship float32 replicas over one
@@ -949,6 +981,387 @@ def phase_fleet(params, cfg, card: str):
               f"{first_ok}, agreement {agree}/{total}")
     finally:
         fleet.stop()
+    return launches
+
+
+# Serve: the engine phase's engine as one `LLM` replica behind `serve.run`
+# (the in-process runtime hosts replicas as threads, and engine threads of
+# one process slow each other some 8x on one card: PERF.md, PR 8). The
+# replica's constructor builds its engine in the controller's loop, so
+# serve.run waits up to SERVE_READY_S. The rolling update runs under
+# SERVE_ROLL_STREAMS HTTP streams; shutdown must end within SERVE_DOWN_S.
+SERVE_READY_S = 300.0
+SERVE_ROLL_STREAMS = 4
+SERVE_DOWN_S = 10.0
+SERVE_TIMEOUT_S = 300.0
+_SERVE_MODEL = {}      # the factory's parameters and config
+_SERVE_ENGINES = []    # every engine a replica started (their threads
+                       # outlive a killed replica: the in-process gap)
+
+
+def serve_model():
+    """The `LLM` deployment's model factory: the flagship engine model on
+    chip_smoke's one float32 parameter set, on its card, counting the
+    prefills that start from no cached prefix."""
+    from ray_tpu_torch.serve.engine import TransformerEngineModel
+
+    class Counting(TransformerEngineModel):
+        full_prefills = 0
+
+        def prefill(self, tokens, prefix_kv=None):
+            out = super().prefill(tokens, prefix_kv)
+            self.full_prefills += prefix_kv is None
+            return out
+
+    params = _SERVE_MODEL["params"]
+    return Counting(params, _SERVE_MODEL["cfg"], params["embed"].device)
+
+
+class LLM:
+    """The deployment of the engine's documentation: a sync generator
+    that streams (handle and HTTP) and an async `__call__`."""
+
+    def __init__(self, model_factory):
+        from ray_tpu_torch.serve.engine import EngineConfig, InferenceEngine
+
+        self.model = model_factory()
+        self.engine = InferenceEngine(self.model,
+                                      EngineConfig(**ENGINE_CONFIG))
+        self.engine.start()
+        _SERVE_ENGINES.append(self.engine)
+        self.first_token_s = {}
+
+    def generate(self, req):
+        """Streams the tokens; keeps, by the request's tag, the seconds
+        from submit to the first token here in the replica (engine time
+        and queueing, no Serve)."""
+        t0 = time.perf_counter()
+        stream = self.engine.submit(req["prompt"], req["max_new_tokens"])
+        for i, tok in enumerate(stream):
+            if i == 0 and "tag" in req:
+                self.first_token_s[req["tag"]] = time.perf_counter() - t0
+            yield tok
+
+    async def __call__(self, req):
+        stream = self.engine.submit(req["prompt"], req["max_new_tokens"])
+        return [tok async for tok in stream]
+
+    def reset_counts(self):
+        self.model.full_prefills = 0
+        self.engine._ttfts.clear()
+        self.first_token_s.clear()
+        return True
+
+    def counts(self):
+        st = self.engine.stats()
+        return dict(full_prefills=self.model.full_prefills,
+                    first_token_s=dict(self.first_token_s),
+                    **{k: st[k] for k in ("ttft_p50_ms", "prefills",
+                                          "prefix_hit_tokens", "steps",
+                                          "prefill_s", "decode_s")})
+
+
+def sse_request(port: int, payload: dict):
+    """POST /llm?method=generate with `Accept: text/event-stream`:
+    (tokens, seconds to the first event, seconds to the end, whether the
+    first event came in a read before the stream's last chunk)."""
+    import socket
+
+    body = json.dumps(payload).encode()
+    t0 = time.perf_counter()
+    first = None
+    early = False
+    buf = b""
+    with socket.create_connection(("127.0.0.1", port),
+                                  timeout=SERVE_TIMEOUT_S) as sock:
+        sock.sendall(b"POST /llm?method=generate HTTP/1.1\r\n"
+                     b"Host: localhost\r\nAccept: text/event-stream\r\n"
+                     b"Content-Type: application/json\r\nContent-Length: "
+                     + str(len(body)).encode() + b"\r\n\r\n" + body)
+        while b"\r\n0\r\n\r\n" not in buf:
+            chunk = sock.recv(65536)
+            if not chunk:
+                raise PhaseError(f"an SSE stream closed early: {buf[-300:]!r}")
+            buf += chunk
+            if first is None and b"data: " in buf:
+                first = time.perf_counter() - t0
+                early = b"\r\n0\r\n\r\n" not in buf
+    end = time.perf_counter() - t0
+    head = buf.partition(b"\r\n\r\n")[0]
+    check(head.startswith(b"HTTP/1.1 200") and b"event: error" not in buf,
+          f"an SSE stream failed: {buf[:300]!r}")
+    tokens = [int(line[6:]) for line in buf.split(b"\n")
+              if line.startswith(b"data: ")]
+    return tokens, first, end, early
+
+
+def stream_vs_forward(params, cfg, prompt, gen):
+    """Teacher-forced, each token of a stream against a no-cache float32
+    forward over prompt + gen[:-1]: (tokens that are the forward's argmax,
+    tokens that are not but tie it within ENGINE_LOGIT_ATOL)."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.models import forward
+
+    seq = prompt + gen[:-1]
+    ref, _ = forward(params, [seq], cfg, positions=torch.arange(len(seq)),
+                     device=params["embed"].device)
+    n = len(prompt)
+    ref = ref[0, n - 1:n - 1 + len(gen)].float().cpu().numpy()
+    picked = ref[np.arange(len(gen)), gen]
+    best = ref.max(-1)
+    is_max = ref.argmax(-1) == np.asarray(gen)
+    ties = ~is_max & (best - picked <= ENGINE_LOGIT_ATOL)
+    return int(is_max.sum()), int(ties.sum())
+
+
+def phase_serve(params, cfg, card: str, engine_tps: float):
+    """The engine behind `serve.run` on the port's in-process runtime: the
+    engine phase's 8 prompts at once (4 over the handle's stream, 4 over
+    HTTP SSE), one plain HTTP POST and one handle call, then a rolling
+    update from v1 to v2 under 4 HTTP streams, and shutdown. Returns the
+    K1 launches of the 8-request traffic."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+
+    _SERVE_MODEL.update(params=params, cfg=cfg)
+    prompts = engine_prompts(cfg)
+    new = ENGINE_NEW
+    mem = {"before deploy": torch.cuda.memory_allocated()}
+    before = set(threading.enumerate())
+    app = serve.deployment(LLM, num_replicas=1, version="v1")
+
+    def stream_handle(handle, req, out):
+        t0 = time.perf_counter()
+        gen = handle.options(stream=True, method_name="generate").remote(req)
+        toks, first, early = [], None, False
+        for tok in gen:
+            if first is None:
+                first = time.perf_counter() - t0
+                early = not gen.completed()
+            toks.append(tok)
+        out.update(path="handle", tokens=toks, ttft=first,
+                   end=time.perf_counter() - t0, early=early)
+
+    def stream_http(port, req, out):
+        toks, first, end, early = sse_request(port, req)
+        out.update(path="http", tokens=toks, ttft=first, end=end,
+                   early=early)
+
+    def run_threads(jobs):
+        """Run (fn, args) jobs at once; each fills a dict of its own or
+        records its exception."""
+        outs = [{} for _ in jobs]
+
+        def guard(fn, args, out):
+            try:
+                fn(*args, out)
+            except BaseException as e:  # noqa: BLE001
+                out["error"] = f"{type(e).__name__}: {e}"
+
+        threads = [threading.Thread(target=guard, args=(fn, args, out))
+                   for (fn, args), out in zip(jobs, outs)]
+        for t in threads:
+            t.start()
+        return threads, outs
+
+    def complete(toks):
+        eos = _SERVE_ENGINES[0].model.eos_token
+        return len(toks) == new or (toks and toks[-1] == eos)
+
+    ray_tpu_torch.init()
+    try:
+        port = serve.start(serve.HTTPOptions(host="127.0.0.1", port=0))
+        t0 = time.perf_counter()
+        handle = serve.run(app.bind(serve_model), route_prefix="/llm",
+                           _blocking_timeout_s=SERVE_READY_S)
+        deploy_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        mem["after v1"] = torch.cuda.memory_allocated()
+        # One request of a prompt of its own first: the replica's first
+        # prefill and decode steps leave the timed traffic.
+        warm = np.random.default_rng(9).integers(2, cfg.vocab_size,
+                                                 128).tolist()
+        list(handle.options(stream=True, method_name="generate").remote(
+            {"prompt": warm, "max_new_tokens": 4}))
+        handle.options(method_name="reset_counts").remote().result(
+            timeout_s=SERVE_TIMEOUT_S)
+
+        _zero_counts()
+        reqs = [{"prompt": p, "max_new_tokens": new, "tag": i}
+                for i, p in enumerate(prompts)]
+        t0 = time.perf_counter()
+        threads, outs = run_threads(
+            [(stream_handle, (handle, r)) if i % 2 == 0
+             else (stream_http, (port, r)) for i, r in enumerate(reqs)])
+        for t in threads:
+            t.join(SERVE_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        launches = _counts()[0]
+        errors = [o["error"] for o in outs if "error" in o]
+        check(not errors and all("tokens" in o for o in outs),
+              f"a request through Serve failed: {errors[:2]}")
+        counts = handle.options(method_name="counts").remote().result(
+            timeout_s=SERVE_TIMEOUT_S)
+        n_tokens = sum(len(o["tokens"]) for o in outs)
+        check(all(complete(o["tokens"]) for o in outs),
+              "a stream through Serve ended short")
+        check(launches > 0
+              and launches == cfg.n_layers * counts["full_prefills"],
+              f"the serve traffic launched K1 {launches} times for "
+              f"{counts['full_prefills']} no-prefix prefills of "
+              f"{cfg.n_layers} layers")
+        check(all(o["early"] for o in outs), "a first token reached its "
+              "client only when its stream was complete")
+        def p50_ms(path, serve_share):
+            """Client TTFT p50 of a path, or with serve_share the p50 of
+            each request's client TTFT less its first token's time in the
+            replica: what routing and the way back add."""
+            return round(float(np.median([
+                o["ttft"] - serve_share * counts["first_token_s"][i]
+                for i, o in enumerate(outs) if o["path"] == path])) * 1e3,
+                3)
+
+        ttft = {path: p50_ms(path, 0) for path in ("handle", "http")}
+        share = {path: p50_ms(path, 1) for path in ("handle", "http")}
+
+        # One plain HTTP POST and one handle call (`__call__`).
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/llm", data=json.dumps(reqs[1]).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=SERVE_TIMEOUT_S) as resp:
+            posted = json.loads(resp.read())
+        called = handle.remote(reqs[0]).result(timeout_s=SERVE_TIMEOUT_S)
+        check(type(called) is list and all(type(t) is int for t in called),
+              f"a handle call returned {type(called).__name__}, not ints")
+
+        # The rolling update, under SERVE_ROLL_STREAMS HTTP streams.
+        v1 = [r["id"] for r in serve.status()["LLM"]["replicas"]]
+        roll_threads, roll_outs = run_threads(
+            [(stream_http, (port, reqs[4 + i]))
+             for i in range(SERVE_ROLL_STREAMS)])
+        v1_engine = _SERVE_ENGINES[0]
+        deadline = time.monotonic() + SERVE_TIMEOUT_S
+        while (time.monotonic() < deadline
+               and v1_engine.stats()["running"] < SERVE_ROLL_STREAMS):
+            time.sleep(0.001)
+        in_flight = v1_engine.stats()["running"]
+        check(in_flight == SERVE_ROLL_STREAMS, f"{in_flight} streams in "
+              f"flight when the update began")
+        def v1_alive():
+            alive = False
+            for rid in v1:
+                try:
+                    ray_tpu_torch.get_actor(f"SERVE_REPLICA::{rid}")
+                    alive = True
+                except ValueError:
+                    pass
+            return alive
+
+        t0 = time.perf_counter()
+        serve.run(app.options(version="v2").bind(serve_model),
+                  route_prefix="/llm", _blocking_timeout_s=SERVE_READY_S)
+        # The update ends when one v2 replica runs alone and the v1
+        # replica, drained of its streams, is killed.
+        final = None
+        while time.monotonic() < deadline:
+            reps = serve.status()["LLM"]["replicas"]
+            if (len(reps) == 1 and reps[0]["state"] == "RUNNING"
+                    and reps[0]["version"] == "v2" and not v1_alive()):
+                final = reps
+                break
+            time.sleep(0.01)
+        roll_s = time.perf_counter() - t0
+        for t in roll_threads:
+            t.join(SERVE_TIMEOUT_S)
+        torch.cuda.synchronize()
+        mem["after v2"] = torch.cuda.memory_allocated()
+        errors = [o["error"] for o in roll_outs if "error" in o]
+        check(not errors and all(complete(o.get("tokens", []))
+                                 for o in roll_outs),
+              f"a stream failed during the rolling update: {errors[:2]}")
+        check(final is not None, f"the rolling update did not end at one "
+              f"RUNNING v2 replica: {serve.status()}")
+        check(final[0]["id"] not in v1, "no new replica took v1's place")
+        post_roll = handle.remote(reqs[2]).result(timeout_s=SERVE_TIMEOUT_S)
+    finally:
+        t0 = time.perf_counter()
+        serve.shutdown()
+        ray_tpu_torch.shutdown()
+        down_s = time.perf_counter() - t0
+    left = [t.name for t in set(threading.enumerate()) - before
+            if t.is_alive() and t.name != "inference-engine"]
+    engines_alive = sum(t.name == "inference-engine"
+                        for t in set(threading.enumerate()) - before)
+    torch.cuda.synchronize()
+    mem["after shutdown"] = torch.cuda.memory_allocated()
+    check(down_s <= SERVE_DOWN_S, f"serve and runtime shutdown took "
+          f"{down_s:.3f} s")
+    check(not left, f"threads of the runtime or Serve outlived shutdown: "
+          f"{left}")
+    # The killed v1 replica's engine thread still holds its model and pool
+    # (a thread of the user's object; a process runtime would end it).
+    check(len(_SERVE_ENGINES) == 2, f"{len(_SERVE_ENGINES)} replicas were "
+          f"built for v1 and v2")
+    for engine in _SERVE_ENGINES:
+        engine.stop()
+    _SERVE_ENGINES.clear()
+    del engine, v1_engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem["after the engines stop"] = torch.cuda.memory_allocated()
+
+    held = [(o["path"], reqs[i]["prompt"], o["tokens"])
+            for i, o in enumerate(outs)]
+    held += [("http", reqs[4 + i]["prompt"], o["tokens"])
+             for i, o in enumerate(roll_outs)]
+    held += [("post", reqs[1]["prompt"], posted),
+             ("call", reqs[0]["prompt"], called),
+             ("after roll", reqs[2]["prompt"], post_roll)]
+    is_max = ties = total = 0
+    for _, prompt, toks in held:
+        a, t = stream_vs_forward(params, cfg, prompt, toks)
+        is_max += a
+        ties += t
+        total += len(toks)
+    tps = n_tokens / wall
+    print(f"serve flagship f32 paged, 1 replica: {len(outs)} requests at "
+          f"once (4 handle streams, 4 HTTP SSE), {n_tokens} tokens in "
+          f"{wall:.3f} s, tokens_per_s {tps:.2f} (engine phase "
+          f"{engine_tps:.2f}, serve/engine {tps / engine_tps:.3f}), client "
+          f"ttft_p50_ms handle {ttft['handle']} http {ttft['http']}, engine "
+          f"stats ttft_p50_ms {counts['ttft_p50_ms']}, Serve's share of a "
+          f"request's TTFT (client less first token in the replica) p50_ms "
+          f"handle {share['handle']} http {share['http']}, K1 launches "
+          f"{launches} ({counts['full_prefills']} no-prefix prefills x "
+          f"{cfg.n_layers} layers), prefix_hit_tokens "
+          f"{counts['prefix_hit_tokens']}, prefill_s {counts['prefill_s']} "
+          f"decode_s {counts['decode_s']} ({counts['steps']} steps), "
+          f"serve.run to ready {deploy_s:.3f} s [{card}]", flush=True)
+    print(f"serve vs no-cache forward: {len(held)} streams (8 at once, "
+          f"{SERVE_ROLL_STREAMS} under the update, a plain POST, a handle "
+          f"call, one after the update), {is_max}/{total} tokens the "
+          f"forward's argmax, {ties} more tie it within "
+          f"{ENGINE_LOGIT_ATOL:g}; first token before the stream's end "
+          f"{sum(o['early'] for o in outs)}/{len(outs)} [{card}]",
+          flush=True)
+    print(f"serve rolling update v1 -> v2: {SERVE_ROLL_STREAMS} HTTP streams "
+          f"in flight, 0 failed, {roll_s:.3f} s from serve.run(v2) to one "
+          f"RUNNING v2 replica with v1 drained and killed; shutdown "
+          f"(serve + runtime) {down_s:.3f} s, runtime/Serve threads left "
+          f"{len(left)}, engine threads left {engines_alive} [{card}]",
+          flush=True)
+    print("serve memory_allocated bytes: " + ", ".join(
+        f"{k} {v}" for k, v in mem.items()) + f" [{card}]", flush=True)
+    check(is_max + ties == total, f"{total - is_max - ties} streamed tokens "
+          f"through Serve differ from the forward's argmax beyond a tie")
     return launches
 
 
@@ -2212,12 +2625,15 @@ def main() -> int:
         gen = torch.Generator(device="cuda").manual_seed(0)
         params = init_params(cfg, gen)
         phase_forward(params, cfg, card)
-        launches = phase_engine(params, replace(cfg, dtype=torch.float32),
-                                card)
+        launches, engine_tps = phase_engine(
+            params, replace(cfg, dtype=torch.float32), card)
         fleet_launches = phase_fleet(params,
                                      replace(cfg, dtype=torch.float32), card)
         gc.collect()             # the fleets' pools
         torch.cuda.empty_cache()
+        serve_launches = phase_serve(params,
+                                     replace(cfg, dtype=torch.float32), card,
+                                     engine_tps)
         phase_perf_twins(card)
         bwd_rows = phase_bwd_kernels(card, power_w)
         train_cfg = replace(cfg, remat=True, remat_policy="save_attn_qkv")
@@ -2292,6 +2708,7 @@ def main() -> int:
         pallas_call=f"{jax_site}:758", launches=launches,
         fleet_launches=sum(fleet_launches.values()),
         fleet_launches_by_part=fleet_launches,
+        serve_launches=serve_launches,
         train_launches=train_launches[0],
         moe_train_launches=moe_launches[0],
         moe_f32_grad_launches=moe_f32_launches[0],

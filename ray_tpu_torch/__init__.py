@@ -9,8 +9,25 @@ written by hand under `kernels/csrc/`.
 
 Entry points run on `cuda:0` unless the caller passes a device (the tests
 pass `device="cpu"`); see `device.resolve_device`.
+
+The core API (`init`, `remote`, `get`, `put`, `wait`, `kill`, `get_actor`,
+`shutdown`, ...) runs on the in-process runtime, the one runtime of the
+port so far; `ray_tpu_torch.serve` stands on it.
 """
 
+from ray_tpu_torch.core.actor import method
+from ray_tpu_torch.core.object_ref import ObjectRef
+from ray_tpu_torch.core.remote_function import remote
+from ray_tpu_torch.core.worker import (available_resources, cancel,
+                                       cluster_resources, get, get_actor,
+                                       init, is_initialized, kill, nodes, put,
+                                       shutdown, timeline, wait)
 from ray_tpu_torch.device import resolve_device
+from ray_tpu_torch.runtime_context import get_runtime_context
 
-__all__ = ["resolve_device"]
+__all__ = [
+    "ObjectRef", "available_resources", "cancel", "cluster_resources", "get",
+    "get_actor", "get_runtime_context", "init", "is_initialized", "kill",
+    "method", "nodes", "put", "remote", "resolve_device", "shutdown",
+    "timeline", "wait",
+]

@@ -35,3 +35,12 @@ def record(category: str, label: str, dur_us: int = 0, arg: Any = None,
 def events() -> List[Tuple]:
     """The ring's events, oldest first."""
     return list(_ring)
+
+
+def disable() -> None:
+    """Off for this process and subsequently spawned children. The env
+    var is SET to 0 (not popped): the recorder defaults on, so absence
+    means enabled."""
+    global enabled
+    enabled = False
+    os.environ[ENV_FLAG] = "0"

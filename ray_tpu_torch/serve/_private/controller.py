@@ -1,0 +1,534 @@
+"""ServeController: the reconciliation loop.
+
+Reference equivalent: `python/ray/serve/_private/controller.py:87,347` —
+an actor holding target state (deployments, versions, replica counts) and
+converging actual state to it: starting replicas, draining and stopping
+extras, rolling version updates one replica at a time (start-new →
+drain-old), restarting dead replicas, and queue-length autoscaling
+(`autoscaling_policy.py:12`).
+
+Ported from `ray_tpu/serve/_private/controller.py`. Left out: the
+checkpoint to the KV store and the recovery from it (`_save_checkpoint`,
+`_recover`) — in one process the controller cannot die alone, so they
+come with the cluster runtime. A deployment without a pinned version gets
+one from a digest of its class's code and a pickle of its init args
+(`_auto_version`), where the reference hashes a cloudpickle of both.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import dataclasses
+import hashlib
+import inspect
+import math
+import pickle
+import sys
+import time
+import types
+import uuid
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional
+
+CONTROLLER_NAME = "SERVE_CONTROLLER"
+
+
+@dataclass
+class _ReplicaState:
+    handle: Any
+    replica_id: str
+    version: Optional[str]
+    state: str = "STARTING"        # STARTING | RUNNING | STOPPING
+    ongoing: int = 0
+    last_seen: float = field(default_factory=time.monotonic)
+
+
+@dataclass
+class _DeploymentState:
+    name: str
+    cls_factory: Any
+    init_args: tuple
+    init_kwargs: dict
+    config: Any                    # DeploymentConfig
+    target_replicas: int
+    replicas: List[_ReplicaState] = field(default_factory=list)
+    route_version: int = 0         # bumped whenever the running set changes
+    last_scale_up: float = 0.0
+    last_scale_down: float = 0.0
+    _scale_high_since: Optional[float] = None
+    _scale_low_since: Optional[float] = None
+
+
+class ServeController:
+    def __init__(self):
+        self._deployments: Dict[str, _DeploymentState] = {}
+        self._routes: Dict[str, str] = {}   # route_prefix -> deployment
+        self._routes_version = 0
+        self._shutdown = False
+        # The ctor runs off the actor event loop; the reconcile task is
+        # created lazily from the first async call, which does run on it.
+        self._loop_task = None
+
+    def _ensure_reconciler(self) -> None:
+        if self._loop_task is None or self._loop_task.done():
+            self._loop_task = asyncio.get_running_loop().create_task(
+                self._reconcile_loop())
+
+    # -- API (driver / serve.run) --------------------------------------
+    async def deploy(self, name: str, cls_factory, init_args, init_kwargs,
+                     config, route_prefix: Optional[str] = None) -> bool:
+        """Create or update a deployment. A changed version triggers a
+        rolling update; a changed num_replicas scales."""
+        self._ensure_reconciler()
+        # The caller's config is not ours to change (a cluster runtime
+        # hands the controller a copy; this one passes the object).
+        config = dataclasses.replace(config)
+        if config.version is None:
+            # Auto-version from the code + constructor args so an
+            # unversioned redeploy with changes still rolls (reference:
+            # serve computes a config/code version hash when the user
+            # does not pin one). Unpicklable args keep None (no
+            # auto-roll).
+            config.version = _auto_version(cls_factory, init_args,
+                                           init_kwargs)
+        existing = self._deployments.get(name)
+        target = (config.autoscaling_config.min_replicas
+                  if config.autoscaling_config else config.num_replicas)
+        if existing is None:
+            self._deployments[name] = _DeploymentState(
+                name=name, cls_factory=cls_factory,
+                init_args=tuple(init_args), init_kwargs=dict(init_kwargs),
+                config=config, target_replicas=target)
+        else:
+            existing.cls_factory = cls_factory
+            existing.init_args = tuple(init_args)
+            existing.init_kwargs = dict(init_kwargs)
+            old_autoscaling = existing.config.autoscaling_config
+            existing.config = config
+            if config.autoscaling_config is None:
+                existing.target_replicas = config.num_replicas
+            elif old_autoscaling is None:
+                existing.target_replicas = target
+        if route_prefix is not None and \
+                self._routes.get(route_prefix) != name:
+            self._routes[route_prefix] = name
+            self._routes_version += 1
+        return True
+
+    async def delete_deployment(self, name: str) -> bool:
+        state = self._deployments.pop(name, None)
+        if state is None:
+            return False
+        if any(d == name for d in self._routes.values()):
+            self._routes = {r: d for r, d in self._routes.items()
+                            if d != name}
+            self._routes_version += 1
+        await asyncio.gather(
+            *[self._stop_replica(state, r) for r in list(state.replicas)],
+            return_exceptions=True)
+        return True
+
+    async def get_routing_table(self, name: str) -> Dict[str, Any]:
+        """Running replicas for a deployment + a version counter the
+        router uses for cache invalidation."""
+        self._ensure_reconciler()
+        state = self._deployments.get(name)
+        if state is None:
+            return {"version": -1, "replicas": []}
+        return {
+            "version": state.route_version,
+            "replicas": [(r.replica_id, r.handle) for r in state.replicas
+                         if r.state == "RUNNING"],
+        }
+
+    async def get_routes(self) -> Dict[str, str]:
+        return dict(self._routes)
+
+    async def listen_for_change(self, versions: Dict[str, int],
+                                timeout_s: float = 10.0) -> Dict[str, Any]:
+        """Long-poll (reference: long_poll.py:174 LongPollHost): blocks
+        until the route table or any listed deployment's routing version
+        moves past the caller's snapshot, or timeout_s elapses; returns
+        the changed snapshots. `versions` maps "__routes__" and
+        deployment names to the caller's last-seen versions."""
+        self._ensure_reconciler()
+        loop = asyncio.get_running_loop()
+        deadline = loop.time() + timeout_s
+
+        def changed() -> Dict[str, Any]:
+            out: Dict[str, Any] = {}
+            # Routes only for a caller that listens for them. (The
+            # reference defaults an absent "__routes__" to -1, so a
+            # router's poll for its deployment alone returns at once,
+            # every time: a busy loop that takes the interpreter's lock
+            # from a replica's engine in the same process.)
+            if ("__routes__" in versions
+                    and self._routes_version > versions["__routes__"]):
+                out["__routes__"] = {"version": self._routes_version,
+                                     "routes": dict(self._routes)}
+            for name, seen in versions.items():
+                if name == "__routes__":
+                    continue
+                st = self._deployments.get(name)
+                if st is None:
+                    if seen != -1:
+                        # Deleted: tell the listener to STOP polling —
+                        # otherwise dead-deployment pollers pile up and
+                        # exhaust the controller's concurrency slots.
+                        out[name] = {"version": -1, "replicas": [],
+                                     "deleted": True}
+                    continue
+                if st.route_version > seen:
+                    out[name] = {
+                        "version": st.route_version,
+                        "replicas": [(r.replica_id, r.handle)
+                                     for r in st.replicas
+                                     if r.state == "RUNNING"],
+                    }
+            return out
+
+        while True:
+            out = changed()
+            if out or loop.time() >= deadline or self._shutdown:
+                return out
+            await asyncio.sleep(0.05)
+
+    async def status(self) -> Dict[str, Any]:
+        out = {}
+        for name, st in self._deployments.items():
+            out[name] = {
+                "target_replicas": st.target_replicas,
+                "replicas": [
+                    {"id": r.replica_id, "state": r.state,
+                     "version": r.version, "ongoing": r.ongoing}
+                    for r in st.replicas],
+            }
+        return out
+
+    async def shutdown(self) -> bool:
+        self._shutdown = True
+        for state in list(self._deployments.values()):
+            await self.delete_deployment(state.name)
+        return True
+
+    # -- reconciliation -------------------------------------------------
+    async def _reconcile_loop(self) -> None:
+        while not self._shutdown:
+            try:
+                for state in list(self._deployments.values()):
+                    await self._reconcile(state)
+                    await self._autoscale(state)
+            except Exception:
+                import traceback
+
+                traceback.print_exc()
+            await asyncio.sleep(0.1)
+
+    async def _reconcile(self, state: _DeploymentState) -> None:
+        version = state.config.version
+        # 1. Reap dead replicas (health probe).
+        for r in list(state.replicas):
+            if r.state != "RUNNING":
+                continue
+            if time.monotonic() - r.last_seen \
+                    < state.config.health_check_period_s:
+                continue
+            try:
+                await _aget(r.handle.check_health.remote(), timeout=5.0)
+                r.last_seen = time.monotonic()
+            except Exception:
+                # Reap AND kill: dropping it from the table without
+                # killing would leak a live actor (and its resources)
+                # serving stale traffic forever.
+                state.replicas.remove(r)
+                state.route_version += 1
+                try:
+                    _kill(r.handle)
+                except Exception:
+                    pass
+        running = [r for r in state.replicas if r.state == "RUNNING"]
+        current = [r for r in running if r.version == version]
+        outdated = [r for r in running if r.version != version]
+        starting = [r for r in state.replicas if r.state == "STARTING"]
+
+        # 2. Scale up: missing replicas (count outdated ones still serving
+        # so a rolling update replaces one at a time instead of doubling).
+        deficit = state.target_replicas - (len(current) + len(starting)
+                                           + len(outdated))
+        # During a rolling update keep one extra slot so a new-version
+        # replica starts BEFORE an old one drains (no capacity dip) — one
+        # slot, and only while the new version is short of the target.
+        # (The reference grants the slot whenever none is starting, so the
+        # tick that promotes a new replica starts one more, which the
+        # scale-down then stops: a 1-replica update builds two.)
+        if outdated and deficit <= 0:
+            fresh = len(current) + len(starting)
+            deficit = max(0, min(1, state.target_replicas - fresh,
+                                 state.target_replicas + 1
+                                 - fresh - len(outdated)))
+        for _ in range(max(deficit, 0)):
+            try:
+                self._start_replica(state)
+            except Exception:
+                # Constructor failed synchronously (user __init__ error):
+                # back off one tick instead of crash-looping hot.
+                import traceback
+
+                traceback.print_exc()
+                break
+
+        # 3. Rolling replace: once a current-version replica is up, drain
+        # outdated ones.
+        surplus = (len(current) + len(outdated)) - state.target_replicas
+        if outdated and len(current) >= 1 and surplus > 0:
+            await self._stop_replica(state, outdated[0])
+
+        # 4. Scale down extras of the current version.
+        elif len(current) > state.target_replicas:
+            victim = min(current, key=lambda r: r.ongoing)
+            await self._stop_replica(state, victim)
+
+        # 5. Promote replicas that finished starting; drop ones whose
+        # actor died during __init__ (or never came up) so the deficit
+        # recomputes and a replacement starts — otherwise a ghost
+        # STARTING entry wedges the deployment at 0 RUNNING forever.
+        from ray_tpu_torch.exceptions import RayActorError
+
+        for r in starting:
+            try:
+                await _aget(r.handle.check_health.remote(), timeout=0.5)
+            except RayActorError:
+                state.replicas.remove(r)
+                continue
+            except Exception:
+                if time.monotonic() - r.last_seen > 120.0:
+                    state.replicas.remove(r)
+                    try:
+                        _kill(r.handle)
+                    except Exception:
+                        pass
+                continue
+            r.state = "RUNNING"
+            r.last_seen = time.monotonic()
+            state.route_version += 1
+
+    def _start_replica(self, state: _DeploymentState) -> None:
+        from ray_tpu_torch.core.remote_function import remote
+        from ray_tpu_torch.serve._private.replica import Replica
+
+        replica_id = f"{state.name}#{uuid.uuid4().hex[:6]}"
+        opts = dict(state.config.ray_actor_options)
+        opts.setdefault("num_cpus", 0)
+        opts.setdefault("max_concurrency",
+                        state.config.max_ongoing_requests)
+        # Named, as the reference's replicas are (a restarted controller
+        # re-adopts them by name there).
+        opts.setdefault("name", f"SERVE_REPLICA::{replica_id}")
+        opts.setdefault("lifetime", "detached")
+        # The constructor runs in this (the controller loop's) thread:
+        # the loop waits while a replica builds its model.
+        actor_cls = remote(**opts)(Replica)
+        handle = actor_cls.remote(
+            state.cls_factory, state.init_args, state.init_kwargs,
+            state.name, replica_id, state.config.version)
+        state.replicas.append(_ReplicaState(
+            handle=handle, replica_id=replica_id,
+            version=state.config.version))
+
+    async def _stop_replica(self, state: _DeploymentState,
+                            replica: _ReplicaState) -> None:
+        if replica in state.replicas:
+            replica.state = "STOPPING"
+            state.replicas.remove(replica)
+            state.route_version += 1
+        try:
+            await _aget(
+                replica.handle.prepare_for_shutdown.remote(
+                    state.config.graceful_shutdown_timeout_s),
+                timeout=state.config.graceful_shutdown_timeout_s + 5)
+        except Exception:
+            pass
+        try:
+            _kill(replica.handle)
+        except Exception:
+            pass
+
+    # -- autoscaling ----------------------------------------------------
+    async def _collect_metric_snapshots(self) -> list:
+        """Every instrument's snapshot from the process registry: the
+        in-process runtime hosts proxies, routers and replicas in this
+        one process (the reference's local-mode branch)."""
+        from ray_tpu_torch.util.metrics import default_registry
+
+        return list(default_registry().snapshot())
+
+    async def _autoscale(self, state: _DeploymentState) -> None:
+        """Queue-length autoscaling driven by the data plane's OWN
+        gauges — `serve_replica_ongoing_requests` (per live replica) +
+        `serve_deployment_queued_queries` (per router process backlog) —
+        instead of an extra metrics.remote() poll per replica per tick
+        (the PR-2 follow-up in ROADMAP). The gauges lag by the metrics
+        push interval; upscale/downscale delays already absorb that. If
+        no gauge has been pushed yet for any live replica (fresh
+        deployment), fall back to one polling round."""
+        cfg = state.config.autoscaling_config
+        if cfg is None:
+            return
+        running = [r for r in state.replicas if r.state == "RUNNING"]
+        if not running:
+            return
+        try:
+            snaps = await self._collect_metric_snapshots()
+        except Exception:
+            snaps = []
+        per_replica, queued = _deployment_load_from_samples(
+            snaps, state.name, [r.replica_id for r in running])
+        if per_replica:
+            total = queued
+            for r in running:
+                if r.replica_id in per_replica:
+                    r.ongoing = int(per_replica[r.replica_id])
+                total += per_replica.get(r.replica_id, 0)
+        else:
+            total = 0
+            for r in running:
+                try:
+                    m = await _aget(r.handle.metrics.remote(), timeout=2.0)
+                    r.ongoing = m["ongoing"]
+                    total += m["ongoing"]
+                except Exception:
+                    pass
+        desired = math.ceil(total / max(cfg.target_ongoing_requests, 1e-9))
+        desired = min(max(desired, cfg.min_replicas), cfg.max_replicas)
+        now = time.monotonic()
+        if desired > state.target_replicas:
+            state._scale_low_since = None
+            if state._scale_high_since is None:
+                state._scale_high_since = now
+            if now - state._scale_high_since >= cfg.upscale_delay_s:
+                state.target_replicas = desired
+                state._scale_high_since = None
+        elif desired < state.target_replicas:
+            state._scale_high_since = None
+            if state._scale_low_since is None:
+                state._scale_low_since = now
+            if now - state._scale_low_since >= cfg.downscale_delay_s:
+                state.target_replicas = desired
+                state._scale_low_since = None
+        else:
+            state._scale_high_since = None
+            state._scale_low_since = None
+
+
+def _deployment_load_from_samples(snapshots: list, deployment: str,
+                                  live_replica_ids: list):
+    """Fold metric snapshots into autoscaling inputs for one deployment.
+
+    Returns `(per_replica_ongoing, queued_total)`:
+    - `per_replica_ongoing`: replica_id -> latest
+      `serve_replica_ongoing_requests` gauge value, restricted to the
+      LIVE replica set (dead replicas' gauges linger in raylet snapshots
+      until worker eviction and must not count);
+    - `queued_total`: sum of `serve_deployment_queued_queries` across
+      router processes (each process aggregates its own backlog, so the
+      cluster total is the sum over sources).
+    """
+    live = set(live_replica_ids)
+    per_replica: Dict[str, float] = {}
+    queued = 0.0
+    for m in snapshots:
+        if m.get("name") == "serve_replica_ongoing_requests":
+            for s in m.get("samples", []):
+                tags = s.get("tags", {})
+                rid = tags.get("replica")
+                if tags.get("deployment") == deployment and rid in live:
+                    per_replica[rid] = s.get("value", 0.0)
+        elif m.get("name") == "serve_deployment_queued_queries":
+            for s in m.get("samples", []):
+                if s.get("tags", {}).get("deployment") == deployment:
+                    queued += s.get("value", 0.0)
+    return per_replica, queued
+
+
+async def _aget(ref, timeout: Optional[float] = None):
+    """Await an ObjectRef from inside the controller's event loop without
+    blocking it (`get` is thread-blocking)."""
+    return await asyncio.to_thread(ref._runtime.get, ref, timeout=timeout)
+
+
+def _kill(handle) -> None:
+    handle._actor_runtime().kill_actor(handle)
+
+
+class _Unversionable(Exception):
+    pass
+
+
+class _VersionPickler(pickle.Pickler):
+    """Refuses a tensor on a device: a version must never copy one."""
+
+    def reducer_override(self, obj):
+        torch = sys.modules.get("torch")
+        if (torch is not None and isinstance(obj, torch.Tensor)
+                and obj.device.type != "cpu"):
+            raise _Unversionable
+        return NotImplemented
+
+
+def _digest_code(code: types.CodeType, h) -> None:
+    h.update(code.co_code)
+    h.update(repr(code.co_names).encode())
+    for const in code.co_consts:
+        if isinstance(const, types.CodeType):
+            _digest_code(const, h)
+        else:
+            h.update(repr(const).encode())
+
+
+def _digest_object(obj, h, seen: set) -> None:
+    """Module, qualname and each function's bytecode and constants,
+    recursively through classes, their bases and their methods."""
+    if id(obj) in seen:
+        return
+    seen.add(id(obj))
+    if isinstance(obj, (staticmethod, classmethod)):
+        obj = obj.__func__
+    if isinstance(obj, property):
+        for fn in (obj.fget, obj.fset, obj.fdel):
+            if fn is not None:
+                _digest_object(fn, h, seen)
+        return
+    if isinstance(obj, type):
+        h.update(f"{obj.__module__}.{obj.__qualname__}".encode())
+        for base in obj.__bases__:
+            if base is not object:
+                _digest_object(base, h, seen)
+        for name, member in sorted(vars(obj).items()):
+            if isinstance(member, (type, staticmethod, classmethod,
+                                   property)) or inspect.isfunction(member):
+                h.update(name.encode())
+                _digest_object(member, h, seen)
+        return
+    if inspect.isfunction(obj):
+        h.update(f"{obj.__module__}.{obj.__qualname__}".encode())
+        _digest_code(obj.__code__, h)
+        return
+    _digest_object(type(obj), h, seen)   # a callable instance
+
+
+def _auto_version(cls_factory, init_args, init_kwargs) -> Optional[str]:
+    """12 hex digits of a digest of the code and a pickle of the init
+    args, or None where the args do not pickle (or hold a tensor on a
+    device)."""
+    import io
+
+    h = hashlib.sha1()
+    _digest_object(cls_factory, h, set())
+    buf = io.BytesIO()
+    try:
+        _VersionPickler(buf, protocol=5).dump(
+            (tuple(init_args), dict(init_kwargs)))
+    except Exception:
+        return None
+    h.update(buf.getvalue())
+    return h.hexdigest()[:12]

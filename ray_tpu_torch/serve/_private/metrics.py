@@ -1,7 +1,8 @@
 """Serve data-plane instruments, one lazy singleton set per process: the
-engine's (`serve_engine_*`, `serve_prefix_*`) and the fleet's
-(`serve_fleet_*`) of `ray_tpu/serve/_private/metrics.py`, with the
-reference's names and tags.
+proxy's, router's and replica's (`serve_num_requests`, `serve_router_*`,
+`serve_deployment_*`, `serve_replica_*`), the engine's (`serve_engine_*`,
+`serve_prefix_*`) and the fleet's (`serve_fleet_*`) of
+`ray_tpu/serve/_private/metrics.py`, with the reference's names and tags.
 
 Instruments are created on first use so registration happens inside the
 process that records them. A second construction of the same instrument
@@ -10,6 +11,7 @@ in one process would shadow the first in the registry, hence the cache.
 
 from __future__ import annotations
 
+import threading
 from typing import Any, Dict
 
 _LATENCY_BOUNDARIES = [0.001, 0.005, 0.01, 0.05, 0.1, 0.25, 0.5, 1.0,
@@ -22,6 +24,92 @@ def _component(name: str, build) -> Dict[str, Any]:
     from ray_tpu_torch.util.metrics import get_instruments
 
     return get_instruments(f"serve.{name}", build)
+
+
+def proxy_metrics() -> Dict[str, Any]:
+    """Ingress-edge instruments (the HTTP proxy)."""
+    def build():
+        from ray_tpu_torch.util.metrics import Counter, Histogram
+
+        return {
+            "requests": Counter(
+                "serve_num_requests",
+                "Requests received at a Serve ingress",
+                tag_keys=("ingress", "route", "status")),
+            "latency": Histogram(
+                "serve_request_latency_seconds",
+                "End-to-end request latency at the ingress",
+                boundaries=_LATENCY_BOUNDARIES,
+                tag_keys=("ingress", "route")),
+        }
+
+    return _component("proxy", build)
+
+
+def router_metrics() -> Dict[str, Any]:
+    """Routing-layer instruments (live in the handle owner's process)."""
+    def build():
+        from ray_tpu_torch.util.metrics import Counter, Gauge
+
+        return {
+            "assignments": Counter(
+                "serve_router_requests",
+                "Requests routed to a replica",
+                tag_keys=("deployment",)),
+            "queued": Gauge(
+                "serve_deployment_queued_queries",
+                "Requests waiting in the router for a replica",
+                tag_keys=("deployment",)),
+        }
+
+    return _component("router", build)
+
+
+_queued_lock = threading.Lock()
+_queued_counts: Dict[str, int] = {}
+
+
+def queued_delta(deployment: str, delta: int) -> None:
+    """Process-wide queued-request accounting. The gauge is last-write-
+    wins, and one process can hold several Routers for the same
+    deployment (one per handle) — each setting its OWN backlog would
+    clobber the others', so the count aggregates here and the gauge is
+    set under the same lock."""
+    with _queued_lock:
+        n = max(0, _queued_counts.get(deployment, 0) + delta)
+        if n:
+            _queued_counts[deployment] = n
+        else:
+            _queued_counts.pop(deployment, None)
+        try:
+            router_metrics()["queued"].set(
+                n, tags={"deployment": deployment})
+        except Exception:
+            pass  # metrics must never fail the data path
+
+
+def replica_metrics() -> Dict[str, Any]:
+    """Replica-side instruments (the user-code execution edge)."""
+    def build():
+        from ray_tpu_torch.util.metrics import Counter, Gauge, Histogram
+
+        return {
+            "processed": Counter(
+                "serve_deployment_processed_queries",
+                "Requests a replica finished",
+                tag_keys=("deployment", "replica", "status")),
+            "latency": Histogram(
+                "serve_deployment_processing_latency_seconds",
+                "User-code processing latency on the replica",
+                boundaries=_LATENCY_BOUNDARIES,
+                tag_keys=("deployment", "replica")),
+            "ongoing": Gauge(
+                "serve_replica_ongoing_requests",
+                "Requests currently executing on a replica",
+                tag_keys=("deployment", "replica")),
+        }
+
+    return _component("replica", build)
 
 
 def engine_metrics() -> Dict[str, Any]:

@@ -3,8 +3,9 @@
 
 Each process keeps a local `MetricsRegistry` (`default_registry()`);
 `snapshot()` is its serializable view. The reference pushes snapshots to
-its raylet for the dashboard's `/metrics`; the port has no runtime yet,
-so readers (tests, benches) take the snapshot in process.
+its raylet for the dashboard's `/metrics`; the port's one runtime is the
+in-process one, so readers (Serve's autoscaler, tests, benches) take the
+snapshot in process.
 """
 
 from __future__ import annotations
@@ -191,7 +192,7 @@ _instrument_cache_lock = threading.Lock()
 
 def get_instruments(key: str, build):
     """Build-once instrument set per process, shared by every subsystem
-    (the serving engine and fleet). Constructing the same instrument twice would shadow the
+    (Serve, the serving engine and fleet). Constructing the same instrument twice would shadow the
     first registration in the registry, so first use is locked."""
     inst = _instrument_cache.get(key)
     if inst is None:

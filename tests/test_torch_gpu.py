@@ -429,3 +429,68 @@ def test_prefix_ship_moves_flagship_blocks_bitwise(card):
         assert torch.equal(pools[0][block_s], pools[1][block_d])
         n += 1
     assert n == 2
+
+
+class _CardLLM:
+    """A Serve deployment hosting an engine over a small model on the
+    card; `factory` builds the model."""
+
+    def __init__(self, factory):
+        from ray_tpu_torch.serve.engine import EngineConfig, InferenceEngine
+
+        self.engine = InferenceEngine(factory(), EngineConfig(
+            block_size=16, num_blocks=32, max_batch_size=4))
+        self.engine.start()
+
+    def generate(self, req):
+        yield from self.engine.submit(req["prompt"], req["max_new_tokens"])
+
+    def stop_engine(self):
+        self.engine.stop()
+        return True
+
+
+_CARD_SERVE = {}
+
+
+def _card_serve_model():
+    return TransformerEngineModel(*_CARD_SERVE["model"])
+
+
+def test_serve_llm_on_card_streams_the_engines_tokens(card):
+    """`serve.run` of an engine on the card: the streamed tokens are plain
+    ints and equal an engine of the same model driven directly; prefill
+    runs K1 in the replica."""
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.serve.engine import EngineConfig, InferenceEngine
+
+    cfg = TransformerConfig(vocab_size=64, d_model=128, n_layers=2,
+                            n_heads=1, d_ff=256, max_seq_len=256,
+                            dtype=torch.float32)
+    params = init_params(cfg, torch.Generator(device=card).manual_seed(0),
+                         card)
+    _CARD_SERVE["model"] = (params, cfg, card)
+    prompt = np.random.default_rng(4).integers(2, 64, 130).tolist()
+    direct = InferenceEngine(_card_serve_model(), EngineConfig(
+        block_size=16, num_blocks=32, max_batch_size=4))
+    stream = direct.submit(prompt, 6)
+    while direct.step():
+        pass
+    want = stream.tokens_so_far()
+    ray_tpu_torch.init()
+    try:
+        handle = serve.run(serve.deployment(_CardLLM, version="v1").bind(
+            _card_serve_model), route_prefix="/llm")
+        before = flash_attn.launches
+        got = list(handle.options(stream=True, method_name="generate")
+                   .remote({"prompt": prompt, "max_new_tokens": 6}))
+        launched = flash_attn.launches - before
+        handle.options(method_name="stop_engine").remote().result(
+            timeout_s=60)
+    finally:
+        serve.shutdown()
+        ray_tpu_torch.shutdown()
+    assert all(type(t) is int for t in got)
+    assert got == want
+    assert launched == cfg.n_layers

@@ -64,7 +64,28 @@ result line:
    RUNNING v2 replica with v1 drained and killed (two replicas built in
    all), and shutdown returns within 10 s leaving no thread of the
    runtime or Serve;
-5c. perf twins: `ray_tpu_torch.perf`'s `run_llm_serve_bench` (its paged
+5c. cluster serve: the same deployment on the port's cluster runtime
+   (`ray_tpu_torch.init(num_cpus=8)`: GCS, raylet, controller, proxy and
+   replicas as processes; the node's GPU detected, not passed). Each
+   replica is a worker process leasing 0.25 of the card; it makes the
+   flagship float32 weights itself from this script's seed on the card
+   its lease shows it (a checksum of every leaf's bits must equal the
+   driver's) and warms its engine with the engine phase's prompts. The 8
+   prompts at once (4 handle streams, 4 HTTP SSE), then v1 -> v2 under 4
+   HTTP streams (v1's exit must free at least its weights and pool,
+   2,617,923,584 B, of the card's memory), a SIGKILL of the replica's
+   process (the replacement's checksum and 4 streams held), a SIGKILL of
+   the controller's under HTTP traffic (0 failed requests), the same 24
+   handle requests through 1 and through 3 replicas, and shutdown (no
+   `-m ray_tpu_torch.core.*` process left within 10 s). Tokens/s beside
+   the engine phase's and the in-process serve phase's, client TTFT and
+   Serve's share per path, the replica's build seconds by step, the
+   update's, replacement's, recovery's and scale-up's seconds. Gated as
+   the serve phase, with K1 counted in the replica process;
+5d. microbench: `python -m ray_tpu_torch.perf --microbench`'s
+   `run_microbench` on the cluster (tasks/s, actor calls/s, put/get
+   10 MB, on this machine's host), printed as a JSON line;
+5e. perf twins: `ray_tpu_torch.perf`'s `run_llm_serve_bench` (its paged
    section's model on the card: paged parity 1, no host gather) and
    `run_fleet_bench`, each printed as a JSON line.
 6. backward kernels: K2 (dK, dV) and K3 (dQ) against their plain versions
@@ -1095,6 +1116,65 @@ def sse_request(port: int, payload: dict):
     return tokens, first, end, early
 
 
+def stream_handle(handle, req, out):
+    """One request over the handle's stream into `out`: its tokens, the
+    client's seconds to the first and to the last, and whether the first
+    came before the stream was complete."""
+    t0 = time.perf_counter()
+    gen = handle.options(stream=True, method_name="generate").remote(req)
+    toks, first, early = [], None, False
+    for tok in gen:
+        if first is None:
+            first = time.perf_counter() - t0
+            early = not gen.completed()
+        toks.append(tok)
+    out.update(path="handle", tokens=toks, ttft=first,
+               end=time.perf_counter() - t0, early=early)
+
+
+def stream_http(port, req, out):
+    """The same over HTTP SSE."""
+    toks, first, end, early = sse_request(port, req)
+    out.update(path="http", tokens=toks, ttft=first, end=end, early=early)
+
+
+def run_threads(jobs):
+    """Run (fn, args) jobs at once; each fills a dict of its own or
+    records its exception."""
+    import threading
+
+    outs = [{} for _ in jobs]
+
+    def guard(fn, args, out):
+        try:
+            fn(*args, out)
+        except BaseException as e:  # noqa: BLE001
+            out["error"] = f"{type(e).__name__}: {e}"
+
+    threads = [threading.Thread(target=guard, args=(fn, args, out))
+               for (fn, args), out in zip(jobs, outs)]
+    for t in threads:
+        t.start()
+    return threads, outs
+
+
+def join_all(threads, timeout: float) -> None:
+    deadline = time.monotonic() + timeout
+    for t in threads:
+        t.join(max(0.0, deadline - time.monotonic()))
+
+
+def ttft_p50_ms(outs, first_token_s, path: str, serve_share: int) -> float:
+    """Client TTFT p50 of a path; with serve_share, the p50 of each
+    request's client TTFT less its first token's time in the replica:
+    what routing and the way back add."""
+    import numpy as np
+
+    return round(float(np.median([
+        o["ttft"] - serve_share * first_token_s[o["tag"]]
+        for o in outs if o["path"] == path])) * 1e3, 3)
+
+
 def stream_vs_forward(params, cfg, prompt, gen):
     """Teacher-forced, each token of a stream against a no-cache float32
     forward over prompt + gen[:-1]: (tokens that are the forward's argmax,
@@ -1121,7 +1201,7 @@ def phase_serve(params, cfg, card: str, engine_tps: float):
     engine phase's 8 prompts at once (4 over the handle's stream, 4 over
     HTTP SSE), one plain HTTP POST and one handle call, then a rolling
     update from v1 to v2 under 4 HTTP streams, and shutdown. Returns the
-    K1 launches of the 8-request traffic."""
+    K1 launches of the 8-request traffic and its tokens/s."""
     import threading
     import urllib.request
 
@@ -1138,45 +1218,11 @@ def phase_serve(params, cfg, card: str, engine_tps: float):
     before = set(threading.enumerate())
     app = serve.deployment(LLM, num_replicas=1, version="v1")
 
-    def stream_handle(handle, req, out):
-        t0 = time.perf_counter()
-        gen = handle.options(stream=True, method_name="generate").remote(req)
-        toks, first, early = [], None, False
-        for tok in gen:
-            if first is None:
-                first = time.perf_counter() - t0
-                early = not gen.completed()
-            toks.append(tok)
-        out.update(path="handle", tokens=toks, ttft=first,
-                   end=time.perf_counter() - t0, early=early)
-
-    def stream_http(port, req, out):
-        toks, first, end, early = sse_request(port, req)
-        out.update(path="http", tokens=toks, ttft=first, end=end,
-                   early=early)
-
-    def run_threads(jobs):
-        """Run (fn, args) jobs at once; each fills a dict of its own or
-        records its exception."""
-        outs = [{} for _ in jobs]
-
-        def guard(fn, args, out):
-            try:
-                fn(*args, out)
-            except BaseException as e:  # noqa: BLE001
-                out["error"] = f"{type(e).__name__}: {e}"
-
-        threads = [threading.Thread(target=guard, args=(fn, args, out))
-                   for (fn, args), out in zip(jobs, outs)]
-        for t in threads:
-            t.start()
-        return threads, outs
-
     def complete(toks):
         eos = _SERVE_ENGINES[0].model.eos_token
         return len(toks) == new or (toks and toks[-1] == eos)
 
-    ray_tpu_torch.init()
+    ray_tpu_torch.init(local_mode=True)
     try:
         port = serve.start(serve.HTTPOptions(host="127.0.0.1", port=0))
         t0 = time.perf_counter()
@@ -1220,17 +1266,12 @@ def phase_serve(params, cfg, card: str, engine_tps: float):
               f"{cfg.n_layers} layers")
         check(all(o["early"] for o in outs), "a first token reached its "
               "client only when its stream was complete")
-        def p50_ms(path, serve_share):
-            """Client TTFT p50 of a path, or with serve_share the p50 of
-            each request's client TTFT less its first token's time in the
-            replica: what routing and the way back add."""
-            return round(float(np.median([
-                o["ttft"] - serve_share * counts["first_token_s"][i]
-                for i, o in enumerate(outs) if o["path"] == path])) * 1e3,
-                3)
-
-        ttft = {path: p50_ms(path, 0) for path in ("handle", "http")}
-        share = {path: p50_ms(path, 1) for path in ("handle", "http")}
+        for i, o in enumerate(outs):
+            o["tag"] = i
+        ttft = {path: ttft_p50_ms(outs, counts["first_token_s"], path, 0)
+                for path in ("handle", "http")}
+        share = {path: ttft_p50_ms(outs, counts["first_token_s"], path, 1)
+                 for path in ("handle", "http")}
 
         # One plain HTTP POST and one handle call (`__call__`).
         req = urllib.request.Request(
@@ -1362,7 +1403,539 @@ def phase_serve(params, cfg, card: str, engine_tps: float):
         f"{k} {v}" for k, v in mem.items()) + f" [{card}]", flush=True)
     check(is_max + ties == total, f"{total - is_max - ties} streamed tokens "
           f"through Serve differ from the forward's argmax beyond a tie")
+    return launches, tps
+
+
+# Serve on the cluster runtime: the `LLM` deployment as replica processes,
+# each leasing a quarter of the card (fractional GPU leases share a card).
+# v1's exit must free at least its float32 weights (503,354,880 x 4 B) and
+# its KV pool (604,504,064 B): what PR 9's in-process replicas kept held.
+CLUSTER_GPU_SHARE = 0.25
+CLUSTER_FREED_MIN_B = 503_354_880 * 4 + 604_504_064
+CLUSTER_REPLICAS = 3
+CLUSTER_REQUESTS = 24
+CLUSTER_DOWN_S = 10.0
+CLUSTER_CPUS = 8
+
+
+def flagship_params():
+    """chip_smoke's flagship parameters (float32, from its seed) on this
+    process's card: the driver's, and a replica process's own."""
+    import torch
+
+    from ray_tpu_torch.models import TransformerConfig, init_params
+
+    cfg = TransformerConfig(dtype=torch.bfloat16, **FLAGSHIP)
+    return init_params(cfg, torch.Generator(device="cuda").manual_seed(0)), cfg
+
+
+def param_checksum(params) -> list:
+    """[name, sum of the 32-bit words, sum of each word times its index mod
+    65521 plus 1] per leaf, in int64 on the card: equal only where the
+    bytes are (but for a vanishing chance)."""
+    import torch
+
+    out = []
+    for name, t in _flat(params):
+        w = t.detach().contiguous().view(torch.int32).reshape(-1).to(
+            torch.int64)
+        idx = torch.arange(w.numel(), device=w.device) % 65521 + 1
+        out.append([name, int(w.sum()), int((w * idx).sum())])
+        del w, idx
+    return out
+
+
+def counting_model(params, cfg):
+    """The flagship engine model, counting the prefills that start from no
+    cached prefix."""
+    from ray_tpu_torch.serve.engine import TransformerEngineModel
+
+    class Counting(TransformerEngineModel):
+        full_prefills = 0
+
+        def prefill(self, tokens, prefix_kv=None):
+            out = super().prefill(tokens, prefix_kv)
+            self.full_prefills += prefix_kv is None
+            return out
+
+    return Counting(params, cfg, params["embed"].device)
+
+
+def actor_pid(instance):
+    """`__ray_call__` body: the actor's process id."""
+    return os.getpid()
+
+
+class ClusterLLM(LLM):
+    """The `LLM` deployment in a replica process of the cluster runtime. It
+    makes the flagship parameters itself, from chip_smoke's seed, on the
+    card its GPU lease shows it (`device=None`: cuda:0 of its own
+    CUDA_VISIBLE_DEVICES), and counts K1's launches in its process."""
+
+    def __init__(self):
+        # Each step of the build, in seconds.
+        t = time.perf_counter()
+        import dataclasses
+
+        import torch
+
+        self.build_s = {"import_torch": round(time.perf_counter() - t, 3)}
+        t = time.perf_counter()
+        from ray_tpu_torch.serve.engine import EngineConfig, InferenceEngine
+
+        self.build_s["import_port"] = round(time.perf_counter() - t, 3)
+        t = time.perf_counter()
+        torch.cuda.init()
+        self.build_s["cuda_init"] = round(time.perf_counter() - t, 3)
+        t = time.perf_counter()
+        params, cfg = flagship_params()
+        torch.cuda.synchronize()
+        self.build_s["params"] = round(time.perf_counter() - t, 3)
+        t = time.perf_counter()
+        self.sum = param_checksum(params)
+        self.build_s["checksum"] = round(time.perf_counter() - t, 3)
+        t = time.perf_counter()
+        self.model = counting_model(
+            params, dataclasses.replace(cfg, dtype=torch.float32))
+        # A warm-up pass of the engine phase's prompts on an engine of
+        # its own, as the engine phase runs one: cuBLAS picks its GEMMs
+        # and the allocator grows on first use, which the timed traffic
+        # would otherwise pay in this fresh process.
+        warm = InferenceEngine(self.model, EngineConfig(**ENGINE_CONFIG))
+        warm.start()
+        try:
+            for stream in [warm.submit(p, ENGINE_NEW)
+                           for p in engine_prompts(cfg)]:
+                list(stream)
+        finally:
+            warm.stop()
+        del warm
+        self.model.full_prefills = 0
+        torch.cuda.synchronize()
+        self.build_s["warm_up"] = round(time.perf_counter() - t, 3)
+        t = time.perf_counter()
+        self.engine = InferenceEngine(self.model,
+                                      EngineConfig(**ENGINE_CONFIG))
+        self.engine.start()
+        torch.cuda.synchronize()
+        self.build_s["engine"] = round(time.perf_counter() - t, 3)
+        self.first_token_s = {}
+
+    def checksum(self):
+        return self.sum
+
+    def card(self):
+        import torch
+
+        return dict(pid=os.getpid(), build_s=self.build_s,
+                    visible=os.environ.get("CUDA_VISIBLE_DEVICES"),
+                    count=torch.cuda.device_count(),
+                    name=torch.cuda.get_device_name(0),
+                    device=str(self.model.device))
+
+    def running(self):
+        return self.engine.stats()["running"]
+
+    def eos(self):
+        return self.model.eos_token
+
+    def reset_counts(self):
+        _zero_counts()
+        return super().reset_counts()
+
+    def counts(self):
+        return dict(super().counts(), k1=_counts()[0])
+
+
+def proc_alive(pid: int) -> bool:
+    """The process runs (not gone, not a zombie awaiting its reaper)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+# Set in the environment before this run's cluster starts, so that its
+# GCS, raylet and workers inherit it: the shutdown gate counts only this
+# run's processes, not those of another cluster on the same host.
+RUN_MARKER = "RAY_TPU_SMOKE_RUN"
+
+
+def port_processes() -> list:
+    """(pid, module) of this run's `python -m ray_tpu_torch.core.*`
+    processes: those whose environment carries this run's RUN_MARKER."""
+    marker = f"{RUN_MARKER}={os.environ.get(RUN_MARKER, '')}"
+    found = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/cmdline", "rb") as f:
+                argv = [a.decode("utf-8", "replace")
+                        for a in f.read().split(b"\0") if a]
+            with open(f"/proc/{entry}/environ", "rb") as f:
+                env = f.read().decode("utf-8", "replace").split("\0")
+        except OSError:
+            continue
+        if marker not in env:
+            continue
+        for a, b in zip(argv, argv[1:]):
+            if a == "-m" and b.startswith("ray_tpu_torch.core.") and \
+                    proc_alive(int(entry)):
+                found.append((int(entry), b))
+    return found
+
+
+def phase_cluster_serve(params, cfg, card: str, engine_tps: float,
+                        inproc_tps: float):
+    """Serve on the cluster runtime: GCS, raylet and workers as processes,
+    each replica a worker process with a quarter-card GPU lease. The
+    engine phase's 8 prompts at once (4 handle streams, 4 HTTP SSE), a
+    rolling update under 4 HTTP streams with v1's card memory freed at its
+    exit, a replica's SIGKILL, the controller's SIGKILL under HTTP
+    traffic, the same 24 handle requests through 1 and 3 replicas, and
+    shutdown. Returns the K1 launches of the 8-request traffic, counted
+    in the replica."""
+    import signal
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.serve._private.controller import CONTROLLER_NAME
+
+    prompts = engine_prompts(cfg)
+    new = ENGINE_NEW
+    rng = np.random.default_rng(11)
+    many = [rng.integers(2, cfg.vocab_size, int(n)).tolist()
+            for n in rng.integers(128, 513, CLUSTER_REQUESTS)]
+    reqs = [{"prompt": p, "max_new_tokens": new, "tag": i}
+            for i, p in enumerate(prompts)]
+    want_sum = param_checksum(params)
+    eos = None
+    held = []   # (what, prompt, tokens) for the forward
+
+    def complete(toks):
+        return len(toks) == new or (toks and toks[-1] == eos)
+
+    def replica_ids():
+        return [r["id"] for r in serve.status()["LLM"]["replicas"]]
+
+    def wait(cond, what):
+        deadline = time.monotonic() + SERVE_TIMEOUT_S
+        while time.monotonic() < deadline:
+            value = cond()
+            if value:
+                return value
+            time.sleep(0.01)
+        raise PhaseError(f"timed out waiting for {what}: {serve.status()}")
+
+    def only_running(version, n=1, besides=()):
+        reps = serve.status()["LLM"]["replicas"]
+        return (len(reps) == n
+                and all(r["state"] == "RUNNING" and r["version"] == version
+                        and r["id"] not in besides for r in reps))
+
+    def streams(handle, port, rs, what):
+        threads, outs = run_threads(
+            [(stream_handle, (handle, r)) if i % 2 == 0
+             else (stream_http, (port, r)) for i, r in enumerate(rs)])
+        join_all(threads, SERVE_TIMEOUT_S)
+        errors = [o.get("error", "no answer") for o in outs
+                  if "tokens" not in o]
+        check(not errors, f"a request through Serve failed ({what}): "
+              f"{errors[:2]}")
+        check(all(complete(o["tokens"]) for o in outs),
+              f"a stream through Serve ended short ({what})")
+        for r, o in zip(rs, outs):
+            o["tag"] = r["tag"]
+            held.append((what, r["prompt"], o["tokens"]))
+        return outs
+
+    os.environ[RUN_MARKER] = f"{os.getpid()}-{time.time_ns()}"
+    ray_tpu_torch.init(num_cpus=CLUSTER_CPUS)
+    res = ray_tpu_torch.cluster_resources()
+    print(f"cluster node resources {json.dumps(res, sort_keys=True)} "
+          f"(GPU detected, not passed) [{card}]", flush=True)
+    check(res.get("GPU") == 1.0, f"the node did not detect one GPU: {res}")
+    driver_pid = os.getpid()
+    try:
+        port = serve.start(serve.HTTPOptions(host="127.0.0.1", port=0))
+        app = serve.deployment(
+            ClusterLLM, name="LLM", num_replicas=1, version="v1",
+            ray_actor_options={"num_gpus": CLUSTER_GPU_SHARE})
+        t0 = time.perf_counter()
+        handle = serve.run(app.bind(), route_prefix="/llm",
+                           _blocking_timeout_s=SERVE_READY_S)
+        deploy_s = time.perf_counter() - t0
+
+        def call(method, timeout=SERVE_TIMEOUT_S):
+            return handle.options(method_name=method).remote().result(
+                timeout_s=timeout)
+
+        info = call("card")
+        eos = call("eos")
+        check(info["pid"] != driver_pid and proc_alive(info["pid"]),
+              f"the replica is not a process of its own: {info}")
+        check(info["visible"] == "0" and info["count"] == 1
+              and info["device"] == "cuda:0",
+              f"the replica does not see its leased card: {info}")
+        got_sum = call("checksum")
+        check(got_sum == want_sum, "the replica's flagship parameters "
+              "differ from the driver's")
+        print(f"cluster replica v1: pid {info['pid']} (driver {driver_pid}), "
+              f"CUDA_VISIBLE_DEVICES={info['visible']}, {info['count']} "
+              f"card ({info['name']}), model on {info['device']}; "
+              f"parameter checksum equal to the driver's on "
+              f"{len(got_sum)} leaves; serve.run to ready {deploy_s:.3f} s, "
+              f"the replica's build s {json.dumps(info['build_s'])} "
+              f"[{card}]", flush=True)
+        # One request first: the route and the connections the streams
+        # take leave the timed traffic (the replica warmed its engine).
+        warm = np.random.default_rng(9).integers(2, cfg.vocab_size,
+                                                 128).tolist()
+        list(handle.options(stream=True, method_name="generate").remote(
+            {"prompt": warm, "max_new_tokens": 4}))
+        sse_request(port, {"prompt": warm, "max_new_tokens": 4})
+        call("reset_counts")
+
+        _zero_counts()
+        t0 = time.perf_counter()
+        outs = streams(handle, port, reqs, "8 at once")
+        wall = time.perf_counter() - t0
+        check(_counts()[0] == 0, "the driver launched K1 in the cluster "
+              "phase (the replica process holds the model)")
+        counts = call("counts")
+        launches = counts["k1"]
+        n_tokens = sum(len(o["tokens"]) for o in outs)
+        check(launches > 0
+              and launches == cfg.n_layers * counts["full_prefills"],
+              f"the replica launched K1 {launches} times for "
+              f"{counts['full_prefills']} no-prefix prefills of "
+              f"{cfg.n_layers} layers")
+        check(all(o["early"] for o in outs), "a first token reached its "
+              "client only when its stream was complete")
+        ttft = {path: ttft_p50_ms(outs, counts["first_token_s"], path, 0)
+                for path in ("handle", "http")}
+        share = {path: ttft_p50_ms(outs, counts["first_token_s"], path, 1)
+                 for path in ("handle", "http")}
+        tps = n_tokens / wall
+
+        # The rolling update v1 -> v2 under 4 HTTP streams; v1's exit
+        # must give its card memory back.
+        v1 = replica_ids()
+        v1_pid = info["pid"]
+        roll_threads, roll_outs = run_threads(
+            [(stream_http, (port, reqs[4 + i]))
+             for i in range(SERVE_ROLL_STREAMS)])
+        wait(lambda: call("running") >= SERVE_ROLL_STREAMS,
+             "the update's streams to start")
+        samples = []   # (free bytes, v1 alive)
+        sampling = threading.Event()
+
+        def sample():
+            while not sampling.is_set():
+                alive = proc_alive(v1_pid)
+                samples.append((torch.cuda.mem_get_info()[0], alive))
+                time.sleep(0.002)
+
+        sampler = threading.Thread(target=sample, daemon=True)
+        sampler.start()
+        t0 = time.perf_counter()
+        serve.run(app.options(version="v2").bind(), route_prefix="/llm",
+                  _blocking_timeout_s=SERVE_READY_S)
+        wait(lambda: only_running("v2", besides=v1)
+             and not proc_alive(v1_pid), "v2 alone with v1's process gone")
+        roll_s = time.perf_counter() - t0
+        time.sleep(1.0)
+        sampling.set()
+        sampler.join()
+        join_all(roll_threads, SERVE_TIMEOUT_S)
+        errors = [o.get("error", "no answer") for o in roll_outs
+                  if "tokens" not in o]
+        check(not errors and all(complete(o["tokens"]) for o in roll_outs),
+              f"a stream failed during the rolling update: {errors[:2]}")
+        for i, o in enumerate(roll_outs):
+            held.append(("update", reqs[4 + i]["prompt"], o["tokens"]))
+        # Free card memory at its lowest while v1's process lived (v2
+        # built beside it) against its highest in the second after v1's
+        # exit.
+        alive = [free for free, up in samples if up]
+        after = [free for free, up in samples if not up]
+        check(alive and after, "no memory sample on both sides of v1's exit")
+        freed = max(after) - min(alive)
+        check(freed >= CLUSTER_FREED_MIN_B, f"v1's exit freed {freed} B of "
+              f"the card, under {CLUSTER_FREED_MIN_B} B (its weights and "
+              f"pool)")
+
+        # A replica's SIGKILL: the controller replaces it.
+        v2 = replica_ids()
+        v2_pid = call("card")["pid"]
+        os.kill(v2_pid, signal.SIGKILL)
+        t0 = time.perf_counter()
+        wait(lambda: only_running("v2", besides=v2), "the replacement")
+        replace_s = time.perf_counter() - t0
+        check(call("checksum") == want_sum, "the replacement's parameters "
+              "differ from the driver's")
+        streams(handle, port, [dict(r, tag=100 + r["tag"])
+                               for r in reqs[:4]], "after the replica kill")
+
+        # The controller's SIGKILL under HTTP traffic.
+        controller = ray_tpu_torch.get_actor(CONTROLLER_NAME)
+        stop = threading.Event()
+        tally = {"ok": 0, "failed": 0, "errors": []}
+
+        def hammer():
+            body = json.dumps({"prompt": reqs[0]["prompt"][:64],
+                               "max_new_tokens": 4}).encode()
+            while not stop.is_set():
+                try:
+                    req = urllib.request.Request(
+                        f"http://127.0.0.1:{port}/llm", data=body,
+                        headers={"Content-Type": "application/json"})
+                    with urllib.request.urlopen(req, timeout=60) as resp:
+                        toks = json.loads(resp.read())
+                    assert len(toks) == 4, toks
+                    tally["ok"] += 1
+                except Exception as e:  # noqa: BLE001
+                    tally["failed"] += 1
+                    tally["errors"].append(repr(e)[:200])
+
+        hammers = [threading.Thread(target=hammer, daemon=True)
+                   for _ in range(2)]
+        for t in hammers:
+            t.start()
+        time.sleep(1.0)
+        ctl_pid = ray_tpu_torch.get(
+            controller.__ray_call__.remote(actor_pid), timeout=60)
+        os.kill(ctl_pid, signal.SIGKILL)
+        t0 = time.perf_counter()
+
+        def recovered():
+            try:
+                st = ray_tpu_torch.get(controller.status.remote(), timeout=5)
+            except Exception:  # noqa: BLE001
+                return False
+            return any(r["state"] == "RUNNING"
+                       for r in st.get("LLM", {}).get("replicas", []))
+
+        wait(recovered, "the controller's recovery")
+        recover_s = time.perf_counter() - t0
+        new_ctl = ray_tpu_torch.get(
+            controller.__ray_call__.remote(actor_pid), timeout=60)
+        time.sleep(1.0)
+        stop.set()
+        join_all(hammers, SERVE_TIMEOUT_S)
+        check(tally["failed"] == 0 and tally["ok"] > 0,
+              f"requests failed through the controller's SIGKILL: {tally}")
+        check(new_ctl != ctl_pid, "the controller did not restart")
+
+        # The same 24 handle requests through 1 replica, then 3.
+        def through(n_replicas):
+            rs = [{"prompt": p, "max_new_tokens": new, "tag": 200 + i}
+                  for i, p in enumerate(many)]
+            t0 = time.perf_counter()
+            threads, outs = run_threads([(stream_handle, (handle, r))
+                                         for r in rs])
+            join_all(threads, SERVE_TIMEOUT_S)
+            dt = time.perf_counter() - t0
+            errors = [o.get("error", "no answer") for o in outs
+                      if "tokens" not in o]
+            check(not errors and all(complete(o["tokens"]) for o in outs),
+                  f"a request failed through {n_replicas} replicas: "
+                  f"{errors[:2]}")
+            for r, o in zip(rs, outs):
+                held.append((f"{n_replicas} replicas", r["prompt"],
+                             o["tokens"]))
+            return sum(len(o["tokens"]) for o in outs) / dt
+
+        one_tps = through(1)
+        before3 = replica_ids()
+        t0 = time.perf_counter()
+        serve.run(app.options(version="v3", num_replicas=CLUSTER_REPLICAS)
+                  .bind(), route_prefix="/llm",
+                  _blocking_timeout_s=SERVE_READY_S)
+        wait(lambda: only_running("v3", CLUSTER_REPLICAS, before3),
+             "three v3 replicas")
+        scale_s = time.perf_counter() - t0
+        pids = {call("card")["pid"] for _ in range(24)}
+        check(len(pids) == CLUSTER_REPLICAS and driver_pid not in pids,
+              f"{len(pids)} replica processes answered, not "
+              f"{CLUSTER_REPLICAS}")
+        three_tps = through(CLUSTER_REPLICAS)
+    finally:
+        t0 = time.perf_counter()
+        try:
+            serve.shutdown()
+        finally:
+            ray_tpu_torch.shutdown()
+        deadline = time.monotonic() + CLUSTER_DOWN_S
+        left = port_processes()
+        while left and time.monotonic() < deadline:
+            time.sleep(0.05)
+            left = port_processes()
+        down_s = time.perf_counter() - t0
+    check(not left, f"port processes outlived shutdown by "
+          f"{CLUSTER_DOWN_S} s: {left}")
+
+    is_max = ties = total = 0
+    for _, prompt, toks in held:
+        a, t = stream_vs_forward(params, cfg, prompt, toks)
+        is_max += a
+        ties += t
+        total += len(toks)
+    print(f"cluster serve flagship f32 paged, 1 replica process "
+          f"({CLUSTER_GPU_SHARE} GPU): 8 requests at once (4 handle streams, "
+          f"4 HTTP SSE), {n_tokens} tokens in {wall:.3f} s, tokens_per_s "
+          f"{tps:.2f} (engine phase {engine_tps:.2f}, cluster/engine "
+          f"{tps / engine_tps:.3f}; in-process serve {inproc_tps:.2f}, "
+          f"cluster/in-process {tps / inproc_tps:.3f}), client ttft_p50_ms "
+          f"handle {ttft['handle']} http {ttft['http']}, engine stats "
+          f"ttft_p50_ms {counts['ttft_p50_ms']}, Serve's share of a "
+          f"request's TTFT (client less first token in the replica) p50_ms "
+          f"handle {share['handle']} http {share['http']}, K1 launches "
+          f"{launches} in the replica ({counts['full_prefills']} no-prefix "
+          f"prefills x {cfg.n_layers} layers), prefill_s "
+          f"{counts['prefill_s']} decode_s {counts['decode_s']} "
+          f"({counts['steps']} steps) [{card}]", flush=True)
+    print(f"cluster serve rolling update v1 -> v2: {SERVE_ROLL_STREAMS} HTTP "
+          f"streams in flight, 0 failed, {roll_s:.3f} s from serve.run(v2) "
+          f"to v2 alone with v1's process gone; card memory freed at v1's "
+          f"exit {freed} B (gate {CLUSTER_FREED_MIN_B}) [{card}]",
+          flush=True)
+    print(f"cluster serve faults: replica SIGKILL -> replacement RUNNING in "
+          f"{replace_s:.3f} s, its checksum equal, 4 streams after it "
+          f"held; controller SIGKILL under HTTP traffic: {tally['ok']} "
+          f"requests ok, {tally['failed']} failed, recovered in "
+          f"{recover_s:.3f} s (pid {ctl_pid} -> {new_ctl}) [{card}]",
+          flush=True)
+    print(f"cluster serve replicas: the same {CLUSTER_REQUESTS} handle "
+          f"requests through 1 replica {one_tps:.2f} tokens_per_s, through "
+          f"{CLUSTER_REPLICAS} ({CLUSTER_GPU_SHARE} GPU each, one card) "
+          f"{three_tps:.2f}, ratio {three_tps / one_tps:.3f}; scale-up to "
+          f"{CLUSTER_REPLICAS} v3 replicas {scale_s:.3f} s; shutdown "
+          f"{down_s:.3f} s, port processes left {len(left)} [{card}]",
+          flush=True)
+    print(f"cluster serve vs no-cache forward: {len(held)} streams, "
+          f"{is_max}/{total} tokens the forward's argmax, {ties} more tie "
+          f"it within {ENGINE_LOGIT_ATOL:g} [{card}]", flush=True)
+    check(is_max + ties == total, f"{total - is_max - ties} streamed tokens "
+          f"through the cluster's Serve differ from the forward's argmax "
+          f"beyond a tie")
     return launches
+
+
+def phase_microbench(card: str):
+    """`python -m ray_tpu_torch.perf --microbench`: the runtime on this
+    machine's host (tasks/s, actor calls/s, put/get 10 MB), cluster."""
+    from ray_tpu_torch.perf import run_microbench
+
+    out = run_microbench(scale=0.5)
+    print(f"perf microbench {json.dumps(out)} [{card}]", flush=True)
 
 
 def phase_perf_twins(card: str):
@@ -2621,9 +3194,7 @@ def main() -> int:
 
         rows = phase_kernels(card, power_w)
 
-        cfg = TransformerConfig(dtype=torch.bfloat16, **FLAGSHIP)
-        gen = torch.Generator(device="cuda").manual_seed(0)
-        params = init_params(cfg, gen)
+        params, cfg = flagship_params()
         phase_forward(params, cfg, card)
         launches, engine_tps = phase_engine(
             params, replace(cfg, dtype=torch.float32), card)
@@ -2631,9 +3202,14 @@ def main() -> int:
                                      replace(cfg, dtype=torch.float32), card)
         gc.collect()             # the fleets' pools
         torch.cuda.empty_cache()
-        serve_launches = phase_serve(params,
-                                     replace(cfg, dtype=torch.float32), card,
-                                     engine_tps)
+        serve_launches, serve_tps = phase_serve(
+            params, replace(cfg, dtype=torch.float32), card, engine_tps)
+        gc.collect()
+        torch.cuda.empty_cache()
+        cluster_launches = phase_cluster_serve(
+            params, replace(cfg, dtype=torch.float32), card, engine_tps,
+            serve_tps)
+        phase_microbench(card)
         phase_perf_twins(card)
         bwd_rows = phase_bwd_kernels(card, power_w)
         train_cfg = replace(cfg, remat=True, remat_policy="save_attn_qkv")
@@ -2709,6 +3285,8 @@ def main() -> int:
         fleet_launches=sum(fleet_launches.values()),
         fleet_launches_by_part=fleet_launches,
         serve_launches=serve_launches,
+        cluster_serve_launches=cluster_launches,
+        cluster_serve_launches_in="the replica process",
         train_launches=train_launches[0],
         moe_train_launches=moe_launches[0],
         moe_f32_grad_launches=moe_f32_launches[0],

@@ -11,8 +11,12 @@ Entry points run on `cuda:0` unless the caller passes a device (the tests
 pass `device="cpu"`); see `device.resolve_device`.
 
 The core API (`init`, `remote`, `get`, `put`, `wait`, `kill`, `get_actor`,
-`shutdown`, ...) runs on the in-process runtime, the one runtime of the
-port so far; `ray_tpu_torch.serve` stands on it.
+`shutdown`, ...) runs on the cluster runtime (`init()`: GCS, raylet and
+workers as processes) or the in-process one (`init(local_mode=True)`);
+`ray_tpu_torch.serve` stands on either.
+
+Importing the package does not import torch: `resolve_device` loads on
+first use, so the GCS, raylet and worker processes start without it.
 """
 
 from ray_tpu_torch.core.actor import method
@@ -22,8 +26,17 @@ from ray_tpu_torch.core.worker import (available_resources, cancel,
                                        cluster_resources, get, get_actor,
                                        init, is_initialized, kill, nodes, put,
                                        shutdown, timeline, wait)
-from ray_tpu_torch.device import resolve_device
 from ray_tpu_torch.runtime_context import get_runtime_context
+
+
+
+def __getattr__(name):
+    if name == "resolve_device":
+        from ray_tpu_torch.device import resolve_device
+
+        return resolve_device
+    raise AttributeError(f"module 'ray_tpu_torch' has no attribute {name!r}")
+
 
 __all__ = [
     "ObjectRef", "available_resources", "cancel", "cluster_resources", "get",

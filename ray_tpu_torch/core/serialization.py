@@ -25,19 +25,25 @@ A fast frame is a 1-byte tag and a payload:
 Any other value raises `TypeError` on the fast path: there is no pickle
 fallback there, and a frame with another tag raises `ValueError`.
 
-The port carries no msgpack: this module writes and reads the subset it
-needs (nil, bool, ints, str, arrays, maps) itself, each at msgpack's
-narrowest width, so either side decodes the other's bytes.
+The port carries no msgpack: `core/codec.py` writes and reads msgpack's
+bytes, so either side decodes the other's. Nor cloudpickle: a function or
+class inside a value pickles by reference (`core/function_manager.py`),
+and a lambda or closure raises a `TypeError` that names it.
 """
 
 from __future__ import annotations
 
+import io
 import pickle
 import struct
+import sys
+import types
 from dataclasses import dataclass
-from typing import Any, List, Optional, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 import numpy as np
+
+from ray_tpu_torch.core.codec import packb, unpackb
 
 __all__ = ["SerializedObject", "serialize", "serialize_error", "deserialize",
            "serialize_fast", "deserialize_fast"]
@@ -45,136 +51,9 @@ __all__ = ["SerializedObject", "serialize", "serialize_error", "deserialize",
 _HEADER = struct.Struct("<I")
 
 
-def _pack_str(s: str) -> bytes:
-    b = s.encode()
-    n = len(b)
-    if n < 32:
-        return bytes([0xA0 | n]) + b
-    if n < 1 << 8:
-        return b"\xd9" + bytes([n]) + b
-    if n < 1 << 16:
-        return b"\xda" + struct.pack(">H", n) + b
-    return b"\xdb" + struct.pack(">I", n) + b
-
-
-def _pack_uint(v: int) -> bytes:
-    if v < 0:
-        raise ValueError(f"negative shape entry {v}")
-    if v < 1 << 7:
-        return bytes([v])
-    if v < 1 << 8:
-        return b"\xcc" + bytes([v])
-    if v < 1 << 16:
-        return b"\xcd" + struct.pack(">H", v)
-    if v < 1 << 32:
-        return b"\xce" + struct.pack(">I", v)
-    return b"\xcf" + struct.pack(">Q", v)
-
-
-def _pack_array_len(n: int) -> bytes:
-    if n < 16:
-        return bytes([0x90 | n])
-    if n < 1 << 16:
-        return b"\xdc" + struct.pack(">H", n)
-    return b"\xdd" + struct.pack(">I", n)
-
-
-def _pack_int(v: int) -> bytes:
-    if v >= 0:
-        return _pack_uint(v)
-    if v >= -32:
-        return struct.pack(">b", v)
-    for code, fmt in ((0xD0, ">b"), (0xD1, ">h"), (0xD2, ">i"),
-                      (0xD3, ">q")):
-        try:
-            return bytes([code]) + struct.pack(fmt, v)
-        except struct.error:
-            continue
-    raise OverflowError(f"{v} does not fit msgpack's int64")
-
-
-def _pack_map_len(n: int) -> bytes:
-    if n < 16:
-        return bytes([0x80 | n])
-    if n < 1 << 16:
-        return b"\xde" + struct.pack(">H", n)
-    return b"\xdf" + struct.pack(">I", n)
-
-
-def _pack(value: Any) -> bytes:
-    """msgpack's bytes for the subset the metadata uses."""
-    if value is None:
-        return b"\xc0"
-    if value is True:
-        return b"\xc3"
-    if value is False:
-        return b"\xc2"
-    if isinstance(value, int):
-        return _pack_int(value)
-    if isinstance(value, str):
-        return _pack_str(value)
-    if isinstance(value, (list, tuple)):
-        return _pack_array_len(len(value)) + b"".join(map(_pack, value))
-    if isinstance(value, dict):
-        return _pack_map_len(len(value)) + b"".join(
-            _pack(k) + _pack(v) for k, v in value.items())
-    raise TypeError(f"no msgpack form here for {type(value).__name__}")
-
-
 def _array_header(dtype: str, shape) -> bytes:
     """msgpack's bytes for {"d": dtype, "s": [shape...]}."""
-    return (b"\x82" + _pack_str("d") + _pack_str(dtype) + _pack_str("s")
-            + _pack_array_len(len(shape))
-            + b"".join(_pack_uint(int(n)) for n in shape))
-
-
-class _Reader:
-    """Reads the msgpack subset `_pack` writes."""
-
-    def __init__(self, data: bytes):
-        self.data = data
-        self.pos = 0
-
-    def _take(self, n: int) -> bytes:
-        if self.pos + n > len(self.data):
-            raise ValueError("truncated array header")
-        out = self.data[self.pos:self.pos + n]
-        self.pos += n
-        return out
-
-    def _uint_of(self, fmt: str) -> int:
-        size = struct.calcsize(fmt)
-        return struct.unpack(fmt, self._take(size))[0]
-
-    def value(self) -> Any:
-        b = self._take(1)[0]
-        if b < 0x80:
-            return b
-        if b >= 0xE0:
-            return b - 0x100
-        if b in (0xC0, 0xC2, 0xC3):
-            return {0xC0: None, 0xC2: False, 0xC3: True}[b]
-        if 0xA0 <= b <= 0xBF:
-            return self._take(b & 0x1F).decode()
-        if 0x90 <= b <= 0x9F:
-            return [self.value() for _ in range(b & 0x0F)]
-        if 0x80 <= b <= 0x8F:
-            return {self.value(): self.value() for _ in range(b & 0x0F)}
-        fixed = {0xCC: ">B", 0xCD: ">H", 0xCE: ">I", 0xCF: ">Q",
-                 0xD0: ">b", 0xD1: ">h", 0xD2: ">i", 0xD3: ">q"}
-        if b in fixed:
-            return self._uint_of(fixed[b])
-        strs = {0xD9: ">B", 0xDA: ">H", 0xDB: ">I"}
-        if b in strs:
-            return self._take(self._uint_of(strs[b])).decode()
-        arrays = {0xDC: ">H", 0xDD: ">I"}
-        if b in arrays:
-            return [self.value() for _ in range(self._uint_of(arrays[b]))]
-        maps = {0xDE: ">H", 0xDF: ">I"}
-        if b in maps:
-            return {self.value(): self.value()
-                    for _ in range(self._uint_of(maps[b]))}
-        raise ValueError(f"unsupported msgpack byte 0x{b:02x} in a header")
+    return packb({"d": dtype, "s": [int(n) for n in shape]})
 
 
 def serialize_fast(value: Any) -> bytes:
@@ -199,7 +78,7 @@ def serialize_fast(value: Any) -> bytes:
 
 
 def _decode_header(head: bytes) -> Tuple[np.dtype, List[int]]:
-    meta = _Reader(head).value()
+    meta = unpackb(head)
     if not isinstance(meta, dict) or set(meta) != {"d", "s"}:
         raise ValueError(f"bad array header {meta!r}")
     return np.dtype(meta["d"]), list(meta["s"])
@@ -236,18 +115,30 @@ class SerializedObject:
     is_error: bool = False
     nd: Optional[dict] = None   # array-native: {"d": dtype_str, "s": shape}
 
+    def total_size(self) -> int:
+        return (_HEADER.size + len(self._metadata()) + len(self.payload)
+                + sum(b.nbytes for b in self.buffers))
+
     def _metadata(self) -> bytes:
         meta = {"nbuf": len(self.buffers),
                 "buf_lens": [b.nbytes for b in self.buffers],
                 "payload_len": len(self.payload), "err": self.is_error}
         if self.nd is not None:
             meta["nd"] = self.nd
-        return _pack(meta)
+        return packb(meta)
 
     def to_bytes(self) -> bytes:
+        return b"".join(self.chunks())
+
+    def write_into(self, buf) -> None:
+        """Append the wire format to `buf`."""
+        for chunk in self.chunks():
+            buf += chunk
+
+    def chunks(self) -> List:
+        """The wire format as a chunk list (for scatter-gather writes)."""
         meta = self._metadata()
-        return b"".join([_HEADER.pack(len(meta)), meta, self.payload,
-                         *self.buffers])
+        return [_HEADER.pack(len(meta)) + meta, self.payload, *self.buffers]
 
 
 def is_plain_ndarray(value: Any) -> bool:
@@ -266,9 +157,49 @@ def serialize_array(value: np.ndarray) -> SerializedObject:
         nd={"d": value.dtype.str, "s": list(value.shape)})
 
 
-def serialize(value: Any) -> SerializedObject:
+class _Pickler(pickle.Pickler):
+    """Protocol 5; functions and classes by reference (see
+    `function_manager.reduce_by_reference`)."""
+
+    def reducer_override(self, obj):
+        if isinstance(obj, (types.FunctionType, type)):
+            from ray_tpu_torch.core.function_manager import (
+                reduce_by_reference)
+
+            return reduce_by_reference(obj)
+        return NotImplemented
+
+
+class _Unpickler(pickle.Unpickler):
+    """Maps `__main__` onto the driver's main file where a worker loaded
+    it (`function_manager.load_main`)."""
+
+    def find_class(self, module, name):
+        if module == "__main__":
+            from ray_tpu_torch.core.function_manager import MAIN_ALIAS
+
+            if MAIN_ALIAS in sys.modules:
+                module = MAIN_ALIAS
+        return super().find_class(module, name)
+
+
+def dumps(value: Any, buffer_callback=None) -> bytes:
+    """Pickle `value` as the object path does."""
+    f = io.BytesIO()
+    _Pickler(f, protocol=5, buffer_callback=buffer_callback).dump(value)
+    return f.getvalue()
+
+
+def loads(data, buffers=None) -> Any:
+    return _Unpickler(io.BytesIO(data), buffers=buffers).load()
+
+
+def serialize(value: Any, *,
+              ref_serializer: Optional[Callable[[Any], None]] = None
+              ) -> SerializedObject:
     """Serialize `value`; contiguous buffers of 4 KiB or more go out of
-    band."""
+    band. `ref_serializer` sees every ObjectRef inside the value (the
+    owner's borrowing protocol)."""
     if is_plain_ndarray(value):
         return serialize_array(value)
     buffers: List[pickle.PickleBuffer] = []
@@ -280,7 +211,10 @@ def serialize(value: Any) -> SerializedObject:
             return False  # out of band
         return True
 
-    payload = pickle.dumps(value, protocol=5, buffer_callback=buffer_callback)
+    from ray_tpu_torch.core.object_ref import _serialization_context
+
+    with _serialization_context(ref_serializer):
+        payload = dumps(value, buffer_callback=buffer_callback)
     return SerializedObject(payload=payload,
                             buffers=[pb.raw() for pb in buffers])
 
@@ -296,16 +230,23 @@ def serialize_error(exc: BaseException) -> SerializedObject:
     return so
 
 
-def deserialize(data) -> Any:
+def deserialize(data, *,
+                ref_deserializer: Optional[Callable[[Any], None]] = None,
+                raise_errors: bool = True) -> Any:
     """Deserialize from a bytes-like; an error object raises (a
-    RayTaskError as an instance of its cause's type)."""
+    RayTaskError as an instance of its cause's type) unless
+    `raise_errors` is false."""
     view = memoryview(data)
     (meta_len,) = _HEADER.unpack_from(view, 0)
     off = _HEADER.size
-    meta = _Reader(bytes(view[off:off + meta_len])).value()
+    meta = unpackb(view[off:off + meta_len])
     off += meta_len
     nd = meta.get("nd")
     if nd is not None:
+        from ray_tpu_torch.core import attribution
+
+        if attribution.enabled:
+            attribution.count("get.nd_view")
         blen = meta["buf_lens"][0] if meta["buf_lens"] else 0
         arr = np.frombuffer(view[off:off + blen], dtype=np.dtype(nd["d"]))
         arr = arr.reshape(nd["s"])
@@ -321,8 +262,11 @@ def deserialize(data) -> Any:
         buffers.append(view[off:off + blen])
         off += blen
 
-    value = pickle.loads(payload, buffers=buffers)
-    if meta.get("err"):
+    from ray_tpu_torch.core.object_ref import _serialization_context
+
+    with _serialization_context(ref_deserializer):
+        value = loads(payload, buffers=buffers)
+    if meta.get("err") and raise_errors:
         from ray_tpu_torch.exceptions import RayTaskError
 
         if isinstance(value, RayTaskError):

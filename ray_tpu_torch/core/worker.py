@@ -1,11 +1,11 @@
-"""Global driver state and the public module-level API, the port of
+"""Global driver/worker state and the public module-level API, the port of
 `ray_tpu/core/worker.py`.
 
-The port has one runtime, the in-process one (`core/local_mode.py`):
-`init()` starts it, whatever `local_mode` says, and `init(address=...)`
-raises, since joining a cluster comes with the slice that ports the
-cluster runtime. The first API call without `init()` starts it, as the
-reference's implicit init does.
+`init()` starts (or, with `address=`, joins) the cluster runtime
+(`core/cluster_runtime.py`): a GCS and a raylet as processes, workers as
+processes. `init(local_mode=True)` starts the in-process runtime
+(`core/local_mode.py`). The first API call without `init()` starts a
+cluster, as the reference's implicit init does.
 """
 
 from __future__ import annotations
@@ -40,37 +40,88 @@ def is_initialized() -> bool:
     return _runtime is not None
 
 
+def _runtime_is_alive(rt) -> bool:
+    """Probe a cached runtime before ignore_reinit_error reuses it (two
+    attempts: a loaded GCS may miss one short probe)."""
+    if getattr(rt, "_shutdown", False):
+        return False
+    check = getattr(rt, "check_alive", None)
+    if check is None:
+        return True
+    for attempt in range(2):
+        try:
+            if check():
+                return True
+        except Exception:
+            pass
+        if attempt == 0:
+            import time
+
+            time.sleep(1.0)
+    return False
+
+
 def init(address: Optional[str] = None, *,
          num_cpus: Optional[int] = None,
-         local_mode: bool = True,
+         num_gpus: Optional[int] = None,
+         resources: Optional[dict] = None,
+         local_mode: bool = False,
          namespace: Optional[str] = None,
+         object_store_memory: Optional[int] = None,
          ignore_reinit_error: bool = False,
+         log_to_driver: bool = True,
          _system_config: Optional[dict] = None,
          **kwargs: Any):
-    """Start the in-process runtime and return it."""
+    """Start or join a cluster (or, with `local_mode=True`, start the
+    in-process runtime) and return the runtime."""
     global _runtime
     with _global_lock:
         if _runtime is not None:
             if ignore_reinit_error:
-                return _runtime
-            raise RuntimeError(
-                "ray_tpu_torch.init() was already called. Pass "
-                "ignore_reinit_error=True to ignore.")
-        if address is not None:
-            raise NotImplementedError(
-                "the port has only the in-process runtime; connecting to "
-                f"{address!r} comes with the slice that ports the cluster "
-                "runtime (core/cluster_runtime.py)")
+                if _runtime_is_alive(_runtime):
+                    return _runtime
+                # A dead cached runtime would hand out stale state from a
+                # torn-down cluster: replace it.
+                try:
+                    _runtime.shutdown()
+                except Exception:
+                    pass
+                _runtime = None
+            elif getattr(_runtime, "mode", None) == "worker":
+                raise RuntimeError(
+                    "ray_tpu_torch.init() ran inside a worker process: a "
+                    "worker loads the driver's main file as a module to "
+                    "import its functions and classes, so put the "
+                    "script's top-level work under "
+                    "`if __name__ == \"__main__\":`")
+            else:
+                raise RuntimeError(
+                    "ray_tpu_torch.init() was already called. Pass "
+                    "ignore_reinit_error=True to ignore.")
         from ray_tpu_torch.core.config import ray_config
 
         ray_config().apply_system_config(_system_config)
         if not ray_config().flight_recorder:
+            # Raylets and workers read the flag from the inherited env.
             from ray_tpu_torch.core import flight
 
             flight.disable()
-        from ray_tpu_torch.core.local_mode import LocalModeRuntime
+        if address and address.startswith("ray://"):
+            raise NotImplementedError(
+                "the ray:// client comes with a later slice of the port")
+        if local_mode:
+            from ray_tpu_torch.core.local_mode import LocalModeRuntime
 
-        _runtime = LocalModeRuntime(num_cpus=num_cpus, namespace=namespace)
+            _runtime = LocalModeRuntime(num_cpus=num_cpus,
+                                        namespace=namespace)
+        else:
+            from ray_tpu_torch.core.cluster_runtime import ClusterRuntime
+
+            _runtime = ClusterRuntime.connect_or_start(
+                address=address, num_cpus=num_cpus, num_gpus=num_gpus,
+                resources=resources, namespace=namespace,
+                object_store_memory=object_store_memory,
+                log_to_driver=log_to_driver)
         return _runtime
 
 

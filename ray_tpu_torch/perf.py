@@ -1,7 +1,15 @@
-"""Serving benchmarks, the twins of `ray_tpu/perf.py`'s serving half:
+"""Benchmarks, the twins of `ray_tpu/perf.py`'s runtime microbenchmark and
+serving half:
 
+    python -m ray_tpu_torch.perf --microbench [--local] [--scale S]
     python -m ray_tpu_torch.perf --llm-serve [--scale S] [--device D]
     python -m ray_tpu_torch.perf --fleet [--scale S]
+
+`run_microbench` measures the runtime on the host: tasks/s, actor
+calls/s, put/get of 10 MB, on the cluster runtime (worker processes) or,
+with `--local`, the in-process one. Its keys are the reference's; the
+DAG and compiled-graph keys are null, since `dag` and `cgraph` come with
+a later slice.
 
 `run_llm_serve_bench` drives one `InferenceEngine`: continuous vs static
 batching, 2x overload behind the ingress's admission gate, prefix
@@ -18,14 +26,128 @@ from __future__ import annotations
 
 import json
 import time
-from typing import Any, Dict
+from typing import TYPE_CHECKING, Any, Dict, List
 
-from ray_tpu_torch.device import DeviceLike, resolve_device
+if TYPE_CHECKING:
+    from ray_tpu_torch.device import DeviceLike
+
+
+def _noop():
+    return None
+
+
+def _p50(samples: List[float]) -> float:
+    s = sorted(samples) or [float("nan")]
+    return s[len(s) // 2]
+
+
+def _p95(samples: List[float]) -> float:
+    s = sorted(samples) or [float("nan")]
+    return s[min(len(s) - 1, int(len(s) * 0.95))]
+
+
+class _Counter:
+    def __init__(self):
+        self.n = 0
+
+    def inc(self):
+        self.n += 1
+        return self.n
+
+
+# The reference's keys that its DAG and compiled-graph sections fill; the
+# port reports them null until those come.
+_LATER_KEYS = ("dag_chain_calls_per_s", "dag_chain_call_ms",
+               "cgraph_calls_per_s", "cgraph_call_ms", "cgraph_vs_dag_speedup",
+               "array_chan_MBps")
+
+
+def run_microbench(local_mode: bool = False,
+                   scale: float = 1.0) -> Dict[str, Any]:
+    """{metric: value}: throughputs in ops/s, latencies in ms, the
+    reference's keys (`ray_tpu/perf.py` run_microbench). Starts its own
+    runtime (and shuts it down), on the cluster with up to 4 CPUs."""
+    import os
+
+    import numpy as np
+
+    import ray_tpu_torch
+
+    ncpu = min(4, max(2, os.cpu_count() or 1))
+    ray_tpu_torch.init(local_mode=local_mode,
+                       **({} if local_mode else {"num_cpus": ncpu}))
+    try:
+        # The default handle may dispatch inline (the cluster's
+        # same-process fast path); the `_metadata` one keeps measuring
+        # leased-worker dispatch.
+        noop = ray_tpu_torch.remote(_noop)
+        noop_remote = ray_tpu_torch.remote(_metadata={"inline": False})(
+            _noop)
+        get = ray_tpu_torch.get
+        out: Dict[str, Any] = {"mode": "local" if local_mode else "cluster"}
+        get([noop_remote.remote() for _ in range(10)], timeout=120)
+
+        def burst(fn, n):
+            best = 0.0
+            for _ in range(2):
+                t0 = time.perf_counter()
+                get([fn.remote() for _ in range(n)], timeout=300)
+                best = max(best, n / (time.perf_counter() - t0))
+            return round(best, 1)
+
+        n = max(1, int(1000 * scale))
+        out["tasks_per_s"] = burst(noop_remote, n)
+        out["tasks_inline_per_s"] = burst(noop, n)
+        lat = []
+        for _ in range(max(1, int(50 * scale))):
+            t0 = time.perf_counter()
+            get(noop_remote.remote(), timeout=60)
+            lat.append(time.perf_counter() - t0)
+        out["task_roundtrip_p50_ms"] = round(_p50(lat) * 1e3, 3)
+
+        counter = ray_tpu_torch.remote(num_cpus=0)(_Counter).remote()
+        get(counter.inc.remote(), timeout=120)
+        lat = []
+        for _ in range(max(1, int(50 * scale))):
+            t0 = time.perf_counter()
+            get(counter.inc.remote(), timeout=60)
+            lat.append(time.perf_counter() - t0)
+        out["actor_call_p50_ms"] = round(_p50(lat) * 1e3, 3)
+        n = max(1, int(500 * scale))
+        t0 = time.perf_counter()
+        get([counter.inc.remote() for _ in range(n)], timeout=300)
+        out["actor_calls_per_s"] = round(n / (time.perf_counter() - t0), 1)
+
+        arr = np.zeros(10 * 1024 * 1024 // 4, np.float32)
+        puts, gets = [], []
+        for _ in range(8):
+            t0 = time.perf_counter()
+            ref = ray_tpu_torch.put(arr)
+            puts.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            get(ref, timeout=60)
+            gets.append(time.perf_counter() - t0)
+            del ref
+            time.sleep(0.1)
+        out["put_10mb_ms"] = round(_p50(puts) * 1e3, 2)
+        out["get_10mb_ms"] = round(_p50(gets) * 1e3, 2)
+        out["put_10mb_p95_ms"] = round(_p95(puts) * 1e3, 2)
+        out["get_10mb_p95_ms"] = round(_p95(gets) * 1e3, 2)
+        mb = arr.nbytes / 1e6
+        out["put_bw_MBps"] = round(mb / max(_p50(puts), 1e-9), 1)
+        out["get_bw_MBps"] = round(mb / max(_p50(gets), 1e-9), 1)
+        out.update(dict.fromkeys(_LATER_KEYS))
+        ray_tpu_torch.kill(counter)
+    finally:
+        ray_tpu_torch.shutdown()
+    return out
 
 _PAGED_BENCH_MODELS: Dict[Any, Any] = {}
 
 
 def _paged_bench_model(device: DeviceLike = None):
+    from ray_tpu_torch.device import resolve_device
+
     """One `TransformerEngineModel` per device, shared across bench
     rounds and modes (the reference's own config: d_model 256, 8 heads,
     2 layers, vocab 128), with weights from a generator seeded with 0.
@@ -436,7 +558,12 @@ def main() -> None:
     p.add_argument("--device", default=None,
                    help="device of --llm-serve's paged section (default: "
                         "the first CUDA card)")
+    p.add_argument("--local", action="store_true",
+                   help="--microbench on the in-process runtime")
     mode = p.add_mutually_exclusive_group(required=True)
+    mode.add_argument("--microbench", action="store_true",
+                      help="the runtime microbenchmark (tasks/s, actor "
+                           "calls/s, put/get 10 MB) on the host")
     mode.add_argument("--llm-serve", action="store_true",
                       help="the in-process LLM-serving scenario "
                            "(continuous vs static batching, TTFT, 2x-"
@@ -448,7 +575,10 @@ def main() -> None:
                            "shipping warm-vs-cold, seeded replica kill -> "
                            "conversation recovery)")
     args = p.parse_args()
-    if args.llm_serve:
+    if args.microbench:
+        print(json.dumps(run_microbench(local_mode=args.local,
+                                        scale=args.scale)))
+    elif args.llm_serve:
         print(json.dumps(run_llm_serve_bench(scale=args.scale,
                                              device=args.device)))
     else:

@@ -7,12 +7,17 @@ extras, rolling version updates one replica at a time (start-new →
 drain-old), restarting dead replicas, and queue-length autoscaling
 (`autoscaling_policy.py:12`).
 
-Ported from `ray_tpu/serve/_private/controller.py`. Left out: the
-checkpoint to the KV store and the recovery from it (`_save_checkpoint`,
-`_recover`) — in one process the controller cannot die alone, so they
-come with the cluster runtime. A deployment without a pinned version gets
-one from a digest of its class's code and a pickle of its init args
-(`_auto_version`), where the reference hashes a cloudpickle of both.
+Ported from `ray_tpu/serve/_private/controller.py`. On the cluster
+runtime the controller checkpoints its target state and live replica set
+to the GCS KV on every change and recovers from it when it restarts
+(`_save_checkpoint`, `_recover`), re-adopting the replicas, which are
+named detached actors, each in its own worker process. The checkpoint is
+a pickle of the port's object path (`core/serialization.py`): deployment
+classes go in it by reference, so they must be defined at module level.
+The in-process runtime keeps no checkpoint: there the controller cannot
+die alone. A deployment without a pinned version gets one from a digest
+of its class's code and a pickle of its init args (`_auto_version`),
+where the reference hashes a cloudpickle of both.
 """
 
 from __future__ import annotations
@@ -22,7 +27,6 @@ import dataclasses
 import hashlib
 import inspect
 import math
-import pickle
 import sys
 import time
 import types
@@ -30,7 +34,10 @@ import uuid
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
+from ray_tpu_torch.core.serialization import _Pickler
+
 CONTROLLER_NAME = "SERVE_CONTROLLER"
+CHECKPOINT_KEY = "serve:controller_ckpt"
 
 
 @dataclass
@@ -68,11 +75,111 @@ class ServeController:
         # The ctor runs off the actor event loop; the reconcile task is
         # created lazily from the first async call, which does run on it.
         self._loop_task = None
+        self._ckpt_fingerprint: Any = None
+        # Crash recovery (reference: controller.py:87 — state is
+        # checkpointed to the GCS KV and reloaded on restart; replicas
+        # are detached named actors the new incarnation re-adopts).
+        try:
+            self._recover()
+        except Exception:
+            import traceback
+
+            traceback.print_exc()
 
     def _ensure_reconciler(self) -> None:
         if self._loop_task is None or self._loop_task.done():
             self._loop_task = asyncio.get_running_loop().create_task(
                 self._reconcile_loop())
+
+    # -- durability -----------------------------------------------------
+    @staticmethod
+    def _durable_runtime():
+        """The cluster runtime this controller runs in, or None in the
+        in-process runtime (no checkpoint there)."""
+        from ray_tpu_torch.core.worker import current_runtime
+
+        rt = current_runtime()
+        return None if getattr(rt, "is_local_mode", False) else rt
+
+    def _fingerprint(self):
+        return (
+            self._routes_version,
+            tuple(sorted(
+                (n, st.target_replicas, st.route_version,
+                 tuple(sorted((r.replica_id, r.state)
+                              for r in st.replicas)))
+                for n, st in self._deployments.items())),
+        )
+
+    def _save_checkpoint(self) -> None:
+        """Persist target state + the live replica set to the GCS KV on
+        every mutation; a cheap no-op when nothing changed."""
+        rt = self._durable_runtime()
+        if rt is None:
+            return
+        fp = self._fingerprint()
+        if fp == self._ckpt_fingerprint:
+            return
+        from ray_tpu_torch.core.serialization import dumps
+
+        try:
+            blob = dumps({
+                "routes": dict(self._routes),
+                "routes_version": self._routes_version,
+                "deployments": {
+                    name: {
+                        "cls_factory": st.cls_factory,
+                        "init_args": st.init_args,
+                        "init_kwargs": st.init_kwargs,
+                        "config": st.config,
+                        "target_replicas": st.target_replicas,
+                        # route_version must survive restarts: listeners
+                        # hold the old incarnation's counters, and a
+                        # reset counter would never exceed them — their
+                        # long-polls would go silent forever.
+                        "route_version": st.route_version,
+                        "replicas": [(r.replica_id, r.version, r.state)
+                                     for r in st.replicas],
+                    } for name, st in self._deployments.items()},
+            })
+            rt.kv_put(CHECKPOINT_KEY, blob, True)
+            self._ckpt_fingerprint = fp
+        except Exception:
+            import traceback
+
+            traceback.print_exc()
+
+    def _recover(self) -> None:
+        rt = self._durable_runtime()
+        if rt is None:
+            return
+        blob = rt.kv_get(CHECKPOINT_KEY)
+        if not blob:
+            return
+        from ray_tpu_torch.core.serialization import loads
+
+        data = loads(blob)
+        self._routes = dict(data.get("routes", {}))
+        self._routes_version = data.get("routes_version", 0) + 1
+        for name, d in data.get("deployments", {}).items():
+            st = _DeploymentState(
+                name=name, cls_factory=d["cls_factory"],
+                init_args=tuple(d["init_args"]),
+                init_kwargs=dict(d["init_kwargs"]),
+                config=d["config"],
+                target_replicas=d["target_replicas"])
+            for rid, version, rstate in d.get("replicas", ()):
+                if rstate != "RUNNING":
+                    continue  # half-started replicas restart fresh
+                try:
+                    handle = rt.get_actor(f"SERVE_REPLICA::{rid}")
+                except Exception:
+                    continue  # died with the old controller
+                st.replicas.append(_ReplicaState(
+                    handle=handle, replica_id=rid, version=version,
+                    state="RUNNING"))
+            st.route_version = d.get("route_version", 0) + 1
+            self._deployments[name] = st
 
     # -- API (driver / serve.run) --------------------------------------
     async def deploy(self, name: str, cls_factory, init_args, init_kwargs,
@@ -113,6 +220,7 @@ class ServeController:
                 self._routes.get(route_prefix) != name:
             self._routes[route_prefix] = name
             self._routes_version += 1
+        self._save_checkpoint()
         return True
 
     async def delete_deployment(self, name: str) -> bool:
@@ -126,6 +234,7 @@ class ServeController:
         await asyncio.gather(
             *[self._stop_replica(state, r) for r in list(state.replicas)],
             return_exceptions=True)
+        self._save_checkpoint()
         return True
 
     async def get_routing_table(self, name: str) -> Dict[str, Any]:
@@ -209,6 +318,15 @@ class ServeController:
         self._shutdown = True
         for state in list(self._deployments.values()):
             await self.delete_deployment(state.name)
+        # A later serve instance must start empty, not adopt this one.
+        rt = self._durable_runtime()
+        if rt is not None:
+            try:
+                from ray_tpu_torch.core.serialization import dumps
+
+                rt.kv_put(CHECKPOINT_KEY, dumps({}), True)
+            except Exception:
+                pass
         return True
 
     # -- reconciliation -------------------------------------------------
@@ -218,6 +336,9 @@ class ServeController:
                 for state in list(self._deployments.values()):
                     await self._reconcile(state)
                     await self._autoscale(state)
+                # Replica-set / autoscale changes persist too, so a
+                # restarted controller re-adopts the same live actors.
+                self._save_checkpoint()
             except Exception:
                 import traceback
 
@@ -266,16 +387,19 @@ class ServeController:
             deficit = max(0, min(1, state.target_replicas - fresh,
                                  state.target_replicas + 1
                                  - fresh - len(outdated)))
-        for _ in range(max(deficit, 0)):
-            try:
-                self._start_replica(state)
-            except Exception:
-                # Constructor failed synchronously (user __init__ error):
-                # back off one tick instead of crash-looping hot.
-                import traceback
+        if deficit > 0:
+            # A replica's constructor may take seconds (a model build; in
+            # the in-process runtime it runs in the calling thread): start
+            # them at once, off this loop, which goes on answering status
+            # and long polls.
+            results = await asyncio.gather(
+                *[asyncio.to_thread(self._start_replica, state)
+                  for _ in range(deficit)], return_exceptions=True)
+            for err in results:
+                if isinstance(err, BaseException):
+                    import traceback
 
-                traceback.print_exc()
-                break
+                    traceback.print_exception(err)
 
         # 3. Rolling replace: once a current-version replica is up, drain
         # outdated ones.
@@ -325,12 +449,14 @@ class ServeController:
         # re-adopts them by name there).
         opts.setdefault("name", f"SERVE_REPLICA::{replica_id}")
         opts.setdefault("lifetime", "detached")
-        # The constructor runs in this (the controller loop's) thread:
-        # the loop waits while a replica builds its model.
         actor_cls = remote(**opts)(Replica)
         handle = actor_cls.remote(
             state.cls_factory, state.init_args, state.init_kwargs,
             state.name, replica_id, state.config.version)
+        if self._shutdown or self._deployments.get(state.name) is not state:
+            # Deleted while this replica was being built off the loop.
+            _kill(handle)
+            return
         state.replicas.append(_ReplicaState(
             handle=handle, replica_id=replica_id,
             version=state.config.version))
@@ -355,12 +481,40 @@ class ServeController:
 
     # -- autoscaling ----------------------------------------------------
     async def _collect_metric_snapshots(self) -> list:
-        """Every instrument's snapshot from the process registry: the
-        in-process runtime hosts proxies, routers and replicas in this
-        one process (the reference's local-mode branch)."""
+        """Every process's app-metric snapshot: the local registry (all
+        of it in the in-process runtime, where proxies, routers and
+        replicas share this process) plus, on the cluster runtime, the
+        GCS's latest fold of the pushed metrics pipeline, or each
+        raylet's `get_metrics` where the fold is empty, unavailable or
+        off."""
+        from ray_tpu_torch.core import metrics_ts
+        from ray_tpu_torch.core.config import ray_config
         from ray_tpu_torch.util.metrics import default_registry
 
-        return list(default_registry().snapshot())
+        snaps = list(default_registry().snapshot())
+        rt = self._durable_runtime()
+        if rt is None:
+            return snaps
+        if metrics_ts.enabled and ray_config().metrics_pipeline:
+            try:
+                fold = await _on_loop(rt, rt._gcs.latest_metrics())
+                if fold:
+                    snaps.extend(fold)
+                    return snaps
+            except Exception:
+                pass  # fold unavailable — fall through to the poll
+        try:
+            for n in await _on_loop(rt, rt._gcs.get_nodes()):
+                if not n.get("alive"):
+                    continue
+                try:
+                    snaps.extend(await _on_loop(
+                        rt, _raylet_metrics(rt, n["address"])))
+                except Exception:
+                    continue
+        except Exception:
+            pass
+        return snaps
 
     async def _autoscale(self, state: _DeploymentState) -> None:
         """Queue-length autoscaling driven by the data plane's OWN
@@ -450,6 +604,17 @@ def _deployment_load_from_samples(snapshots: list, deployment: str,
     return per_replica, queued
 
 
+async def _on_loop(rt, coro):
+    """Run a coroutine of the runtime's RPC clients on the runtime's own
+    loop (the controller's methods run on the actor's loop)."""
+    return await asyncio.to_thread(rt._loop.run, coro, 10.0)
+
+
+async def _raylet_metrics(rt, address: str) -> list:
+    client = await rt._raylet_client(address)
+    return await client.call("get_metrics", timeout=5.0)
+
+
 async def _aget(ref, timeout: Optional[float] = None):
     """Await an ObjectRef from inside the controller's event loop without
     blocking it (`get` is thread-blocking)."""
@@ -464,7 +629,7 @@ class _Unversionable(Exception):
     pass
 
 
-class _VersionPickler(pickle.Pickler):
+class _VersionPickler(_Pickler):
     """Refuses a tensor on a device: a version must never copy one."""
 
     def reducer_override(self, obj):
@@ -472,7 +637,7 @@ class _VersionPickler(pickle.Pickler):
         if (torch is not None and isinstance(obj, torch.Tensor)
                 and obj.device.type != "cpu"):
             raise _Unversionable
-        return NotImplemented
+        return super().reducer_override(obj)
 
 
 def _digest_code(code: types.CodeType, h) -> None:

@@ -6,8 +6,9 @@ from the controller on a version counter), sample two candidates, route to
 the one with the lower queue, retry through drains/deaths. Ported from
 `ray_tpu/serve/_private/router.py`; every call goes through the runtime
 of the controller's handle, and the long-poll thread ends when that
-runtime shuts down or the controller dies (the in-process runtime never
-restarts an actor).
+runtime shuts down or, in the in-process runtime (which never restarts
+an actor), when the controller dies; on the cluster runtime it polls on
+through the controller's restart.
 """
 
 from __future__ import annotations
@@ -104,7 +105,11 @@ class Router:
                         # _refresh -> _ensure_poller.
                         return
             except RayActorError:
-                return           # the controller is gone for good
+                if getattr(rt, "is_local_mode", False):
+                    return       # the controller is gone for good
+                # On the cluster a killed controller restarts from its
+                # checkpoint: poll again.
+                rt.shutdown_event.wait(1.0)
             except Exception:
                 rt.shutdown_event.wait(1.0)
 

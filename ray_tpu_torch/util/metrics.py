@@ -1,11 +1,17 @@
-"""Application metrics: Counter / Gauge / Histogram, the part of
-`ray_tpu/util/metrics.py` that Serve's instruments use.
+"""Application metrics: Counter / Gauge / Histogram.
 
-Each process keeps a local `MetricsRegistry` (`default_registry()`);
-`snapshot()` is its serializable view. The reference pushes snapshots to
-its raylet for the dashboard's `/metrics`; the port's one runtime is the
-in-process one, so readers (Serve's autoscaler, tests, benches) take the
-snapshot in process.
+Reference equivalent: `python/ray/util/metrics.py` (the user facade over
+the C++ OpenCensus stats layer, `src/ray/stats/metric.h:147-201`) and the
+per-node metrics agent that exports Prometheus
+(`python/ray/_private/metrics_agent.py:416`).
+
+Design here: each process keeps a local `MetricsRegistry`; worker/driver
+processes periodically push snapshots to their raylet
+(`report_metrics` RPC), which merges them with its own runtime gauges and
+serves the union to the dashboard's cluster-wide `/metrics` endpoint in
+Prometheus text exposition format.
+
+The port's copy of `ray_tpu/util/metrics.py`.
 """
 
 from __future__ import annotations
@@ -34,8 +40,8 @@ class Metric:
         self._default_tags: Dict[str, str] = {}
         self._lock = threading.Lock()
         # Registration is deferred to _register_self(), called by each
-        # subclass AFTER its sample state exists: a reader may snapshot
-        # the registry concurrently with construction.
+        # subclass AFTER its sample state exists: the push thread may
+        # snapshot the registry concurrently with construction.
         self._registry = registry
 
     def _register_self(self) -> None:
@@ -150,7 +156,7 @@ class Histogram(Metric):
 
 
 class MetricsRegistry:
-    """Process-local instrument registry + snapshot."""
+    """Process-local instrument registry + snapshot/merge/render."""
 
     def __init__(self):
         self._metrics: Dict[str, Metric] = {}
@@ -166,7 +172,7 @@ class MetricsRegistry:
             self._metrics[metric.name] = metric
 
     def snapshot(self) -> List[Dict[str, Any]]:
-        """Serializable view of every instrument."""
+        """Serializable view of every instrument (the push payload)."""
         with self._lock:
             metrics = list(self._metrics.values())
         return [{"name": m.name, "type": m.type_name,
@@ -192,7 +198,8 @@ _instrument_cache_lock = threading.Lock()
 
 def get_instruments(key: str, build):
     """Build-once instrument set per process, shared by every subsystem
-    (Serve, the serving engine and fleet). Constructing the same instrument twice would shadow the
+    (serve proxies/router/replica, train session/executor, data
+    shuffle). Constructing the same instrument twice would shadow the
     first registration in the registry, so first use is locked."""
     inst = _instrument_cache.get(key)
     if inst is None:
@@ -201,3 +208,125 @@ def get_instruments(key: str, build):
             if inst is None:
                 inst = _instrument_cache[key] = build()
     return inst
+
+
+# ---------------------------------------------------------------------------
+# Prometheus text exposition (consumed by the dashboard /metrics endpoint).
+# ---------------------------------------------------------------------------
+
+def _fmt_tags(tags: Dict[str, str], extra: Optional[Dict[str, str]] = None
+              ) -> str:
+    merged = dict(tags)
+    if extra:
+        merged.update(extra)
+    if not merged:
+        return ""
+    inner = ",".join(
+        f'{k}="{str(v).replace(chr(92), chr(92) * 2).replace(chr(34), chr(92) + chr(34))}"'
+        for k, v in sorted(merged.items()))
+    return "{" + inner + "}"
+
+
+def render_prometheus(snapshots: List[Dict[str, Any]],
+                      extra_tags: Optional[Dict[str, str]] = None) -> str:
+    """One process's snapshot list -> Prometheus text format."""
+    out: List[str] = []
+    for m in snapshots:
+        name = m["name"]
+        out.append(f"# HELP {name} {m.get('help', '')}")
+        out.append(f"# TYPE {name} {m['type']}")
+        for s in m.get("samples", []):
+            tags = s.get("tags", {})
+            if m["type"] == "histogram":
+                acc = 0
+                for bound, cnt in zip(s["boundaries"], s["buckets"]):
+                    acc += cnt
+                    out.append(
+                        f"{name}_bucket"
+                        f"{_fmt_tags({**tags, 'le': repr(bound)}, extra_tags)}"
+                        f" {acc}")
+                acc += s["buckets"][-1]
+                out.append(
+                    f"{name}_bucket"
+                    f"{_fmt_tags({**tags, 'le': '+Inf'}, extra_tags)} {acc}")
+                out.append(f"{name}_sum{_fmt_tags(tags, extra_tags)} "
+                           f"{s['sum']}")
+                out.append(f"{name}_count{_fmt_tags(tags, extra_tags)} "
+                           f"{s['count']}")
+            else:
+                out.append(
+                    f"{name}{_fmt_tags(tags, extra_tags)} {s['value']}")
+    return "\n".join(out) + "\n"
+
+
+def merge_snapshots(per_source: List[Tuple[Dict[str, str],
+                                           List[Dict[str, Any]]]]
+                    ) -> List[Dict[str, Any]]:
+    """Merge snapshots from several processes; each source's identifying
+    tags (pid/worker_id) are folded into its samples' tags so series stay
+    distinct."""
+    merged: Dict[str, Dict[str, Any]] = {}
+    for source_tags, snaps in per_source:
+        for m in snaps:
+            slot = merged.setdefault(
+                m["name"], {"name": m["name"], "type": m["type"],
+                            "help": m.get("help", ""), "samples": []})
+            for s in m.get("samples", []):
+                s2 = dict(s)
+                s2["tags"] = {**s.get("tags", {}), **source_tags}
+                slot["samples"].append(s2)
+    return list(merged.values())
+
+
+class _PushState:
+    """Background pusher: flush the default registry to a callback every
+    interval (used by worker/driver runtimes to report to the raylet)."""
+
+    def __init__(self, push_fn, interval_s: float):
+        self._push = push_fn
+        self.interval = interval_s
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="metrics-push")
+        self._thread.start()
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self.interval):
+            self.flush_now()
+
+    def flush_now(self) -> None:
+        try:
+            snap = default_registry().snapshot()
+            if snap:
+                self._push(snap)
+        except Exception:
+            pass  # raylet briefly unreachable: drop this push
+
+    def stop(self) -> None:
+        self._stop.set()
+
+
+_push_state: Optional[_PushState] = None
+
+
+def start_metrics_push(push_fn, interval_s: float) -> None:
+    global _push_state
+    if _push_state is None:
+        _push_state = _PushState(push_fn, interval_s)
+
+
+def stop_metrics_push() -> None:
+    global _push_state
+    if _push_state is not None:
+        _push_state.stop()
+        _push_state = None
+
+
+def flush_metrics_push() -> None:
+    """Push the current snapshot NOW (bypassing the interval). Used by
+    short-lived processes — e.g. training workers at gang shutdown —
+    whose final observations would otherwise die with the process
+    before the next periodic push."""
+    st = _push_state
+    if st is not None:
+        st.flush_now()

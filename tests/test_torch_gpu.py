@@ -478,7 +478,7 @@ def test_serve_llm_on_card_streams_the_engines_tokens(card):
     while direct.step():
         pass
     want = stream.tokens_so_far()
-    ray_tpu_torch.init()
+    ray_tpu_torch.init(local_mode=True)
     try:
         handle = serve.run(serve.deployment(_CardLLM, version="v1").bind(
             _card_serve_model), route_prefix="/llm")
@@ -494,3 +494,31 @@ def test_serve_llm_on_card_streams_the_engines_tokens(card):
     assert all(type(t) is int for t in got)
     assert got == want
     assert launched == cfg.n_layers
+
+
+def _visible_card():
+    """A task's view of the cards: its CUDA_VISIBLE_DEVICES and CUDA's
+    device count."""
+    import os
+
+    return os.environ.get("CUDA_VISIBLE_DEVICES"), torch.cuda.device_count()
+
+
+@pytest.mark.parametrize("num_gpus,want_visible,want_count", [
+    (1, "0", 1), (0.5, "0", 1), (0, "", 0)])
+def test_cluster_gpu_lease_shows_its_card(card, num_gpus, want_visible,
+                                          want_count):
+    """A cluster started on one real card detects it, and a task's GPU
+    lease is what CUDA shows it: one card for a whole or half lease, none
+    without one."""
+    import ray_tpu_torch
+
+    ray_tpu_torch.init(num_cpus=2)
+    try:
+        assert ray_tpu_torch.cluster_resources()["GPU"] == 1.0
+        task = ray_tpu_torch.remote(num_gpus=num_gpus)(_visible_card)
+        got = ray_tpu_torch.get(
+            task.options(_metadata={"inline": False}).remote(), timeout=120)
+    finally:
+        ray_tpu_torch.shutdown()
+    assert got == (want_visible, want_count)

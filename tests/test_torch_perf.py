@@ -1,6 +1,8 @@
-"""The port's serving benches (`ray_tpu_torch.perf`) against the reference's
+"""The port's benches (`ray_tpu_torch.perf`) against the reference's
 (`ray_tpu.perf`) on the CPU: the same keys, and the counts that the
-workload fixes equal. No timing is asserted.
+workload fixes equal. No timing is asserted. The runtime microbenchmark
+runs on both of the port's runtimes (its cluster's processes are reaped
+by `torch_cluster_helpers`).
 
 Both paged sections run on a narrowed model (d_model 32, one layer, the
 same weights on both sides) so the pair stays cheap here; the paged
@@ -10,6 +12,7 @@ in chip_smoke.py.
 """
 
 import json
+import os
 import subprocess
 import sys
 
@@ -26,6 +29,9 @@ from ray_tpu.models import TransformerConfig as JaxConfig
 from ray_tpu.models import init_params as jax_init_params
 from ray_tpu_torch.models import TransformerConfig, params_from_jax
 from ray_tpu_torch.serve.engine import TransformerEngineModel
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_cluster_helpers import no_leaked_port_processes  # noqa: E402,F401
 
 SCALE = 0.1
 NARROW = dict(vocab_size=128, d_model=32, n_layers=1, n_heads=2, d_ff=32,
@@ -49,6 +55,25 @@ def benches():
             ref_llm=jax_perf.run_llm_serve_bench(scale=SCALE),
             fleet=perf.run_fleet_bench(scale=SCALE),
             ref_fleet=jax_perf.run_fleet_bench(scale=SCALE))
+
+
+@pytest.fixture(scope="module")
+def ref_microbench_keys():
+    import ray_tpu
+
+    try:
+        return set(jax_perf.run_microbench(local_mode=True, scale=0.05))
+    finally:
+        ray_tpu.shutdown()
+
+
+@pytest.mark.parametrize("local_mode", [False, True])
+def test_microbench_keys_equal_reference(ref_microbench_keys, local_mode):
+    out = perf.run_microbench(local_mode=local_mode, scale=0.05)
+    assert set(out) == ref_microbench_keys
+    assert out["mode"] == ("local" if local_mode else "cluster")
+    assert out["tasks_per_s"] > 0 and out["actor_calls_per_s"] > 0
+    assert out["cgraph_calls_per_s"] is None
 
 
 @pytest.mark.parametrize("bench", ["llm", "fleet"])

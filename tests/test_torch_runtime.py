@@ -29,7 +29,7 @@ pytestmark = pytest.mark.unit
 def both():
     """(reference, port), each with its in-process runtime up."""
     ray_tpu.init(local_mode=True, ignore_reinit_error=True)
-    ray_tpu_torch.init()
+    ray_tpu_torch.init(local_mode=True)
     yield ray_tpu, ray_tpu_torch
     ray_tpu.shutdown()
     ray_tpu_torch.shutdown()
@@ -321,27 +321,53 @@ def test_shutdown_ends_every_thread_of_the_runtime():
 
 
 def test_init_and_what_waits_for_later_slices(both):
-    _, port = both
+    ref, port = both
     with pytest.raises(RuntimeError):
         port.init()
     assert port.init(ignore_reinit_error=True) is \
         port.core.worker.current_runtime()
-    with pytest.raises(NotImplementedError, match="cluster runtime"):
-        _init_address(port)
+    # init(address=...) joins a cluster, as the reference's does: where
+    # nothing listens, both fail to reach the GCS with the same error.
+    assert _init_unreachable(ref, port) == ["ConnectionLost"] * 2
     with pytest.raises(NotImplementedError, match="task_events"):
         port.timeline()
     res = port.cluster_resources()
     assert res["CPU"] > 0 and "TPU" not in res
 
 
-def _init_address(port):
-    """init(address=...) on a process with no runtime yet."""
-    saved = port.core.worker._runtime
-    port.core.worker.set_runtime(None)
+def _init_unreachable(*packages):
+    """The error type of init(address=...) at a local port where nothing
+    listens, for each package (the module-level runtime set aside while
+    it runs; the packages run at once, each waiting out its connect)."""
+    import socket
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    address = "127.0.0.1:%d" % sock.getsockname()[1]
+    sock.close()
+    out = [None] * len(packages)
+
+    def attempt(i, pkg):
+        try:
+            pkg.init(address=address)
+            out[i] = "connected"
+        except Exception as e:
+            out[i] = type(e).__name__
+
+    saved = [pkg.core.worker._runtime for pkg in packages]
+    for pkg in packages:
+        pkg.core.worker.set_runtime(None)
     try:
-        port.init(address="10.0.0.1:6379")
+        threads = [threading.Thread(target=attempt, args=(i, pkg))
+                   for i, pkg in enumerate(packages)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
     finally:
-        port.core.worker.set_runtime(saved)
+        for pkg, rt in zip(packages, saved):
+            pkg.core.worker.set_runtime(rt)
+    return out
 
 
 def test_task_error_is_a_ray_task_error(both):

@@ -507,7 +507,7 @@ def port_results():
     sys.path.insert(0, HERE)
     scenarios = importlib.import_module("torch_serve_scenarios")
     before = set(threading.enumerate())
-    ray_tpu_torch.init()
+    ray_tpu_torch.init(local_mode=True)
     t0 = time.perf_counter()
     try:
         out = scenarios.run_all("ray_tpu_torch")
@@ -611,7 +611,7 @@ def test_spans_chain_proxy_router_replica():
 
     inbound = "00-" + "ab" * 16 + "-" + "cd" * 8 + "-01"
     unsampled = "00-" + "ef" * 16 + "-" + "cd" * 8 + "-00"
-    ray_tpu_torch.init()
+    ray_tpu_torch.init(local_mode=True)
     tracing.clear()
     tracing.enable_tracing()
     try:
@@ -663,7 +663,7 @@ def test_rolling_update_builds_one_replica_per_version():
         def __call__(self, _):
             return self.tag
 
-    ray_tpu_torch.init()
+    ray_tpu_torch.init(local_mode=True)
     try:
         dep = serve.deployment(Built, version="v1")
         h = serve.run(dep.bind("v1"), route_prefix="/b")
@@ -752,7 +752,7 @@ def test_transformer_llm_through_serve_equals_jax_engine():
             pass
         want.append(stream.tokens_so_far())
 
-    ray_tpu_torch.init()
+    ray_tpu_torch.init(local_mode=True)
     try:
         handle = serve.run(
             serve.deployment(TransformerLLM, version="v1").bind(
@@ -825,7 +825,7 @@ def test_unversioned_redeploy_rolls_only_on_change():
             time.sleep(0.05)
         return None
 
-    ray_tpu_torch.init()
+    ray_tpu_torch.init(local_mode=True)
     try:
         dep = serve.deployment(_versioned_class("return self.tag"),
                                name="Echo")
@@ -859,7 +859,7 @@ class Echo:
     async def __call__(self, req):
         return {"echo": req}
 
-ray_tpu_torch.init()
+ray_tpu_torch.init(local_mode=True)
 port = serve.start()
 serve.run(serve.deployment(Echo).bind(), route_prefix="/echo")
 req = urllib.request.Request(

@@ -100,7 +100,9 @@ result line:
 7. gradients: `lm_loss` gradients at the flagship width (bf16, 2 x 1024
    tokens) through the kernels and through plain attention, each against a
    float32 plain-attention reference; the kernel path must be about as
-   close to it as the plain path is, on every leaf;
+   close to it as the plain path is, on every leaf, at full depth and
+   again on the first 2 layers, where a 2% error in dK or dQ stands out
+   of the bf16 noise (`tools/grad_gate_mutation.py` checks that it does);
 8. float32 gradients: `lm_loss` gradients of a float32 model at the
    flagship width, depth cut to 2 layers (2 x 1024 tokens, remat
    "save_attn_qkv"), through K1, K2 and K3's float32 kernels against plain
@@ -113,6 +115,23 @@ result line:
    first, and K1, K2 and K3 must each run once per layer per step. One
    more step runs under `torch.profiler`, which splits the card's time
    over its kernels;
+9a. cluster train: that step through the Train library on the cluster
+   runtime (`ray_tpu_torch.init(num_cpus=8)`): `TorchTrainer.fit` as a
+   one-trial Tune job, one worker process leasing the card
+   (`ScalingConfig(num_workers=1, use_gpu=True, gpus_per_worker=1)`,
+   `TorchConfig()`: NCCL, world 1, `FailureConfig(max_failures=1)`), whose
+   loop makes the flagship weights from this script's seed (checksummed
+   against the driver's), runs the train phase's batch for 9 steps and
+   reports each step's loss, ms and K1, K2, K3 launches with a
+   checkpoint of the step. The driver SIGKILLs the worker after step 3;
+   the gang restarts, leases the card again and resumes at step 4.
+   Gated: every attempt's losses bitwise equal to the train phase's from
+   its first step, K1, K2, K3 12 times a step, a
+   `TrainConfig(profile_steps=(2, 3))` trace naming the three kernels,
+   each step once in `Result.metrics_history`, and no port process left
+   after shutdown. Prints the worker's step ms beside the train phase's
+   and the restart's split (detect, group re-reserve, worker start with
+   imports, first step);
 10. MoE float32 gradients: the same widths with 4 experts (top 2, capacity
     factor 1.25), depth 2, float32, 2 x 1024 tokens, remat
     "save_attn_qkv": `lm_loss` gradients through K1, K2 and K3's float32
@@ -277,6 +296,13 @@ GRAD_BATCH = 2
 # each reach alone (this implies it on whole leaves, on the worst leaf and
 # on the mean). tools/grad_faults.py reads what it catches.
 GRAD_ERR_RATIO = 1.25
+# The same gate on the model's first GRAD_GATE_LAYERS layers: the plain
+# path's bf16 distance to float32 on the q and k parts grows with depth
+# (1.3% at depth 1, 2.2% at 2, 3.3% at 12; tools/grad_faults.py
+# --depth), and at full depth a 2% error in dK or dQ reads 1.22-1.27 x
+# plain, within the gate. At depth 2 it reads 1.55 and passes no gate,
+# where the kernels read 0.99-1.02 (seeds 0 and 1).
+GRAD_GATE_LAYERS = 2
 # float32 gradients, kernels against plain attention: both sides are
 # float32 and differ only in attention's summation order (some 1e-6
 # relative L2); the depth is cut to F32_GRAD_LAYERS.
@@ -2283,6 +2309,19 @@ def grad_summary(err_k, err_p, names):
 
 
 def phase_grad(params, cfg, card: str):
+    """The bf16 gradient gate at full depth, then at GRAD_GATE_LAYERS,
+    where it tells a 2% error in dK or dQ from bf16 noise."""
+    from dataclasses import replace
+
+    grad_gate(params, cfg, card)
+    grad_gate(dict(params, layers=params["layers"][:GRAD_GATE_LAYERS]),
+              replace(cfg, n_layers=GRAD_GATE_LAYERS), card)
+
+
+def grad_gate(params, cfg, card: str):
+    """The bf16 gradient gate at cfg's depth: each leaf and wqkv part of
+    the kernel path within GRAD_ERR_RATIO of the plain path's distance to
+    float32, K1, K2, K3 once a layer."""
     r = grad_errors(params, cfg)
     names, err_k, err_p, counts = (r["names"], r["err_k"], r["err_p"],
                                    r["counts"])
@@ -2290,7 +2329,8 @@ def phase_grad(params, cfg, card: str):
     part_names, part_k, part_p = r["part_names"], r["part_k"], r["part_p"]
     pworst, pratio, _, _, ok = grad_summary(part_k, part_p, part_names)
     loss_k, loss_p, loss_r = r["losses"]
-    print(f"grad flagship bf16 [{GRAD_BATCH}, {TRAIN_SEQ}] remat "
+    print(f"grad flagship bf16 depth {cfg.n_layers} [{GRAD_BATCH}, "
+          f"{TRAIN_SEQ}] remat "
           f"{cfg.remat_policy}: loss kernels {loss_k:.5f} plain "
           f"{loss_p:.5f} float32 {loss_r:.5f}; per-leaf "
           f"rel_l2 to float32 over {len(names)} leaves: kernels max "
@@ -2305,9 +2345,10 @@ def phase_grad(params, cfg, card: str):
           f"the kernel gradient launched K1, K2, K3 {counts} times, "
           f"expected {cfg.n_layers} each")
     check(r["finite"], "kernel-path gradients are not finite")
-    check(ok, f"the kernel-path gradient of {part_names[pworst]} is "
-              f"further from float32 ({part_k[pworst]:.3e}) than the plain "
-              f"path's ({part_p[pworst]:.3e}) allows")
+    check(ok, f"the kernel-path gradient of {part_names[pworst]} at "
+              f"depth {cfg.n_layers} is further from float32 "
+              f"({part_k[pworst]:.3e}) than the plain path's "
+              f"({part_p[pworst]:.3e}) allows")
 
 
 def phase_grad_f32(params, cfg, card: str):
@@ -2352,13 +2393,11 @@ def phase_train(params, cfg, card: str, power_w: float):
     from ray_tpu_torch.parallel import adamw, make_train_step
 
     n_params = sum(t.numel() for t in _leaves(params))
+    start_sum = param_checksum(params)
     optimizer = adamw(1e-4)
     opt_state = optimizer.init(params)
     step = make_train_step(lambda p, b: lm_loss(p, b, cfg), optimizer)
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    batch = {"tokens": torch.randint(0, cfg.vocab_size,
-                                     (TRAIN_BATCH, TRAIN_SEQ + 1),
-                                     generator=gen, device="cuda")}
+    batch = train_batch(cfg)
     t0 = time.perf_counter()
     params, opt_state, loss = step(params, opt_state, batch)
     losses = [loss]
@@ -2402,7 +2441,281 @@ def phase_train(params, cfg, card: str, power_w: float):
                         dt / TRAIN_STEPS * 1e3, card)
     return launches, dict(tokens_per_s=tokens_per_s, mfu=mfu,
                           peak_memory_bytes=peak,
-                          step_ms=dt / TRAIN_STEPS * 1e3, profile=prof)
+                          step_ms=dt / TRAIN_STEPS * 1e3, profile=prof,
+                          losses=values, start_checksum=start_sum)
+
+
+def train_batch(cfg):
+    """bench.py's token batch of the train phase, [TRAIN_BATCH,
+    TRAIN_SEQ + 1], from its seed on this process's card."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    return {"tokens": torch.randint(0, cfg.vocab_size,
+                                    (TRAIN_BATCH, TRAIN_SEQ + 1),
+                                    generator=gen, device="cuda")}
+
+
+# The cluster train phase: steps of bench.py's step in the train worker,
+# the step after whose report the driver SIGKILLs that worker, and the
+# steps of each attempt that torch.profiler captures (session steps).
+CLUSTER_TRAIN_STEPS = 9
+CLUSTER_TRAIN_KILL_AFTER = 3
+CLUSTER_TRAIN_PROFILE = (2, 3)
+CLUSTER_TRAIN_TIMEOUT_S = 600.0
+TRAIN_KERNELS = ("flash_fwd_tc", "flash_bwd_dkv_tc", "flash_bwd_dq_tc")
+
+
+def proc_start_time() -> float:
+    """This process's start, in seconds since the epoch (from /proc)."""
+    with open("/proc/self/stat") as f:
+        ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/stat") as f:
+        boot = next(int(ln.split()[1]) for ln in f if ln.startswith("btime"))
+    return boot + ticks / os.sysconf("SC_CLK_TCK")
+
+
+def cluster_train_loop(config):
+    """`TorchTrainer`'s loop in the GPU-leased train worker: bench.py's
+    flagship step as `phase_train` runs it (bf16, remat "save_attn_qkv",
+    AdamW 1e-4, its token batch), from weights this worker makes from
+    chip_smoke's seed. Each step reports its loss, its ms (CUDA-synced)
+    and its K1, K2, K3 launches in this process, with a checkpoint of
+    the step; a restarted attempt resumes at the checkpointed step + 1
+    (with fresh weights: the checkpoint holds the step only)."""
+    t_loop = time.time()
+    from dataclasses import replace
+
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import lm_loss
+    from ray_tpu_torch.parallel import adamw, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ckpt = train.get_checkpoint()
+    start = ckpt.to_dict()["step"] + 1 if ckpt is not None else 1
+    params, cfg = flagship_params()
+    cfg = replace(cfg, remat=True, remat_policy="save_attn_qkv")
+    info = dict(pid=os.getpid(), start=start, proc_start=proc_start_time(),
+                t_loop=t_loop,
+                visible=os.environ.get("CUDA_VISIBLE_DEVICES"),
+                cards=torch.cuda.device_count(),
+                backend=dist.get_backend(), world=dist.get_world_size(),
+                checksum_equal=param_checksum(params) == config["checksum"])
+    optimizer = adamw(1e-4)
+    opt_state = optimizer.init(params)
+    step = make_train_step(lambda p, b: lm_loss(p, b, cfg), optimizer)
+    batch = train_batch(cfg)
+    info["t_ready"] = time.time()
+    for i in range(start, config["steps"] + 1):
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, loss = step(params, opt_state, batch)
+        value = loss.item()
+        ms = (time.perf_counter() - t0) * 1e3
+        k1, k2, k3 = _counts()
+        train.report(dict(info, step=i, loss=value, step_ms=ms, k1=k1,
+                          k2=k2, k3=k3, t_report=time.time()),
+                     checkpoint=train.Checkpoint.from_dict({"step": i}))
+
+
+def phase_cluster_train(card: str, stats: dict):
+    """bench.py's train step through the Train library on the cluster
+    runtime: one `TorchTrainer` gang of one worker leasing the card (NCCL,
+    world 1), run as a one-trial Tune job. The worker's losses against
+    the train phase's, its K1, K2, K3 launches a step, a torch.profiler
+    trace of two steps, a SIGKILL of the worker after step
+    CLUSTER_TRAIN_KILL_AFTER and the gang's restart from the checkpoint,
+    and shutdown. Returns the K1, K2, K3 launches a step in the worker."""
+    import signal
+    import tempfile
+    import threading
+
+    import ray_tpu_torch
+    from ray_tpu_torch import train
+    from ray_tpu_torch.util import placement_group_table
+
+    n = CLUSTER_TRAIN_STEPS
+    storage = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    run = "cluster_train"
+    os.environ[RUN_MARKER] = f"{os.getpid()}-{time.time_ns()}"
+    t0 = time.perf_counter()
+    ray_tpu_torch.init(num_cpus=CLUSTER_CPUS)
+    init_s = time.perf_counter() - t0
+    res = ray_tpu_torch.cluster_resources()
+    check(res.get("GPU") == 1.0, f"the node did not detect one GPU: {res}")
+    try:
+        trainer = train.TorchTrainer(
+            cluster_train_loop,
+            train_loop_config={"steps": n,
+                               "checksum": stats["start_checksum"]},
+            torch_config=train.TorchConfig(),
+            scaling_config=train.ScalingConfig(
+                num_workers=1, use_gpu=True, gpus_per_worker=1),
+            run_config=train.RunConfig(
+                name=run, storage_path=storage,
+                failure_config=train.FailureConfig(max_failures=1)),
+            train_config=train.TrainConfig(
+                profile_steps=CLUSTER_TRAIN_PROFILE,
+                profile_dir=os.path.join(storage, "profile")))
+        out = {}
+
+        def fit():
+            try:
+                out["result"] = trainer.fit()
+            except BaseException as e:  # noqa: BLE001
+                out["error"] = e
+
+        t_fit = time.time()
+        thread = threading.Thread(target=fit, daemon=True)
+        thread.start()
+        killed = None      # (pid, kill time, the group it held)
+        t_detect = t_pg = None
+        deadline = time.monotonic() + CLUSTER_TRAIN_TIMEOUT_S
+        while thread.is_alive() and time.monotonic() < deadline:
+            if killed is None:
+                for line in result_lines(os.path.join(storage, run)):
+                    if line["step"] == CLUSTER_TRAIN_KILL_AFTER:
+                        held = [g for g, i in placement_group_table().items()
+                                if i["state"] == "CREATED"]
+                        t_kill = time.time()
+                        os.kill(line["pid"], signal.SIGKILL)
+                        killed = (line["pid"], t_kill, held)
+                        break
+            elif t_pg is None:
+                table = placement_group_table()
+                now = time.time()
+                if t_detect is None and any(
+                        table[g]["state"] != "CREATED" for g in killed[2]):
+                    t_detect = now
+                if t_detect is not None and any(
+                        i["state"] == "CREATED" and g not in killed[2]
+                        for g, i in table.items()):
+                    t_pg = now
+            time.sleep(0.01)
+        thread.join(max(deadline - time.monotonic(), 0.0))
+        check(not thread.is_alive(), f"TorchTrainer.fit did not end within "
+              f"{CLUSTER_TRAIN_TIMEOUT_S} s")
+        if "error" in out:
+            raise PhaseError(f"TorchTrainer.fit failed: {out['error']!r}")
+        result = out["result"]
+    finally:
+        ray_tpu_torch.shutdown()
+    t0 = time.perf_counter()
+    left = port_processes()
+    while left and time.perf_counter() - t0 < CLUSTER_DOWN_S:
+        time.sleep(0.1)
+        left = port_processes()
+    down_s = time.perf_counter() - t0
+    check(not left, f"port processes outlived shutdown by "
+          f"{CLUSTER_DOWN_S} s: {left}")
+
+    history = result.metrics_history
+    steps = [m["step"] for m in history]
+    check(killed is not None, "the worker never reported step "
+          f"{CLUSTER_TRAIN_KILL_AFTER}: nothing was killed")
+    check(steps == list(range(1, n + 1)), f"Result.metrics_history does "
+          f"not hold every step exactly once: steps {steps}")
+    attempts = {}
+    for m in history:
+        attempts.setdefault(m["pid"], []).append(m)
+    first, second = (list(attempts.values()) + [[], []])[:2]
+    check(len(attempts) == 2 and first[0]["pid"] == killed[0]
+          and second[0]["start"] == first[-1]["step"] + 1,
+          f"the gang did not restart once, resuming after the checkpointed "
+          f"step: attempts (pid, first step, steps) "
+          f"{[(a[0]['pid'], a[0]['start'], len(a)) for a in attempts.values()]}")
+    want = stats["losses"]
+    diffs = [abs(m["loss"] - want[j]) for a in (first, second)
+             for j, m in enumerate(a)]
+    for a in (first, second):
+        m = a[0]
+        check(m["checksum_equal"], "the train worker's flagship weights "
+              "differ from the driver's")
+        check(m["visible"] == "0" and m["cards"] == 1
+              and m["backend"] == "nccl" and m["world"] == 1,
+              f"the train worker does not hold the card over NCCL: "
+              f"visible {m['visible']} cards {m['cards']} backend "
+              f"{m['backend']} world {m['world']}")
+    counts = [(m["k1"], m["k2"], m["k3"]) for m in history]
+    trace = os.path.join(storage, "profile", run, "rank0", "trace.json")
+    check(os.path.exists(trace), f"no profile trace at {trace}")
+    with open(trace) as f:
+        text = f.read()
+    named = {k: text.count(k) for k in TRAIN_KERNELS}
+    clean = [m["step_ms"] for m in second[1:]
+             if not (CLUSTER_TRAIN_PROFILE[0] <= m["step"] - second[0]["step"]
+                     + 1 <= CLUSTER_TRAIN_PROFILE[1])]
+    step_ms = sorted(clean)[len(clean) // 2]
+    r = second[0]
+    split = dict(detect=t_detect - killed[1], pg_reserve=t_pg - t_detect,
+                 worker_start_with_imports=r["t_loop"] - t_pg,
+                 setup=r["t_ready"] - r["t_loop"],
+                 first_step=r["t_report"] - r["t_ready"])
+    print(f"cluster train flagship bf16 remat save_attn_qkv AdamW 1e-4 "
+          f"[{TRAIN_BATCH}, {TRAIN_SEQ}]: TorchTrainer, 1 worker leasing "
+          f"the card (CUDA_VISIBLE_DEVICES={first[0]['visible']}, NCCL "
+          f"world {first[0]['world']}), fit as a one-trial Tune job; init "
+          f"{init_s:.3f} s; worker weights' checksum equal to the driver's "
+          f"on both attempts; step_ms {step_ms:.2f} in the worker (median "
+          f"of {len(clean)} unprofiled steps after the restart's first; "
+          f"phase_train {stats['step_ms']:.2f}, worker/in-process "
+          f"{step_ms / stats['step_ms']:.3f}); launches a step K1 K2 K3 "
+          f"{sorted(set(counts))} [{card}]", flush=True)
+    shown = ["{} {} {}".format(a[0]["pid"], [m["step"] for m in a],
+                               " ".join(f"{m['loss']:.5f}" for m in a))
+             for a in (first, second)]
+    print(f"cluster train losses by attempt (pid, steps, losses): "
+          f"{'; '.join(shown)}; each attempt "
+          f"against phase_train's losses from its first step: largest "
+          f"difference {max(diffs):.3e} (gate: bitwise equal) [{card}]",
+          flush=True)
+    print(f"cluster train restart: SIGKILL of pid {killed[0]} after step "
+          f"{CLUSTER_TRAIN_KILL_AFTER}; split s "
+          f"{json.dumps({k: round(v, 3) for k, v in split.items()})}, total "
+          f"{r['t_report'] - killed[1]:.3f} s from the kill to the resumed "
+          f"step {r['step']}'s report; setup is the loop's imports of the "
+          f"model and optimizer, the weights made on the card and their "
+          f"checksum; the first step {r['step_ms']:.1f} ms on the card "
+          f"(first attempt's {first[0]['step_ms']:.1f}); the resumed "
+          f"worker's process started {r['proc_start'] - killed[1]:.3f} s "
+          f"after the kill (negative: a spare the raylet had started); "
+          f"the resumed "
+          f"worker pid {r['pid']} leased the card again "
+          f"(CUDA_VISIBLE_DEVICES={r['visible']}); fit {time.time() - t_fit:.3f} "
+          f"s; shutdown {down_s:.3f} s, port processes left {len(left)} "
+          f"[{card}]", flush=True)
+    print(f"cluster train profile: TrainConfig(profile_steps="
+          f"{CLUSTER_TRAIN_PROFILE}) trace {os.path.getsize(trace)} B, "
+          f"kernel names {json.dumps(named)} [{card}]", flush=True)
+    check(max(diffs) == 0.0, f"the train worker's losses differ from "
+          f"phase_train's by up to {max(diffs):.3e}")
+    layers = FLAGSHIP["n_layers"]
+    check(all(c == (layers,) * 3 for c in counts),
+          f"the train worker launched K1, K2, K3 {sorted(set(counts))} "
+          f"times a step, expected {layers} each (once per layer)")
+    check(all(named.values()), f"the profile trace does not name every "
+          f"train kernel: {named}")
+    return counts[0]
+
+
+def result_lines(exp_dir: str) -> list:
+    """The lines of the run's result.json so far (its one trial's)."""
+    import glob
+
+    out = []
+    for path in glob.glob(os.path.join(exp_dir, "*", "result.json")):
+        with open(path) as f:
+            for ln in f:
+                try:
+                    out.append(json.loads(ln))
+                except ValueError:
+                    pass        # a line still being written
+    return out
 
 
 class RoutingRecorder:
@@ -3218,10 +3531,11 @@ def main() -> int:
         train_launches, train_stats = phase_train(params, train_cfg, card,
                                                   power_w)
         # The dense model's params, gradients and optimizer state go
-        # before the MoE model is made.
+        # before the train worker and the MoE model are made.
         del params
         gc.collect()
         torch.cuda.empty_cache()
+        cluster_train_launches = phase_cluster_train(card, train_stats)
         moe_cfg = replace(train_cfg, **MOE)
         params = init_params(moe_cfg,
                              torch.Generator(device="cuda").manual_seed(2))
@@ -3262,8 +3576,11 @@ def main() -> int:
            for kname, line, n, m in (
                ("dkv", 1121, train_launches[1], moe_launches[1]),
                ("dq", 1456, train_launches[2], moe_launches[2]))]
-    for entry, n in zip(bwd, mesh_launches[1:]):
+    for entry, n, m in zip(bwd, mesh_launches[1:],
+                           cluster_train_launches[1:]):
         entry["mesh_train_launches"] = n
+        entry["cluster_train_launches_per_step"] = m
+        entry["cluster_train_launches_in"] = "the train worker process"
     shape, dtype, layout, qk_scale = F32_BWD_SHAPE
     bwd += [dict(name=f"flash_attn_bwd_{kname}_f32", route="cuda",
                  kernel=f"flash_bwd_{kname}_f32",
@@ -3291,6 +3608,8 @@ def main() -> int:
         moe_train_launches=moe_launches[0],
         moe_f32_grad_launches=moe_f32_launches[0],
         mesh_train_launches=mesh_launches[0],
+        cluster_train_launches_per_step=cluster_train_launches[0],
+        cluster_train_launches_in="the train worker process",
         shape=list(MAIN_SHAPE[0]), dtype=MAIN_SHAPE[1],
         layout=MAIN_SHAPE[2], **main_row,
         at_train_shape=dict(shape=list(TRAIN_SHAPE[0]),

@@ -19,16 +19,20 @@ Importing the package does not import torch: `resolve_device` loads on
 first use, so the GCS, raylet and worker processes start without it.
 """
 
-from ray_tpu_torch.core.actor import method
+from ray_tpu_torch.core.actor import ActorClass, ActorHandle, method
+from ray_tpu_torch.core.generator import ObjectRefGenerator
 from ray_tpu_torch.core.object_ref import ObjectRef
-from ray_tpu_torch.core.remote_function import remote
+from ray_tpu_torch.core.remote_function import RemoteFunction, remote
 from ray_tpu_torch.core.worker import (available_resources, cancel,
                                        cluster_resources, get, get_actor,
                                        init, is_initialized, kill, nodes, put,
                                        shutdown, timeline, wait)
 from ray_tpu_torch.runtime_context import get_runtime_context
 
+from ray_tpu_torch import exceptions  # noqa: E402
+from ray_tpu_torch import util  # noqa: E402
 
+__version__ = "0.1.0"
 
 def __getattr__(name):
     if name == "resolve_device":
@@ -39,8 +43,10 @@ def __getattr__(name):
 
 
 __all__ = [
-    "ObjectRef", "available_resources", "cancel", "cluster_resources", "get",
-    "get_actor", "get_runtime_context", "init", "is_initialized", "kill",
-    "method", "nodes", "put", "remote", "resolve_device", "shutdown",
-    "timeline", "wait",
+    "ActorClass", "ActorHandle", "ObjectRef", "ObjectRefGenerator",
+    "RemoteFunction", "remote", "method", "init", "shutdown",
+    "is_initialized", "get", "put", "wait", "kill", "cancel", "get_actor",
+    "nodes", "cluster_resources", "available_resources", "timeline",
+    "get_runtime_context", "exceptions", "util", "__version__",
+    "resolve_device",
 ]

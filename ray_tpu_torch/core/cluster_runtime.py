@@ -2,8 +2,8 @@
 port of `ray_tpu/core/cluster_runtime.py`.
 
 Left for later slices, each refusing with a message that names it:
-worker-direct dispatch rings (`submit_ring`), placement groups, sharded
-puts of device arrays, and compiled-graph channels. A lease's GPU ids
+worker-direct dispatch rings (`submit_ring`), sharded puts of device
+arrays, and compiled-graph channels. A lease's GPU ids
 become the worker's CUDA_VISIBLE_DEVICES (`_apply_visible_chips`).
 
 Reference equivalent: `src/ray/core_worker/` — one library linked into every
@@ -71,15 +71,168 @@ _MISS = object()
 INLINE_LIMIT_KEY = "max_direct_call_object_size"
 
 
-_PG_LATER = ("placement groups (core/pg_scheduler.py and the owner-led "
-             "2PC) come with a later slice of the port")
+async def schedule_placement_group(gcs, raylet_client_for, pg_id: str,
+                                   info: dict, *, attempts: int = 8
+                                   ) -> str:
+    """Owner-led placement-group 2PC (reference:
+    gcs_placement_group_scheduler.h, run from the creating worker here
+    like actor placement): select nodes against the GCS view, PREPARE a
+    reservation on each, COMMIT all on success, then CAS the group
+    CREATED — rolling back every reservation of a failed attempt,
+    committed ones included, so a crash anywhere in the protocol never
+    leaks capacity.
+
+    `gcs` needs get_placement_group/get_nodes/update_placement_group;
+    `raylet_client_for(address)` returns an object with `.call`.
+    Returns the terminal state written ("CREATED"/"INFEASIBLE"), or
+    the observed foreign state when someone else terminated the group
+    (e.g. "REMOVED"), or "UNKNOWN" when the control plane stayed
+    unreachable past every retry."""
+    from ray_tpu_torch.core import flight
+    from ray_tpu_torch.core.pg_scheduler import select_pg_nodes
+
+    bundles = info["bundles"]
+    detail = "no feasible placement"
+    for attempt in range(attempts):
+        try:
+            # The user may have removed the group while we were
+            # retrying; never resurrect it.
+            current = await gcs.get_placement_group(pg_id)
+            state = (current or {}).get("state")
+            if state != "PENDING":
+                return state or "UNKNOWN"
+            nodes = [n for n in await gcs.get_nodes()
+                     if n.get("alive")]
+            placement = select_pg_nodes(bundles, nodes,
+                                        info["strategy"],
+                                        info.get("target_node_ids"))
+            if placement is None and select_pg_nodes(
+                    bundles,
+                    [dict(n, resources_available=n.get("resources_total",
+                                                       {}))
+                     for n in nodes],
+                    info["strategy"], info.get("target_node_ids")) is None:
+                # Not even the live nodes' TOTAL resources hold it: no
+                # release of a reservation can make it fit, so waiting
+                # out the retries would only delay the verdict.
+                detail = ("infeasible: no placement fits the live nodes' "
+                          "total resources")
+                break
+            if placement is None:
+                await asyncio.sleep(0.25 * (attempt + 1))
+                continue
+            prepared: List[Tuple[int, dict]] = []
+            failure = None
+            try:
+                for idx, node in enumerate(placement):
+                    client = await raylet_client_for(node["address"])
+                    r = await client.call(
+                        "prepare_bundle", pg_id=pg_id, bundle_index=idx,
+                        resources=bundles[idx], timeout=10.0)
+                    if not r.get("ok"):
+                        failure = r.get("reason", "prepare rejected")
+                        break
+                    prepared.append((idx, node))
+                if failure is None:
+                    for idx, node in prepared:
+                        client = await raylet_client_for(node["address"])
+                        ok = await client.call("commit_bundle",
+                                               pg_id=pg_id,
+                                               bundle_index=idx,
+                                               timeout=10.0)
+                        if not ok:
+                            # Reservation vanished between prepare and
+                            # commit (raylet restart, concurrent
+                            # return): a CREATED verdict over it would
+                            # be a group nothing can lease against.
+                            failure = (f"commit rejected for bundle "
+                                       f"{idx}")
+                            break
+                if failure is None:
+                    # CAS on PENDING, INSIDE the try: a CAS that raises
+                    # must reach this attempt's rollback below — an
+                    # escaped exception here once leaked every committed
+                    # bundle when a later attempt landed on different
+                    # nodes (invisible to the reconciler, which skips
+                    # CREATED groups).
+                    ok = await gcs.update_placement_group(pg_id, {
+                        "state": "CREATED",
+                        "bundle_locations": [
+                            {"node_id": n["node_id"],
+                             "address": n["address"]} for n in placement],
+                    }, expect_state="PENDING")
+                    if ok:
+                        return "CREATED"
+                    failure = "cas rejected"
+            except Exception as e:  # noqa: BLE001
+                failure = str(e)
+            # CAS miss or error: only this owner ever writes CREATED, so
+            # a CREATED read means OUR update applied (at-least-once
+            # retry whose first ack was lost) — don't roll back a live
+            # group. Any other state (REMOVED by the user, INFEASIBLE by
+            # a reconciling raylet) means roll back and let the terminal
+            # state stand.
+            try:
+                cur = await gcs.get_placement_group(pg_id)
+                if (cur or {}).get("state") == "CREATED":
+                    return "CREATED"
+            except Exception:
+                pass  # unreachable: roll back; the reconciler re-syncs
+            # Roll back EVERYTHING reserved this attempt — including
+            # already-committed bundles — or the reservation leaks
+            # (neither the reaper nor remove would ever see it). A
+            # rollback that cannot reach its raylet (node died
+            # mid-2PC) is safe to skip: the dead node's ledger died
+            # with it, and a NOT-dead-but-partitioned raylet returns
+            # the orphan itself via _maybe_reconcile_bundles.
+            detail = failure or "removed concurrently"
+            if flight.enabled:
+                flight.instant("pg", "pg.rollback",
+                               arg=f"{pg_id[:8]} n={len(prepared)}")
+            for idx, node in prepared:
+                try:
+                    client = await raylet_client_for(node["address"])
+                    await client.call("return_bundle", pg_id=pg_id,
+                                      bundle_index=idx, timeout=10.0)
+                except Exception:
+                    pass
+            await asyncio.sleep(0.25 * (attempt + 1))
+        except Exception as e:  # noqa: BLE001
+            detail = str(e)
+            await asyncio.sleep(0.25 * (attempt + 1))
+    try:
+        ok = await gcs.update_placement_group(
+            pg_id, {"state": "INFEASIBLE", "detail": detail},
+            expect_state="PENDING")
+        if ok:
+            return "INFEASIBLE"
+        # CAS miss: someone else terminated the group (user remove, a
+        # reconciling raylet) while we backed off — report the state
+        # that actually stands, not a verdict that never wrote.
+        cur = await gcs.get_placement_group(pg_id)
+        return (cur or {}).get("state") or "UNKNOWN"
+    except Exception:
+        # Control plane unreachable for the whole schedule + final
+        # verdict: raylet-side reconciliation returns any committed
+        # bundles of the still-PENDING group after PG_STUCK_COMMIT_S.
+        logger.warning("could not record INFEASIBLE for pg %s", pg_id,
+                       exc_info=True)
+        return "UNKNOWN"
 
 
-def _refuse_placement_group(pg: Any) -> None:
-    """A placement-group option raises until placement groups come with
-    a later slice (every task and actor submission checks it first)."""
-    if pg is not None:
-        raise NotImplementedError(_PG_LATER)
+def _pg_id_of(pg: Any) -> Optional[str]:
+    """Normalize a placement-group option value (PlacementGroup object or
+    hex id string) to the hex id, or None."""
+    if pg is None:
+        return None
+    if isinstance(pg, str):
+        return pg
+    pid = getattr(pg, "id", None)
+    if isinstance(pid, str):
+        return pid
+    if pid is not None and hasattr(pid, "hex"):
+        return pid.hex()
+    raise ValueError(f"invalid placement_group option: {pg!r}")
 
 
 class _Owned:
@@ -306,6 +459,10 @@ class ClusterRuntime:
         self._generators: Dict[str, ObjectRefGenerator] = {}
         self._put_counter = _Counter()
         self._lease_pools: Dict[str, _LeasePool] = {}
+        # Placement groups: pg_id -> its CREATED record (bundle
+        # locations), and the round-robin cursor of bundle index -1.
+        self._pg_cache: Dict[str, dict] = {}
+        self._pg_rr: Dict[str, int] = {}
         # cancel(): owner-side cancel flags + where each task is running
         # (address, is_actor_task).
         self._cancel_requested: set = set()
@@ -456,6 +613,15 @@ class ClusterRuntime:
                 return
         if not addr:
             return
+        # Drop cached placement-group location tables naming the dead
+        # node: the GCS is rescheduling those bundles, and the next
+        # _pg_location refetches (waiting out RESCHEDULING) instead of
+        # leasing against a dead address forever.
+        for pg_id, info in list(self._pg_cache.items()):
+            if any(loc.get("address") == addr or loc.get("node_id")
+                   == node_id
+                   for loc in info.get("bundle_locations") or []):
+                self._pg_cache.pop(pg_id, None)
         lost = []
         with self._owned_lock:
             for oid, entry in self._owned.items():
@@ -1511,13 +1677,15 @@ class ClusterRuntime:
         resources = resource_demand(opts)
         md = getattr(opts, "_metadata", None)
         profile = bool(md and md.get("profile"))
-        _refuse_placement_group(getattr(opts, "placement_group", None))
         tkey = (fn_key, num_returns, streaming, opts.max_retries,
                 env_hash(raw_env) if raw_env else "",
+                _pg_id_of(getattr(opts, "placement_group", None)),
+                getattr(opts, "placement_group_bundle_index", -1),
                 tuple(sorted(resources.items())), profile)
         hit = self._spec_templates.get(tkey) if cacheable else None
         if hit is None:
             env = _prepared_env(self, opts)
+            pg = tkey[5]
             # Typed wire message (core/wire.py TaskSpec): field presence
             # and types are enforced at construction AND on the
             # receiver's validated decode.
@@ -1534,6 +1702,8 @@ class ClusterRuntime:
                 resources=resources,
                 max_retries=opts.max_retries,
                 runtime_env=env or None,
+                pg=(None if pg is None else {
+                    "pg_id": pg, "bundle_index": tkey[6]}),
                 trace_ctx=trace_ctx,
                 profile=profile or None,
             )
@@ -1552,8 +1722,11 @@ class ClusterRuntime:
     def _sched_key_of(spec) -> str:
         """Lease scheduling key (worker-compatibility class) of a task
         spec. Distinct runtime envs never share a leased worker."""
-        return (f"{spec['fn_key']}:{sorted(spec['resources'].items())}"
-                f":{env_hash(spec.get('runtime_env'))}")
+        pg = spec.get("pg")
+        key = (f"{spec['fn_key']}:{sorted(spec['resources'].items())}"
+               f":{pg['pg_id']}:{pg['bundle_index']}" if pg else
+               f"{spec['fn_key']}:{sorted(spec['resources'].items())}")
+        return key + f":{env_hash(spec.get('runtime_env'))}"
 
     def _enqueue_submit(self, item: tuple) -> None:
         """Queue a submission for the RPC loop, coalescing loop wakeups.
@@ -1768,7 +1941,8 @@ class ClusterRuntime:
             spec)
         _t0 = time.perf_counter() if attribution.enabled else 0.0
         _m0 = time.monotonic() if flight.enabled else 0.0
-        worker = await self._acquire_worker(key, spec["resources"])
+        worker = await self._acquire_worker(key, spec["resources"],
+                                            pg=spec.get("pg"))
         if attribution.enabled:
             attribution.record("submit.lease", time.perf_counter() - _t0)
         if flight.enabled:
@@ -1908,8 +2082,8 @@ class ClusterRuntime:
                     gen._finish()
 
     # -- lease pool ----------------------------------------------------
-    async def _acquire_worker(self, key: str, resources: Dict[str, float]
-                              ) -> dict:
+    async def _acquire_worker(self, key: str, resources: Dict[str, float],
+                              pg: Optional[dict] = None) -> dict:
         """Grab a leased worker for this scheduling key: an idle one
         immediately, else queue and keep up to MAX_INFLIGHT lease
         requests pipelined to the raylet. Completed tasks hand their
@@ -1930,28 +2104,30 @@ class ClusterRuntime:
         # deferred pump then sees them all — that is what lets a
         # batched lease RPC carry the whole burst instead of want=1
         # per waiter.
-        self._schedule_pump(pool, resources)
+        self._schedule_pump(pool, resources, pg)
         return await fut
 
     def _schedule_pump(self, pool: _LeasePool,
-                       resources: Dict[str, float]) -> None:
+                       resources: Dict[str, float],
+                       pg: Optional[dict]) -> None:
         if pool.pump_scheduled:
             return
         pool.pump_scheduled = True
 
         def _run() -> None:
             pool.pump_scheduled = False
-            self._pump_leases(pool, resources)
+            self._pump_leases(pool, resources, pg)
 
         asyncio.get_running_loop().call_soon(_run)
 
     def _pump_leases(self, pool: _LeasePool,
-                     resources: Dict[str, float]) -> None:
+                     resources: Dict[str, float],
+                     pg: Optional[dict]) -> None:
         """Keep lease requests pipelined for every queued waiter: RPCs
         are bounded by MAX_INFLIGHT, and each asks for up to
         lease_batch_max grants (one round trip leases a whole burst's
-        workers)."""
-        batch_max = self._lease_batch_max
+        workers; a PG-bundle lease stays single-grant)."""
+        batch_max = self._lease_batch_max if pg is None else 1
         # Expected grants are bounded by min(waiters, MAX_INFLIGHT):
         # batching collapses the RPC count for a burst, never
         # multiplies the raylet's queue churn past what single grants
@@ -1963,13 +2139,20 @@ class ClusterRuntime:
             pool.inflight_leases += want
             pool.inflight_rpcs += 1
             asyncio.ensure_future(
-                self._fetch_lease(pool, resources, want))
+                self._fetch_lease(pool, resources, pg, want))
 
     async def _fetch_lease(self, pool: _LeasePool,
                            resources: Dict[str, float],
-                           want: int = 1) -> None:
+                           pg: Optional[dict], want: int = 1) -> None:
         try:
-            workers = await self._lease_request_loop(resources, want)
+            bundle = None
+            address = None
+            if pg is not None:
+                address, idx = await self._pg_location(
+                    pg["pg_id"], pg["bundle_index"], demand=resources)
+                bundle = (pg["pg_id"], idx)
+            workers = await self._lease_request_loop(
+                resources, want, bundle=bundle, address=address)
         except Exception as e:  # noqa: BLE001
             pool.inflight_rpcs -= 1
             pool.inflight_leases -= want
@@ -1981,7 +2164,7 @@ class ClusterRuntime:
             # Surplus waiters beyond MAX_INFLIGHT still need lease
             # requests of their own — without this re-pump they would
             # wait forever once every inflight request has failed.
-            self._pump_leases(pool, resources)
+            self._pump_leases(pool, resources, pg)
             return
         pool.inflight_rpcs -= 1
         pool.inflight_leases -= want
@@ -1996,7 +2179,7 @@ class ClusterRuntime:
         # are served by lease REUSE, the contract
         # tests/test_unit_lease_pool pins.
         if len(workers) < want and pool.waiters:
-            self._pump_leases(pool, resources)
+            self._pump_leases(pool, resources, pg)
 
     def _offer_worker(self, key: str, worker: dict) -> None:
         """Put a leased worker (back) into circulation if it is alive,
@@ -2060,14 +2243,19 @@ class ClusterRuntime:
             await self._return_worker(worker)
 
     async def _lease_request_loop(self, resources: Dict[str, float],
-                                  n: int, is_actor: bool = False
+                                  n: int, is_actor: bool = False,
+                                  bundle: Optional[Tuple[str, int]] = None,
+                                  address: Optional[str] = None
                                   ) -> List[dict]:
         """The one lease-request state machine, single or batched
         (n > 1 → request_worker_leases; the reply may be a partial
         grant, and the caller re-pumps): connect dial policy, spillback
         chain, cancel-on-timeout and grant bookkeeping live HERE so the
         two paths can never drift."""
-        address = self.raylet_address
+        address = address or self.raylet_address
+        # PG-bundle leases are pinned to their reserved node; everything
+        # else reached via a non-local address is a spillback target.
+        pinned_address = address != self.raylet_address
         spillbacks = 0
         request_id = uuid.uuid4().hex
         while True:
@@ -2076,13 +2264,14 @@ class ClusterRuntime:
                 # (stale cluster view) must cost ~2s, not a full connect
                 # window per retry — fall back to the local raylet, whose
                 # view refreshes within the health-check period.
-                # The local raylet keeps the full window.
-                is_spillback_target = address != self.raylet_address
+                # Local and PG-pinned addresses keep the full window.
+                is_spillback_target = (not pinned_address
+                                       and address != self.raylet_address)
                 client = await self._raylet_client(
                     address,
                     connect_timeout=2.0 if is_spillback_target else 10.0)
             except (ConnectionLost, OSError):
-                if address == self.raylet_address:
+                if pinned_address or address == self.raylet_address:
                     raise
                 address = self.raylet_address
                 spillbacks += 1
@@ -2094,6 +2283,7 @@ class ClusterRuntime:
                     req=to_wire(WireLeaseRequest(
                         resources=resources, is_actor=is_actor,
                         spillback_count=spillbacks,
+                        bundle=list(bundle) if bundle else None,
                         request_id=request_id,
                         job_id=self.job_id.hex(), count=n)),
                     timeout=ray_config().worker_lease_timeout_ms / 1000.0)
@@ -2307,7 +2497,6 @@ class ClusterRuntime:
         from ray_tpu_torch.core.actor import ActorHandle
         from ray_tpu_torch.core.options import resource_demand
 
-        _refuse_placement_group(getattr(opts, "placement_group", None))
         actor_id = ActorID.of(self.job_id)
         aid = actor_id.hex()
         cls_key = self._fn.export(actor_class._cls)
@@ -2357,6 +2546,11 @@ class ClusterRuntime:
             "concurrency_groups": opts.concurrency_groups,
             "runtime_env": _prepared_env(self, opts),
             "class_name": actor_class._class_name,
+            "pg": ({"pg_id": _pg_id_of(opts.placement_group),
+                    "bundle_index": getattr(
+                        opts, "placement_group_bundle_index", -1)}
+                   if getattr(opts, "placement_group", None) is not None
+                   else None),
         }
         self._actors[aid] = state
         # Constructor-arg refs stay pinned for the actor's whole life: a
@@ -2380,6 +2574,13 @@ class ClusterRuntime:
 
     async def _create_actor_async(self, state: _ActorState) -> None:
         creation = state.creation
+        pg = creation.get("pg")
+        bundle = None
+        address = None
+        if pg is not None:
+            address, idx = await self._pg_location(
+                pg["pg_id"], pg["bundle_index"], demand=creation["demand"])
+            bundle = (pg["pg_id"], idx)
         # Lease timeouts are transient (busy/recovering cluster): retry a
         # few times before declaring the creation failed, like task
         # submission does.
@@ -2387,11 +2588,12 @@ class ClusterRuntime:
         while True:
             try:
                 worker = (await self._lease_request_loop(
-                    creation["demand"], 1, is_actor=True))[0]
+                    creation["demand"], 1, is_actor=True, bundle=bundle,
+                    address=address))[0]
                 break
             except (TimeoutError, asyncio.TimeoutError, OSError,
                     ConnectionLost):
-                # RpcError refusals (infeasible demand)
+                # RpcError refusals (infeasible demand, missing bundle)
                 # are deterministic — retrying them only delays the real
                 # error.
                 attempt += 1
@@ -2793,17 +2995,125 @@ class ClusterRuntime:
                                strategy: str = "PACK", name: str = "",
                                target_node_ids: Optional[List[str]] = None
                                ) -> str:
-        raise NotImplementedError(_PG_LATER)
+        from ray_tpu_torch.core.ids import PlacementGroupID
+        from ray_tpu_torch.core.pg_scheduler import validate_pg_args
+
+        validate_pg_args(bundles, strategy)
+        pg_id = PlacementGroupID.of(self.job_id).hex()
+        info = {
+            "bundles": [dict(b) for b in bundles],
+            "strategy": strategy,
+            "name": name,
+            "state": "PENDING",
+            "owner": self.address,
+            "target_node_ids": target_node_ids,
+            # A group created in an actor lives as long as that actor:
+            # the GCS removes it when the actor dies, and the raylets'
+            # reconcile returns its bundles.
+            "creator_actor_id": self._actor_id_hex,
+        }
+        self._loop.run(self._gcs.register_placement_group(pg_id, info))
+        self._loop.spawn(self._schedule_pg_async(pg_id, info))
+        return pg_id
+
+    async def _schedule_pg_async(self, pg_id: str, info: dict) -> None:
+        await schedule_placement_group(self._gcs, self._raylet_client,
+                                       pg_id, info)
 
     def placement_group_wait(self, pg_id: str,
                              timeout: Optional[float] = None) -> bool:
-        raise NotImplementedError(_PG_LATER)
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while True:
+            info = self._loop.run(self._gcs.get_placement_group(pg_id))
+            state = (info or {}).get("state")
+            if state == "CREATED":
+                return True
+            if state in ("INFEASIBLE", "REMOVED", None):
+                return False
+            if deadline is not None and time.monotonic() >= deadline:
+                return False
+            time.sleep(0.05)
 
     def remove_placement_group(self, pg_id: str) -> None:
-        raise NotImplementedError(_PG_LATER)
+        info = self._loop.run(self._gcs.get_placement_group(pg_id))
+        if info is None or info.get("state") == "REMOVED":
+            return
+
+        async def _remove():
+            # Record REMOVED FIRST, then return the bundles: any return
+            # that fails (dead raylet, dropped message, owner crash
+            # mid-loop) is mopped up by raylet-side reconciliation
+            # against the terminal state (_maybe_reconcile_bundles).
+            # The reverse order strands committed bundles behind a
+            # forever-CREATED record nobody will ever reclaim.
+            await self._gcs.update_placement_group(
+                pg_id, {"state": "REMOVED"})
+            for idx, loc in enumerate(info.get("bundle_locations") or []):
+                try:
+                    client = await self._raylet_client(loc["address"])
+                    await client.call("return_bundle", pg_id=pg_id,
+                                      bundle_index=idx, timeout=10.0)
+                except Exception:
+                    pass
+
+        self._loop.run(_remove(), timeout=30)
+        self._pg_cache.pop(pg_id, None)
 
     def placement_group_table(self, pg_id: Optional[str] = None):
-        raise NotImplementedError(_PG_LATER)
+        if pg_id is not None:
+            return self._loop.run(self._gcs.get_placement_group(pg_id))
+        return {p["pg_id"]: p
+                for p in self._loop.run(self._gcs.list_placement_groups())}
+
+    async def _pg_location(self, pg_id: str, bundle_index: int,
+                           demand: Optional[Dict[str, float]] = None
+                           ) -> Tuple[str, int]:
+        """Resolve (raylet_address, bundle_index) for a lease against a PG,
+        waiting for a still-scheduling group. bundle_index -1 → round-robin
+        over the bundles whose spec can hold `demand` (reference:
+        any-feasible-bundle semantics)."""
+
+        info = self._pg_cache.get(pg_id)
+        if info is None or info.get("state") != "CREATED":
+            # Generous deadline: the owner-side scheduler terminates in
+            # CREATED or INFEASIBLE after bounded attempts — but if the
+            # owner process died mid-scheduling the record stays PENDING
+            # forever, so don't spin unbounded on someone else's PG.
+            deadline = time.monotonic() + 300.0
+            while True:
+                info = await self._gcs.get_placement_group(pg_id)
+                state = (info or {}).get("state")
+                if state == "CREATED":
+                    self._pg_cache[pg_id] = info
+                    break
+                if state in ("REMOVED", "INFEASIBLE", None):
+                    raise ValueError(
+                        f"placement group {pg_id} is unusable "
+                        f"(state={state}: "
+                        f"{(info or {}).get('detail', '')})")
+                if time.monotonic() >= deadline:
+                    raise ValueError(
+                        f"placement group {pg_id} stuck PENDING for 300s "
+                        "(owner died mid-scheduling?)")
+                await asyncio.sleep(0.1)
+        locs = info["bundle_locations"]
+        if bundle_index is None or bundle_index < 0:
+            specs = info.get("bundles", [])
+            feasible = [i for i in range(len(locs))
+                        if not demand or not specs
+                        or all(specs[i].get(k, 0.0) + 1e-9 >= v
+                               for k, v in demand.items())]
+            if not feasible:
+                raise ValueError(
+                    f"no bundle of placement group {pg_id} can hold "
+                    f"{demand}; bundles: {specs}")
+            self._pg_rr[pg_id] = self._pg_rr.get(pg_id, -1) + 1
+            bundle_index = feasible[self._pg_rr[pg_id] % len(feasible)]
+        if bundle_index >= len(locs):
+            raise ValueError(
+                f"bundle index {bundle_index} out of range for placement "
+                f"group with {len(locs)} bundles")
+        return locs[bundle_index]["address"], bundle_index
 
     # ==================================================================
     # owner-side RPC service (reference: CoreWorkerService pubsub/locations)

@@ -467,6 +467,27 @@ class GcsClient:
     async def kv_exists(self, key: str) -> bool:
         return await self.rpc.call("kv_exists", key=key)
 
+    # -- placement groups ------------------------------------------------
+    async def register_placement_group(self, pg_id: str,
+                                       info: Dict[str, Any]) -> bool:
+        return await self.rpc.call("register_placement_group", pg_id=pg_id,
+                                   info=info)
+
+    async def update_placement_group(self, pg_id: str,
+                                     updates: Dict[str, Any],
+                                     expect_state: Optional[str] = None
+                                     ) -> bool:
+        return await self.rpc.call("update_placement_group", pg_id=pg_id,
+                                   updates=updates,
+                                   expect_state=expect_state)
+
+    async def get_placement_group(self, pg_id: str
+                                  ) -> Optional[Dict[str, Any]]:
+        return await self.rpc.call("get_placement_group", pg_id=pg_id)
+
+    async def list_placement_groups(self) -> List[Dict[str, Any]]:
+        return await self.rpc.call("list_placement_groups")
+
     # -- metrics pipeline + SLOs (round 17) -----------------------------
     async def query_metrics(self, series: str, window_s: float = 60.0,
                             agg: str = "raw",

@@ -12,9 +12,9 @@ State is held in a pluggable store (in-memory now, matching the reference's
 `InMemoryStoreClient`; a persistent backend can be swapped in for GCS
 fault tolerance like `RedisStoreClient`).
 
-The port's copy of `ray_tpu/core/gcs/server.py`. One GCS with its WAL:
-the HA replica set (`replication.py`) and the placement-group table wait
-for later slices, and `--replica-id` raises.
+The port's copy of `ray_tpu/core/gcs/server.py`. One GCS with its WAL
+and the placement-group table: the HA replica set (`replication.py`)
+waits for a later slice, and `--replica-id` raises.
 """
 
 from __future__ import annotations
@@ -51,6 +51,7 @@ class GcsServer:
         self.jobs: Dict[str, Dict[str, Any]] = {}
         self.kv: Dict[str, bytes] = {}
         self.workers: Dict[str, Dict[str, Any]] = {}
+        self.placement_groups: Dict[str, Dict[str, Any]] = {}
         # Task-event store, bounded (reference: GcsTaskManager's
         # max_num_task_events_stored).
         from collections import deque
@@ -68,6 +69,14 @@ class GcsServer:
         # the restarted server before we may judge them (set by
         # _load_storage when it recovers alive nodes).
         self._restart_grace_until = 0.0
+        # GCS-led placement-group rescheduling: pg_id -> the asyncio
+        # task re-placing its lost bundles. Spawned by _mark_node_dead,
+        # resumed at start() for groups recovered mid-RESCHEDULING,
+        # re-kicked by the health loop when a stuck group's cluster
+        # changes.
+        self._reschedule_tasks: Dict[str, asyncio.Task] = {}
+        # Outbound raylet clients for the reschedule 2PC.
+        self._raylet_clients: Dict[str, Any] = {}
         # -- metrics pipeline (round 17) ----------------------------------
         # metric_series is the PERSISTED half (series metadata: identity,
         # type, labels, help, boundaries — rides the WAL like any table);
@@ -131,6 +140,11 @@ class GcsServer:
             self.cluster_id = uuid.uuid4().hex
             self.kv["__cluster_id__"] = self.cluster_id.encode()
             self.mark_dirty("kv", "__cluster_id__")
+        # Crash-resume: a kill -9 mid-reschedule leaves groups
+        # RESCHEDULING (the transition was written through); a crash
+        # BEFORE the transition leaves a CREATED group pointing at a
+        # node recovered as dead. Both resume here.
+        await self._rescan_reschedules()
         if serve_rpc:
             await self._rpc.start()
         self._health_task = asyncio.ensure_future(self._health_loop())
@@ -157,7 +171,7 @@ class GcsServer:
     # reconciles the live view and clears the flag — no re-register RPC
     # needed, no herd.
     _PERSISTED_TABLES = ("nodes", "actors", "named_actors", "jobs",
-                         "kv", "metric_series")
+                         "placement_groups", "kv", "metric_series")
 
     def mark_dirty(self, table: Optional[str] = None,
                    *keys: str) -> None:
@@ -174,7 +188,7 @@ class GcsServer:
 
     async def flush_now(self) -> None:
         """Write-through for registration-class mutations (named actors,
-        KV, jobs): the reference GCS acks only after the store
+        KV, jobs, PGs): the reference GCS acks only after the store
         client persisted (redis_store_client.h), so a crash must not
         lose an acked registration. High-churn updates (heartbeats,
         actor state transitions) stay on the 1 Hz debounce."""
@@ -307,7 +321,8 @@ class GcsServer:
         # Recovered actor records point at pre-restart workers; their
         # liveness is re-established by owners / health checks. Recovered
         # NODE records carry a pre-crash resource view: mark them stale
-        # (cleared by their first live heartbeat) and open the post-restart grace window so the
+        # (cleared by their first live heartbeat; pg_scheduler deprefers
+        # stale views) and open the post-restart grace window so the
         # health loop cannot storm _mark_node_dead before the raylets
         # have had one full heartbeat interval to find us.
         recovered_alive = [n for n in self.nodes.values()
@@ -439,6 +454,15 @@ class GcsServer:
                 await self.flush_now()
             except Exception:
                 pass  # already logged; shutdown must proceed
+        for task in self._reschedule_tasks.values():
+            task.cancel()
+        self._reschedule_tasks.clear()
+        for client in self._raylet_clients.values():
+            try:
+                await client.close()
+            except Exception:
+                pass
+        self._raylet_clients.clear()
         await self._rpc.stop()
 
     # ------------------------------------------------------------------
@@ -467,6 +491,9 @@ class GcsServer:
                     logger.warning("node %s missed heartbeats; marking dead",
                                    node_id[:8])
                     await self._mark_node_dead(node_id)
+            # Re-kick stuck reschedules + the mid-pass-race safety net
+            # (one shared scan; see _rescan_reschedules).
+            await self._rescan_reschedules()
             # SLO burn-rate evaluation rides this loop rather than its
             # own task: the simcluster kill -9 cancels a known task set,
             # and one more periodic scan does not deserve one more task.
@@ -500,6 +527,116 @@ class GcsServer:
                 a["state"] = "DEAD"
                 a["death_cause"] = "node_died"
                 await self._publish(f"actor:{actor_id}", a)
+        # GCS-led PG rescheduling (round 15): a CREATED group with a
+        # bundle on the dead node goes RESCHEDULING (write-through CAS)
+        # and a recovery pass re-places only the lost bundles onto
+        # survivors. Owner-led recovery is impossible here — the owner
+        # may have died WITH the node. Same scan the health loop runs.
+        await self._rescan_reschedules()
+
+    # ------------------------------------------------------------------
+    # GCS-led placement-group rescheduling (round 15; reference:
+    # GcsPlacementGroupScheduler rescheduling on node removal)
+    # ------------------------------------------------------------------
+    async def _rescan_reschedules(self) -> None:
+        """The one reschedule scan (start() crash-resume, health loop):
+        RESCHEDULING groups get a live pass (stuck ones re-kick each
+        period — new node registrations make yesterday's infeasible
+        placement feasible), and CREATED groups naming a non-alive
+        node re-begin. The CREATED check is the SAFETY NET for the
+        mid-pass race: a node that dies while its group is already
+        RESCHEDULING is skipped by _mark_node_dead's CREATED-only
+        trigger, so the pass can land CREATED with a location table
+        naming the fresh corpse — this scan heals it."""
+        for pg_id, pg in list(self.placement_groups.items()):
+            state = pg.get("state")
+            if state == "RESCHEDULING":
+                self._spawn_reschedule(pg_id)
+            elif state == "CREATED" and any(
+                    not (self.nodes.get(loc.get("node_id")) or {})
+                    .get("alive", False)
+                    for loc in pg.get("bundle_locations") or []):
+                await self._begin_reschedule(pg_id)
+
+    async def _begin_reschedule(self, pg_id: str) -> None:
+        """CAS a CREATED group to RESCHEDULING (write-through: the
+        raylet reconciler must see the group still stands behind its
+        surviving bundles across a GCS crash) and spawn the recovery
+        pass."""
+        ok = await self.handle_update_placement_group(
+            None, pg_id=pg_id, updates={"state": "RESCHEDULING"},
+            expect_state="CREATED")
+        if ok:
+            self._spawn_reschedule(pg_id)
+
+    def _spawn_reschedule(self, pg_id: str) -> None:
+        task = self._reschedule_tasks.get(pg_id)
+        if task is not None and not task.done():
+            return
+        task = asyncio.ensure_future(self._reschedule_pg(pg_id))
+        self._reschedule_tasks[pg_id] = task
+        # Self-pruning: a finished pass must not pin its Task (frame,
+        # locals) for the life of the process under PG churn.
+        task.add_done_callback(
+            lambda t, pg_id=pg_id: (
+                self._reschedule_tasks.pop(pg_id, None)
+                if self._reschedule_tasks.get(pg_id) is t else None))
+
+    async def _reschedule_pg(self, pg_id: str) -> None:
+        from ray_tpu_torch.core.pg_scheduler import reschedule_placement_group
+
+        try:
+            state = await reschedule_placement_group(
+                self._local_accessor(), self._raylet_client_for, pg_id)
+            if state == "RESCHEDULING":
+                logger.warning(
+                    "placement group %s still RESCHEDULING after every "
+                    "attempt (no feasible placement); the health loop "
+                    "re-kicks when the cluster changes", pg_id[:8])
+        except Exception:
+            logger.warning("pg %s reschedule pass crashed", pg_id[:8],
+                           exc_info=True)
+
+    def _local_accessor(self) -> Any:
+        """What `reschedule_placement_group` needs from 'the GCS' — the
+        same three accessors the owner-side 2PC uses, served from our
+        own tables so the protocol definition stays shared."""
+        server = self
+
+        class _Accessor:
+            async def get_placement_group(self, pg_id):
+                return server.placement_groups.get(pg_id)
+
+            async def get_nodes(self):
+                return list(server.nodes.values())
+
+            async def update_placement_group(self, pg_id, updates,
+                                             expect_state=None):
+                return await server.handle_update_placement_group(
+                    None, pg_id=pg_id, updates=updates,
+                    expect_state=expect_state)
+
+        return _Accessor()
+
+    async def _raylet_client_for(self, address: str) -> Any:
+        """Outbound raylet client for the reschedule 2PC, dialled once
+        and cached."""
+        from ray_tpu_torch.core.rpc import RpcClient
+
+        client = self._raylet_clients.get(address)
+        if client is None or not client.connected:
+            if client is not None:
+                # Replace-without-close leaks the dead client's
+                # transport on every raylet flap.
+                try:
+                    await client.close()
+                except Exception:
+                    pass
+            client = RpcClient(address)
+            await client.connect(timeout=5.0)
+            self._raylet_clients[address] = client
+        return client
+
 
     # ------------------------------------------------------------------
     # pubsub
@@ -713,6 +850,8 @@ class GcsServer:
                     and self.named_actors.get(f"{ns}/{name}") == actor_id):
                 del self.named_actors[f"{ns}/{name}"]
                 self.mark_dirty("named_actors", f"{ns}/{name}")
+            if not restartable:
+                await self._remove_groups_of_creator(actor_id)
         return True
 
     async def handle_get_actor(self, conn: ServerConnection, *,
@@ -824,6 +963,76 @@ class GcsServer:
                                key: bytes) -> bool:
         k = key.decode() if isinstance(key, bytes) else key
         return k in self.kv
+
+    # ------------------------------------------------------------------
+    # placement groups (table only; 2PC runs between owner and raylets)
+    # ------------------------------------------------------------------
+    async def handle_register_placement_group(
+            self, conn: ServerConnection, *, pg_id: str,
+            info: Dict[str, Any]) -> bool:
+        self.placement_groups[pg_id] = dict(info, pg_id=pg_id)
+        self.mark_dirty("placement_groups", pg_id)
+        # Write-through: the registered record is what raylet-side
+        # bundle reconciliation trusts after a crash — a PG whose
+        # registration died with the debounce would read as "lost" and
+        # have its half-prepared bundles returned while the owner still
+        # believes it is scheduling (2PC atomicity, ISSUE 14).
+        await self.flush_now()
+        return True
+
+    async def handle_update_placement_group(
+            self, conn: ServerConnection, *, pg_id: str,
+            updates: Dict[str, Any],
+            expect_state: Optional[str] = None) -> bool:
+        """`expect_state` makes the update conditional (CAS): the async
+        owner-side scheduler must not resurrect a REMOVED group."""
+        info = self.placement_groups.get(pg_id)
+        if info is None:
+            return False
+        if expect_state is not None and info.get("state") != expect_state:
+            return False
+        info.update(updates)
+        self.mark_dirty("placement_groups", pg_id)
+        await self._publish(f"pg:{pg_id}", info)
+        if updates.get("state") in ("CREATED", "REMOVED", "INFEASIBLE",
+                                    "RESCHEDULING"):
+            # Terminal transitions are registration-class (see
+            # flush_now docstring): an acked CREATED that a kill -9
+            # forgets would leave committed bundles pointing at a
+            # PENDING ghost after restart — exactly the half-reserved
+            # state the chaos test forbids. RESCHEDULING writes through
+            # too: the recovery pass must resume (not vanish) across a
+            # GCS crash, and the raylet reconciler must keep standing
+            # behind the surviving bundles it reads this state for.
+            await self.flush_now()
+        return True
+
+    async def _remove_groups_of_creator(self, actor_id: str) -> None:
+        """A group created inside an actor lives as long as that actor
+        (upstream Ray: GcsPlacementGroupManager cleans a dead creator's
+        groups), as Tune's trial actor creates its gang's: mark its live
+        groups REMOVED. The raylets' bundle reconcile then returns their
+        reservations, since the creator that would have returned them is
+        gone."""
+        for pg_id, info in list(self.placement_groups.items()):
+            if (info.get("creator_actor_id") == actor_id
+                    and info.get("state") in ("PENDING", "CREATED",
+                                              "RESCHEDULING")):
+                await self.handle_update_placement_group(
+                    None, pg_id=pg_id,
+                    updates={"state": "REMOVED",
+                             "detail": f"creator actor {actor_id[:8]} "
+                                       "died"},
+                    expect_state=info.get("state"))
+
+    async def handle_get_placement_group(
+            self, conn: ServerConnection, *,
+            pg_id: str) -> Optional[Dict[str, Any]]:
+        return self.placement_groups.get(pg_id)
+
+    async def handle_list_placement_groups(
+            self, conn: ServerConnection) -> List[Dict[str, Any]]:
+        return list(self.placement_groups.values())
 
     # ------------------------------------------------------------------
     # metrics pipeline + SLOs (round 17 observability)

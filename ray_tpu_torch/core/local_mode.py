@@ -252,6 +252,7 @@ class LocalModeRuntime:
         self._generators: "weakref.WeakSet[ObjectRefGenerator]" = \
             weakref.WeakSet()
         self._kv: Dict[bytes, bytes] = {}
+        self._placement_groups: Dict[str, dict] = {}
         self._num_cpus = n
         self._shutdown = False
         # Set once at shutdown: threads of Serve that outlive a call
@@ -460,22 +461,67 @@ class LocalModeRuntime:
         num_returns = opts.num_returns
 
         def run():
+            from ray_tpu_torch.core.task_events import task_event_buffer
+
             token = _set_task_context(task_id=task_id)
+            buf = task_event_buffer()
+            job = self.job_id.hex()
+            buf.record(task_id.hex(), name, "RUNNING", job_id=job,
+                       node_id="local", worker_id="local")
+            ok = False
             try:
                 rargs, rkwargs = self._resolve_args(args, kwargs)
                 result = fn(*rargs, **rkwargs)
                 self._store_returns(task_id, num_returns, result)
+                ok = True
             except BaseException as e:  # noqa: BLE001
                 self._store_error(task_id, num_returns, name, e)
             finally:
+                buf.record(task_id.hex(), name,
+                           "FINISHED" if ok else "FAILED", job_id=job,
+                           node_id="local", worker_id="local")
                 _reset_task_context(token)
 
+        from ray_tpu_torch.core.task_events import task_event_buffer
+
+        task_event_buffer().record(
+            task_id.hex(), name, "SUBMITTED", job_id=self.job_id.hex(),
+            node_id="local", worker_id="local")
         self._task_futures[task_id] = self._pool.submit(run)
         refs = self._make_return_refs(task_id, max(num_returns, 1))
         self._task_returns[task_id] = [r.id() for r in refs]
         if num_returns == 0:
             return None
         return refs[0] if num_returns == 1 else refs
+
+    # -- placement groups (single node: reservation is a table entry) ----
+    def create_placement_group(self, bundles, strategy="PACK", name="",
+                               target_node_ids=None) -> str:
+        from ray_tpu_torch.core.ids import PlacementGroupID
+        from ray_tpu_torch.core.pg_scheduler import validate_pg_args
+
+        validate_pg_args(bundles, strategy)
+        pg_id = PlacementGroupID.of(self.job_id).hex()
+        self._placement_groups[pg_id] = {
+            "pg_id": pg_id, "bundles": [dict(b) for b in bundles],
+            "strategy": strategy, "name": name, "state": "CREATED",
+            "bundle_locations": [{"node_id": "local", "address": "local"}
+                                 for _ in bundles],
+        }
+        return pg_id
+
+    def placement_group_wait(self, pg_id, timeout=None) -> bool:
+        info = self._placement_groups.get(pg_id)
+        return bool(info and info["state"] == "CREATED")
+
+    def remove_placement_group(self, pg_id) -> None:
+        info = self._placement_groups.get(pg_id)
+        if info is not None:
+            info["state"] = "REMOVED"
+
+    def placement_group_table(self, pg_id=None):
+        table = self._placement_groups
+        return table.get(pg_id) if pg_id is not None else dict(table)
 
     def cancel(self, ref: ObjectRef, force: bool = False,
                recursive: bool = True) -> None:
@@ -671,13 +717,18 @@ class LocalModeRuntime:
         return self.cluster_resources()
 
     def task_events(self, job_id: Optional[str] = None):
-        raise NotImplementedError(
-            "task events come with the slice that ports core/task_events.py")
+        from ray_tpu_torch.core.task_events import task_event_buffer
+
+        return task_event_buffer().snapshot(job_id)
 
     def timeline(self, filename: Optional[str] = None):
-        raise NotImplementedError(
-            "the timeline comes with the slice that ports "
-            "core/task_events.py")
+        """Chrome-trace export of the in-process task events."""
+        from ray_tpu_torch.core.task_events import (events_to_chrome_trace,
+                                                    write_trace)
+
+        trace = events_to_chrome_trace(
+            self.task_events(self.job_id.hex()))
+        return write_trace(trace, filename)
 
     # -- internal kv -------------------------------------------------------
     def kv_put(self, key: bytes, value: bytes, overwrite: bool = True) -> bool:

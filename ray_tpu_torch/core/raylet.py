@@ -1,6 +1,6 @@
 """Raylet: per-node scheduler daemon + object-store host, the port of
 `ray_tpu/core/raylet.py`, where the reference's TPU chip ids become GPU
-instance ids (see `_take_chips`).
+instance ids (see `_take_gpus`).
 
 Reference equivalent: `src/ray/raylet/` — `NodeManager` (worker leasing
 `node_manager.cc:1767`, scheduling via `ClusterTaskManager`/
@@ -19,7 +19,7 @@ import os
 import subprocess
 import sys
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 from ray_tpu_torch.core.config import ray_config
 from ray_tpu_torch.core.gcs.client import GcsClient
@@ -41,6 +41,7 @@ class _Worker:
         self.actor_job_id: Optional[str] = None
         self.actor_detached = False
         self.held: Dict[str, float] = {}  # resources held by active lease
+        self.bundle_key: Optional[str] = None  # PG bundle the lease drew from
         self.chip_ids: List[int] = []  # GPU instance ids of this lease
         # The fraction of chip_ids[0] a fractional GPU lease holds (0.0
         # for whole instances).
@@ -55,13 +56,101 @@ class _Worker:
         self.blocked = False  # task blocked in get(): CPU released
 
 
+def _gpus_fit(free: List[int], partial: Dict[int, float], n: float) -> bool:
+    """Whether a pool of GPU instances (`free`: wholly free ids,
+    `partial`: id -> free fraction of a shared one) can hold a demand of
+    `n`: a whole demand needs that many wholly free ids, a fractional
+    one an instance with that fraction left (the pool's sum may fit
+    where no instance does)."""
+    if n <= 0:
+        return True
+    if n >= 1:
+        return len(free) >= int(n)
+    return bool(free) or any(f + 1e-9 >= n for f in partial.values())
+
+
+def _take_gpus(free: List[int], partial: Dict[int, float],
+               n: float) -> Tuple[List[int], float]:
+    """Take GPU instance ids for a demand of `n` from a pool; returns the
+    ids and the fraction of ids[0] held (0.0 for whole instances). A
+    whole demand takes ids from the front of the free list, as the
+    reference takes TPU chips. A fractional one shares an instance, as
+    upstream Ray packs GPUs (a CUDA card, unlike a TPU chip, opens in
+    several processes): the instance with the least fraction left that
+    still holds it, else the first wholly free id."""
+    if n <= 0:
+        return [], 0.0
+    if n < 1:
+        fits = [(f, i) for i, f in partial.items() if f + 1e-9 >= n]
+        if fits:
+            _, gid = min(fits)
+        else:
+            gid = free.pop(0)
+            partial[gid] = 1.0
+        partial[gid] -= n
+        return [gid], n
+    n = int(n)
+    taken, free[:] = free[:n], free[n:]
+    return taken, 0.0
+
+
+def _give_gpus(free: List[int], partial: Dict[int, float],
+               ids: List[int], share: float) -> None:
+    """Return what `_take_gpus` took (or a bundle's whole reservation)
+    to a pool; an instance whose shares all came back is wholly free."""
+    if share:
+        gid = ids[0]
+        partial[gid] = partial.get(gid, 0.0) + share
+        if partial[gid] >= 1.0 - 1e-9:
+            del partial[gid]
+            free.append(gid)
+    else:
+        free.extend(ids)
+
+
+class _Bundle:
+    """One reserved placement-group bundle on this node (reference:
+    `src/ray/raylet/placement_group_resource_manager.h` — prepared bundles
+    hold node resources; commit makes them leasable; return releases).
+    Its GPU ids come from the node's pool: `gpu_ids` are the ids it owns,
+    `chips`/`gpu_partial` the part of them no lease holds now."""
+
+    def __init__(self, resources: Dict[str, float], gpu_ids: List[int],
+                 share: float):
+        self.total = dict(resources)
+        self.available = dict(resources)
+        self.gpu_ids = list(gpu_ids)
+        self.chips: List[int] = [] if share else list(gpu_ids)
+        self.gpu_partial: Dict[int, float] = (
+            {gpu_ids[0]: share} if share else {})
+        self.committed = False
+        self.removed = False
+        self.prepared_at = time.monotonic()
+        self.committed_at = 0.0  # set by handle_commit_bundle
+
+    def in_use(self) -> Dict[str, float]:
+        return {k: self.total[k] - self.available.get(k, 0.0)
+                for k in self.total
+                if self.total[k] - self.available.get(k, 0.0) > 1e-9}
+
+
 class NodeLedger:
-    """Per-node resource accounting + the spillback policy — the
-    scheduling brain of a raylet, factored out of the process machinery
-    (workers, object store, sockets).
+    """Per-node resource accounting + placement-group 2PC + the
+    spillback policy — the scheduling brain of a raylet, factored out of
+    the process machinery (workers, object store, sockets).
 
     Consumers provide: `node_id`, `resources_total`,
-    `resources_available` and `_cluster_view` ({node_id: node info})."""
+    `resources_available`, `_bundles` ({key: _Bundle}), `_chips_free`
+    and `_gpu_partial` (the node's GPU pool), `_cluster_view`
+    ({node_id: node info}), and `_gcs` (a GcsClient) for bundle
+    reconciliation."""
+
+    # The bundle reconcile's period, and how long a committed bundle may
+    # wait for its group to reach CREATED before it is returned.
+    PG_RECONCILE_INTERVAL_S = 5.0
+    PG_STUCK_COMMIT_S = 60.0
+    # throttles _maybe_reconcile_bundles; instance attr once it runs
+    _last_bundle_reconcile = 0.0
 
     def _fits(self, avail: Dict[str, float],
               demand: Dict[str, float]) -> bool:
@@ -116,16 +205,202 @@ class NodeLedger:
             return self._pick_spillback(demand)
         return None
 
+    # ------------------------------------------------------------------
+    # placement-group bundles: 2PC reserve/commit/return (reference:
+    # node_manager.cc:1821 HandlePrepareBundleResources, :1837
+    # HandleCommitBundleResources + placement_group_resource_manager.h)
+    # ------------------------------------------------------------------
+    async def handle_prepare_bundle(self, conn: ServerConnection, *,
+                                    pg_id: str, bundle_index: int,
+                                    resources: Dict[str, float]
+                                    ) -> Dict[str, Any]:
+        key = f"{pg_id}:{bundle_index}"
+        if key in self._bundles and not self._bundles[key].removed:
+            return {"ok": True}  # idempotent re-prepare
+        demand = {k: float(v) for k, v in resources.items() if v}
+        if not self._fits(self.resources_available, demand):
+            return {"ok": False,
+                    "reason": f"insufficient resources for bundle {key}: "
+                              f"need {demand}, have "
+                              f"{self.resources_available}"}
+        gpus = demand.get("GPU", 0.0)
+        if not _gpus_fit(self._chips_free, self._gpu_partial, gpus):
+            return {"ok": False,
+                    "reason": f"no GPU instances for bundle {key}: need "
+                              f"{gpus}, free {self._chips_free}, shared "
+                              f"{self._gpu_partial}"}
+        self._acquire(demand)
+        ids, share = _take_gpus(self._chips_free, self._gpu_partial, gpus)
+        self._bundles[key] = _Bundle(demand, ids, share)
+        return {"ok": True}
+
+    async def handle_commit_bundle(self, conn: ServerConnection, *,
+                                   pg_id: str, bundle_index: int) -> bool:
+        b = self._bundles.get(f"{pg_id}:{bundle_index}")
+        if b is None or b.removed:
+            return False
+        b.committed = True
+        b.committed_at = time.monotonic()
+        return True
+
+    async def handle_return_bundle(self, conn: ServerConnection, *,
+                                   pg_id: str, bundle_index: int) -> bool:
+        return self._return_bundle(f"{pg_id}:{bundle_index}")
+
+    def _return_bundle(self, key: str) -> bool:
+        b = self._bundles.get(key)
+        if b is None or b.removed:
+            return False
+        # Unused share back to the pool now; b.total shrinks to the in-use
+        # share, which drains back as each outstanding lease ends
+        # (_release_lease_resources) — empty total deletes the entry.
+        b.removed = True
+        self._release(b.available)
+        _give_gpus(self._chips_free, self._gpu_partial, b.chips, 0.0)
+        for gid, share in b.gpu_partial.items():
+            _give_gpus(self._chips_free, self._gpu_partial, [gid], share)
+        b.total = b.in_use()
+        b.available = {}
+        b.chips = []
+        b.gpu_partial = {}
+        if not b.total:
+            del self._bundles[key]
+        return True
+
+    def _reap_stale_prepares(self) -> None:
+        """Drop prepared-but-never-committed bundles (owner died between
+        the 2PC phases) so their reservations don't leak."""
+        cutoff = time.monotonic() - 30.0
+        for key, b in list(self._bundles.items()):
+            if not b.committed and not b.removed and b.prepared_at < cutoff:
+                logger.warning("returning stale uncommitted bundle %s", key)
+                self._return_bundle(key)
+
+    async def _maybe_reconcile_bundles(self) -> None:
+        """Return committed bundles whose placement group the GCS no
+        longer stands behind — the cluster-wide rollback that a crash
+        anywhere in the 2PC (owner mid-commit, GCS mid-CAS, another
+        raylet mid-prepare) cannot perform itself. _reap_stale_prepares
+        covers the reserve phase; this covers the commit phase:
+
+        - group REMOVED / INFEASIBLE / unknown -> the reservation is a
+          leak, return it now;
+        - group still not CREATED `PG_STUCK_COMMIT_S` after our commit
+          -> the owner died between commit and the CREATED CAS, return.
+
+        Throttled to one GCS round trip per `PG_RECONCILE_INTERVAL_S`;
+        a GCS outage skips the pass (no false rollbacks on 'unknown
+        because unreachable')."""
+        committed = {key.split(":", 1)[0]
+                     for key, b in self._bundles.items()
+                     if b.committed and not b.removed}
+        if not committed:
+            return
+        now = time.monotonic()
+        if now - self._last_bundle_reconcile < self.PG_RECONCILE_INTERVAL_S:
+            return
+        self._last_bundle_reconcile = now
+        for pg_id in committed:
+            try:
+                info = await self._gcs.get_placement_group(pg_id)
+            except Exception:
+                return  # control plane unreachable: judge nothing
+            state = (info or {}).get("state")
+            if state == "CREATED":
+                # The group stands — but only behind the bundles its
+                # location table names. A commit that landed here during
+                # a crashed GCS reschedule pass whose final CAS chose a
+                # DIFFERENT node is an orphan reservation: nothing will
+                # ever lease or return it.
+                locs = (info or {}).get("bundle_locations") or []
+                for key, b in list(self._bundles.items()):
+                    if (not key.startswith(pg_id + ":") or not b.committed
+                            or b.removed):
+                        continue
+                    try:
+                        idx = int(key.rsplit(":", 1)[1])
+                    except ValueError:
+                        continue
+                    if (idx < len(locs)
+                            and locs[idx].get("node_id") != self.node_id
+                            and now - getattr(b, "committed_at", now)
+                            >= self.PG_STUCK_COMMIT_S):
+                        # The commit-age grace mirrors the PENDING
+                        # branch: a FRESH mislocated commit is most
+                        # likely an in-flight reschedule pass that
+                        # prepared+committed here while our CREATED
+                        # read was already in flight (stale snapshot)
+                        # — returning it would strand the location
+                        # table the pass is about to write. A genuine
+                        # crash orphan persists past the window and
+                        # still comes back.
+                        logger.warning(
+                            "returning bundle %s committed here but "
+                            "located on %s (rescheduled elsewhere)",
+                            key, locs[idx].get("node_id"))
+                        from ray_tpu_torch.core import flight
+
+                        if flight.enabled:
+                            flight.instant("pg", "pg.rollback", arg=key)
+                        self._return_bundle(key)
+                continue
+            if state == "RESCHEDULING":
+                # A member node died and the GCS is re-placing the LOST
+                # bundles; surviving reservations (ours) must hold — a
+                # rollback here would be the capacity the group still
+                # legitimately owns. The rescheduler's terminal CAS
+                # (back to CREATED) re-enables the location check above.
+                continue
+            if state == "PENDING":
+                if any(now - getattr(b, "committed_at", now)
+                       < self.PG_STUCK_COMMIT_S
+                       for key, b in self._bundles.items()
+                       if key.startswith(pg_id + ":") and b.committed
+                       and not b.removed):
+                    continue  # owner may still be driving the 2PC
+                # Expire the group ATOMICALLY before touching the
+                # ledger: a slow-but-live owner may be racing us toward
+                # its CREATED CAS, and returning the bundle first would
+                # manufacture a half-reserved CREATED group. Whoever
+                # wins the PENDING CAS defines the outcome — if the
+                # owner just won, our CAS misses and we keep the
+                # reservation; if we win, the owner's CREATED CAS
+                # misses and it rolls back cleanly.
+                try:
+                    won = await self._gcs.update_placement_group(
+                        pg_id, {"state": "INFEASIBLE",
+                                "detail": "committed bundle expired "
+                                          "waiting for CREATED "
+                                          f"(> {self.PG_STUCK_COMMIT_S}s)"},
+                        expect_state="PENDING")
+                except Exception:
+                    return  # control plane unreachable: judge nothing
+                if not won:
+                    continue  # owner terminated it; re-judge next pass
+            for key, b in list(self._bundles.items()):
+                if (key.startswith(pg_id + ":") and b.committed
+                        and not b.removed):
+                    logger.warning(
+                        "returning orphaned committed bundle %s "
+                        "(group state=%s)", key, state)
+                    from ray_tpu_torch.core import flight
+
+                    if flight.enabled:
+                        flight.instant("pg", "pg.rollback", arg=key)
+                    self._return_bundle(key)
+
 
 class _PendingLease:
     def __init__(self, demand: Dict[str, float], is_actor: bool,
                  scheduling_key: str,
+                 bundle_key: Optional[str] = None,
                  request_id: Optional[str] = None,
                  spillback_count: int = 0,
                  job_id: Optional[str] = None):
         self.demand = demand
         self.is_actor = is_actor
         self.scheduling_key = scheduling_key
+        self.bundle_key = bundle_key
         self.request_id = request_id
         self.spillback_count = spillback_count
         self.job_id = job_id
@@ -238,6 +513,8 @@ class Raylet(NodeLedger):
         self._workers: Dict[str, _Worker] = {}
         self._idle: List[_Worker] = []
         self._pending: List[_PendingLease] = []
+        # PG bundles reserved on this node, keyed "pg_id:bundle_index".
+        self._bundles: Dict[str, _Bundle] = {}
         # Per-instance GPU ids (reference: resource_instance_set.h):
         # wholly free ones in grant order, and the free fraction of each
         # instance that fractional leases share.
@@ -492,6 +769,11 @@ class Raylet(NodeLedger):
                     last_view = now
             except Exception:
                 logger.warning("heartbeat to GCS failed", exc_info=True)
+            self._reap_stale_prepares()
+            try:
+                await self._maybe_reconcile_bundles()
+            except Exception:
+                logger.warning("bundle reconcile failed", exc_info=True)
             self._spill_infeasible_pending()
             await asyncio.sleep(period)
 
@@ -843,6 +1125,7 @@ class Raylet(NodeLedger):
             resources: Optional[Dict[str, float]] = None,
             scheduling_key: str = "", is_actor: bool = False,
             spillback_count: int = 0,
+            bundle: Optional[List[Any]] = None,
             request_id: Optional[str] = None,
             job_id: Optional[str] = None) -> Dict[str, Any]:
         if req is not None:
@@ -853,13 +1136,14 @@ class Raylet(NodeLedger):
             lr = from_wire(req, expect="LeaseRequest")
             resources, scheduling_key = lr.resources, lr.scheduling_key
             is_actor, spillback_count = lr.is_actor, lr.spillback_count
-            request_id, job_id = lr.request_id, lr.job_id
+            bundle, request_id = lr.bundle, lr.request_id
+            job_id = lr.job_id
         return await self._deduped_lease_reply(
             request_id,
             lambda: self._lease_single(
                 conn, resources=resources, scheduling_key=scheduling_key,
                 is_actor=is_actor, spillback_count=spillback_count,
-                request_id=request_id, job_id=job_id))
+                bundle=bundle, request_id=request_id, job_id=job_id))
 
     async def _deduped_lease_reply(self, request_id: Optional[str],
                                    factory) -> Dict[str, Any]:
@@ -906,7 +1190,7 @@ class Raylet(NodeLedger):
             self, conn: ServerConnection, *,
             resources: Dict[str, float], scheduling_key: str,
             is_actor: bool, spillback_count: int,
-            request_id: Optional[str],
+            bundle: Optional[List[Any]], request_id: Optional[str],
             job_id: Optional[str]) -> Dict[str, Any]:
         demand = {k: float(v) for k, v in resources.items() if v}
         if logger.isEnabledFor(logging.DEBUG):
@@ -917,6 +1201,26 @@ class Raylet(NodeLedger):
                  for k, v in self.resources_available.items()
                  if k in ("CPU", "GPU")},
                 len(self._idle), len(self._pending))
+        if bundle is not None:
+            # Leases against a PG bundle are pinned to this node: no
+            # spillback, fail fast if the bundle is gone or can't fit.
+            key = f"{bundle[0]}:{bundle[1]}"
+            b = self._bundles.get(key)
+            if b is None or b.removed:
+                return {"error": "bundle_missing",
+                        "detail": f"bundle {key} not reserved on this node"}
+            if not self._fits(b.total, demand):
+                return {"error": "infeasible",
+                        "detail": f"demand {demand} exceeds bundle total "
+                                  f"{b.total}"}
+            pending = _PendingLease(demand, is_actor, scheduling_key,
+                                    bundle_key=key, request_id=request_id,
+                                    spillback_count=spillback_count,
+                                    job_id=job_id)
+            pending.conn = conn
+            self._pending.append(pending)
+            self._try_dispatch()
+            return await pending.future
         remote = self._maybe_spillback(demand, spillback_count)
         if remote is not None:
             return {"spillback": remote}
@@ -960,11 +1264,12 @@ class Raylet(NodeLedger):
         # the spread threshold (or that can't fit the demand) spills
         # the whole batch rather than packing onto a local idle worker
         # the unbatched path would have sent away.
-        remote = self._maybe_spillback(demand, lr.spillback_count)
-        if remote is not None:
-            return {"spillback": remote}
+        if lr.bundle is None:
+            remote = self._maybe_spillback(demand, lr.spillback_count)
+            if remote is not None:
+                return {"spillback": remote}
         grants: List[Dict[str, Any]] = []
-        while len(grants) < count:
+        while lr.bundle is None and len(grants) < count:
             granted = self._try_grant_now(
                 demand, lr.is_actor, lr.scheduling_key, conn,
                 lr.request_id, lr.job_id)
@@ -981,7 +1286,8 @@ class Raylet(NodeLedger):
         # workers serially, one per grant round trip (the unbatched
         # path queued N pendings and spawned N at once). When resources
         # are the constraint, spawning would only stack idle processes.
-        if self._fits(self.resources_available, demand):
+        if (lr.bundle is None
+                and self._fits(self.resources_available, demand)):
             starting = sum(1 for w in self._workers.values()
                            if w.state == "starting")
             for _ in range(count - starting):
@@ -993,7 +1299,7 @@ class Raylet(NodeLedger):
         return await self._lease_single(
             conn, resources=lr.resources,
             scheduling_key=lr.scheduling_key, is_actor=lr.is_actor,
-            spillback_count=lr.spillback_count,
+            spillback_count=lr.spillback_count, bundle=lr.bundle,
             request_id=lr.request_id, job_id=lr.job_id)
 
     def _try_grant_now(self, demand: Dict[str, float], is_actor: bool,
@@ -1119,52 +1425,28 @@ class Raylet(NodeLedger):
                 "capacity": self.store.capacity,
                 "objects": self.store.object_inventory()}
 
-    def _lease_source(self, pending: "_PendingLease"
-                      ) -> Optional[Dict[str, float]]:
-        """The resource pool this lease draws from, the node's free pool,
-        or None when it can't run now."""
-        return (self.resources_available
-                if (self._fits(self.resources_available, pending.demand)
-                    and self._gpus_fit(pending.demand.get("GPU", 0.0)))
-                else None)
-
-    def _gpus_fit(self, n: float) -> bool:
-        """Whether the node's GPU instances can hold a demand of `n`: a
-        whole demand needs that many wholly free ids, a fractional one an
-        instance with that fraction left (the pool's sum may fit where no
-        instance does)."""
-        if n <= 0:
-            return True
-        if n >= 1:
-            return len(self._chips_free) >= int(n)
-        return bool(self._chips_free) or any(
-            free + 1e-9 >= n for free in self._gpu_partial.values())
-
-    def _take_chips(self, pending: "_PendingLease") -> List[int]:
-        """Assign GPU instance ids for the lease; the worker sees them as
-        its `CUDA_VISIBLE_DEVICES`. A whole demand takes ids from the
-        front of the free list, as the reference takes TPU chips. A
-        fractional one shares an instance, as upstream Ray packs GPUs
-        (a CUDA card, unlike a TPU chip, opens in several processes):
-        the instance with the least fraction left that still holds it,
-        else the first wholly free id."""
-        n = float(pending.demand.get("GPU", 0.0))
-        if n <= 0:
-            return []
-        if n < 1:
-            fits = [(free, i) for i, free in self._gpu_partial.items()
-                    if free + 1e-9 >= n]
-            if fits:
-                _, gid = min(fits)
-            else:
-                gid = self._chips_free.pop(0)
-                self._gpu_partial[gid] = 1.0
-            self._gpu_partial[gid] -= n
-            return [gid]
-        n = int(n)
-        taken, self._chips_free[:] = (self._chips_free[:n],
-                                      self._chips_free[n:])
-        return taken
+    def _lease_pools(self, pending: "_PendingLease") -> Optional[tuple]:
+        """The pools this lease draws from, (resources, free GPU ids,
+        shared GPU fractions): a PG bundle's reserved ones, or the
+        node's. None = can't run now."""
+        if pending.bundle_key is not None:
+            b = self._bundles.get(pending.bundle_key)
+            if b is None or b.removed:
+                if not pending.future.done():
+                    pending.future.set_result({
+                        "error": "bundle_missing",
+                        "detail": f"bundle {pending.bundle_key} was removed"})
+                self._pending.remove(pending)
+                return None
+            pools = (b.available, b.chips, b.gpu_partial)
+        else:
+            pools = (self.resources_available, self._chips_free,
+                     self._gpu_partial)
+        if (self._fits(pools[0], pending.demand)
+                and _gpus_fit(pools[1], pools[2],
+                              pending.demand.get("GPU", 0.0))):
+            return pools
+        return None
 
     def _try_dispatch(self) -> None:
         if self._stopping:
@@ -1173,8 +1455,8 @@ class Raylet(NodeLedger):
         while made_progress and self._pending:
             made_progress = False
             for pending in list(self._pending):
-                source = self._lease_source(pending)
-                if source is None:
+                pools = self._lease_pools(pending)
+                if pools is None:
                     continue
                 worker = self._get_idle_worker(
                     fresh=pending.demand.get("GPU", 0.0) > 0)
@@ -1194,8 +1476,10 @@ class Raylet(NodeLedger):
                         self._spawn_worker()
                     break
                 self._pending.remove(pending)
-                chips = self._take_chips(pending)
-                self._acquire(pending.demand)
+                chips, share = _take_gpus(pools[1], pools[2],
+                                          pending.demand.get("GPU", 0.0))
+                for k, v in pending.demand.items():
+                    pools[0][k] = pools[0].get(k, 0.0) - v
                 self._next_lease += 1
                 lease_id = f"{self.node_id[:8]}-{self._next_lease}"
                 worker.state = "actor" if pending.is_actor else "leased"
@@ -1203,10 +1487,10 @@ class Raylet(NodeLedger):
                 worker.granted_at = time.monotonic()
                 worker.lease_job_id = pending.job_id
                 worker.held = dict(pending.demand)
+                worker.bundle_key = pending.bundle_key
                 worker.chip_ids = chips
+                worker.gpu_share = share
                 worker.used = True
-                gpus = pending.demand.get("GPU", 0.0)
-                worker.gpu_share = gpus if 0 < gpus < 1 else 0.0
                 self._lease_conns[lease_id] = (worker.worker_id,
                                                pending.conn)
                 if pending.request_id is not None:
@@ -1224,6 +1508,7 @@ class Raylet(NodeLedger):
                             "lease_id": lease_id,
                             "node_id": self.node_id,
                             "resources": pending.demand,
+                            "bundle": pending.bundle_key,
                             "chip_ids": chips,
                         }})
                 made_progress = True
@@ -1272,16 +1557,28 @@ class Raylet(NodeLedger):
     # HandleNotifyDirectCallTaskBlocked/Unblocked — a task blocked in
     # ray.get releases its CPU so downstream tasks can schedule;
     # without this, N consumers blocked on N producers deadlock a node)
+    def _blocked_cpu_pool(self, w: _Worker) -> Optional[Dict[str, float]]:
+        """Where a blocked worker's CPU goes back to: its PG bundle's
+        available set when leased from one (and the bundle still lives),
+        else the node pool."""
+        if w.bundle_key is not None:
+            b = self._bundles.get(w.bundle_key)
+            if b is None or b.removed:
+                return None
+            return b.available
+        return self.resources_available
+
     async def handle_worker_blocked(self, conn: ServerConnection, *,
                                     worker_id: str) -> bool:
         w = self._workers.get(worker_id)
         if (w is not None and not w.blocked
                 and w.state in ("leased", "actor")
                 and w.held.get("CPU")):
-            w.blocked = True
-            pool = self.resources_available
-            pool["CPU"] = pool.get("CPU", 0.0) + w.held["CPU"]
-            self._try_dispatch()
+            pool = self._blocked_cpu_pool(w)
+            if pool is not None:
+                w.blocked = True
+                pool["CPU"] = pool.get("CPU", 0.0) + w.held["CPU"]
+                self._try_dispatch()
         return True
 
     async def handle_worker_unblocked(self, conn: ServerConnection, *,
@@ -1289,32 +1586,52 @@ class Raylet(NodeLedger):
         w = self._workers.get(worker_id)
         if w is not None and w.blocked:
             w.blocked = False
-            # May transiently oversubscribe (go negative) — new leases
-            # stop until something frees, as the reference.
-            pool = self.resources_available
-            pool["CPU"] = pool.get("CPU", 0.0) - w.held.get("CPU", 0.0)
+            pool = self._blocked_cpu_pool(w)
+            if pool is not None:
+                # May transiently oversubscribe (go negative) — new
+                # leases stop until something frees, as the reference.
+                pool["CPU"] = pool.get("CPU", 0.0) - w.held.get("CPU",
+                                                               0.0)
         return True
 
     def _release_lease_resources(self, worker: _Worker) -> None:
+        """Return a lease's resources and GPU ids to where they came
+        from: the PG bundle if it's still live, else the node pool (a
+        removed bundle's in-use share flows back to the pool as its
+        leases end)."""
         if worker.blocked:
             # The blocked release already returned the CPU to its pool;
             # re-take it first so the normal release below is exact.
             worker.blocked = False
-            pool = self.resources_available
-            pool["CPU"] = pool.get("CPU", 0.0) - worker.held.get("CPU", 0.0)
-        # Return the lease's resources and GPU ids to the node pool.
-        self._release(worker.held)
-        if worker.gpu_share:
-            gid = worker.chip_ids[0]
-            self._gpu_partial[gid] += worker.gpu_share
-            if self._gpu_partial[gid] >= 1.0 - 1e-9:
-                del self._gpu_partial[gid]
-                self._chips_free.append(gid)
+            pool = self._blocked_cpu_pool(worker)
+            if pool is not None:
+                pool["CPU"] = pool.get("CPU", 0.0) - worker.held.get(
+                    "CPU", 0.0)
+        b = (self._bundles.get(worker.bundle_key)
+             if worker.bundle_key else None)
+        if b is not None and not b.removed:
+            for k, v in worker.held.items():
+                b.available[k] = min(b.available.get(k, 0.0) + v,
+                                     b.total.get(k, v))
+            _give_gpus(b.chips, b.gpu_partial, worker.chip_ids,
+                       worker.gpu_share)
         else:
-            self._chips_free.extend(worker.chip_ids)
+            self._release(worker.held)
+            _give_gpus(self._chips_free, self._gpu_partial,
+                       worker.chip_ids, worker.gpu_share)
+            if b is not None:
+                # Removed bundle draining: shrink its in-use record and
+                # drop the entry once the last lease ends.
+                for k, v in worker.held.items():
+                    b.total[k] = b.total.get(k, 0.0) - v
+                    if b.total[k] <= 1e-9:
+                        del b.total[k]
+                if not b.total:
+                    self._bundles.pop(worker.bundle_key, None)
         worker.held = {}
         worker.chip_ids = []
         worker.gpu_share = 0.0
+        worker.bundle_key = None
 
     async def handle_cancel_lease_request(self, conn: ServerConnection, *,
                                           request_id: str) -> bool:
@@ -1408,7 +1725,14 @@ class Raylet(NodeLedger):
             worker.actor_job_id = job_id
             worker.actor_detached = detached
             if release:
-                self._release(release)
+                b = (self._bundles.get(worker.bundle_key)
+                     if worker.bundle_key else None)
+                if b is not None and not b.removed:
+                    for k, v in release.items():
+                        b.available[k] = min(b.available.get(k, 0.0) + v,
+                                             b.total.get(k, v))
+                else:
+                    self._release(release)
                 for k, v in release.items():
                     worker.held[k] = worker.held.get(k, 0.0) - v
                     if worker.held[k] <= 1e-9:
@@ -1775,6 +2099,11 @@ class Raylet(NodeLedger):
                  "lease_id": w.lease_id, "held": dict(w.held),
                  "actor": w.actor_id, "alive": w.proc.poll() is None}
                 for w in self._workers.values()],
+            "bundles": {k: {"total": b.total, "available": b.available,
+                            "committed": b.committed,
+                            "gpu_ids": b.gpu_ids}
+                        for k, b in self._bundles.items() if not b.removed},
+            "gpus_free": list(self._chips_free),
             "store": self.store.stats(),
             "object_manager": {
                 **self._pulls.stats,

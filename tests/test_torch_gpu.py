@@ -522,3 +522,119 @@ def test_cluster_gpu_lease_shows_its_card(card, num_gpus, want_visible,
     finally:
         ray_tpu_torch.shutdown()
     assert got == (want_visible, want_count)
+
+
+_CARD_TRAIN = dict(vocab_size=64, d_model=128, n_layers=2, n_heads=1,
+                   d_ff=256, max_seq_len=256)
+_CARD_TRAIN_STEPS = 3
+
+
+def _card_train_losses(config=None):
+    """A narrow bf16 transformer's train steps on this process's card (K1,
+    K2, K3 at head dim 128): the losses and each step's launches."""
+    from ray_tpu_torch.parallel import adamw, make_train_step
+
+    cfg = TransformerConfig(dtype=torch.bfloat16, remat=True,
+                            remat_policy="save_attn_qkv", **_CARD_TRAIN)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    optimizer = adamw(1e-3)
+    opt_state = optimizer.init(params)
+    step = make_train_step(lambda p, b: lm_loss(p, b, cfg), optimizer)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 129),
+                                     generator=gen, device="cuda")}
+    out = []
+    for _ in range(_CARD_TRAIN_STEPS):
+        before = (flash_attn.launches, flash_attn.dkv_launches,
+                  flash_attn.dq_launches)
+        params, opt_state, loss = step(params, opt_state, batch)
+        after = (flash_attn.launches, flash_attn.dkv_launches,
+                 flash_attn.dq_launches)
+        out.append((loss.item(), [a - b for a, b in zip(after, before)]))
+    return out
+
+
+def _card_train_loop(config):
+    from ray_tpu_torch import train
+
+    for loss, launches in _card_train_losses():
+        train.report({"loss": loss, "launches": launches,
+                      "visible": __import__("os").environ.get(
+                          "CUDA_VISIBLE_DEVICES")})
+
+
+def test_torch_trainer_on_card_matches_in_process(card, tmp_path):
+    """A 1-worker `TorchTrainer` gang leasing the card (NCCL, world 1)
+    runs the narrow model's steps with the losses of the same steps run
+    in this process, K1, K2 and K3 once per layer per step in the
+    worker."""
+    import ray_tpu_torch
+    from ray_tpu_torch import train
+
+    want = _card_train_losses()
+    ray_tpu_torch.init(num_cpus=2)
+    try:
+        result = train.TorchTrainer(
+            _card_train_loop,
+            scaling_config=train.ScalingConfig(num_workers=1, use_gpu=True,
+                                               gpus_per_worker=1),
+            run_config=train.RunConfig(name="card",
+                                       storage_path=str(tmp_path))).fit()
+    finally:
+        ray_tpu_torch.shutdown()
+    got = [(m["loss"], m["launches"]) for m in result.metrics_history]
+    assert got == [(loss, [2, 2, 2]) for loss, _ in want]
+    assert {m["visible"] for m in result.metrics_history} == {"0"}
+
+
+def test_bundle_gpu_lease_shows_its_card(card):
+    """A placement group's bundle reserves the card; whole and half GPU
+    leases inside it see that card, and the group's removal frees it."""
+    import ray_tpu_torch
+    from ray_tpu_torch.util import placement_group, remove_placement_group
+
+    ray_tpu_torch.init(num_cpus=2)
+    try:
+        pg = placement_group([{"CPU": 1, "GPU": 1}])
+        assert pg.wait(30)
+        got = [ray_tpu_torch.get(
+            ray_tpu_torch.remote(num_gpus=n)(_visible_card).options(
+                placement_group=pg, placement_group_bundle_index=0,
+                _metadata={"inline": False}).remote(), timeout=120)
+            for n in (1, 0.5)]
+        remove_placement_group(pg)
+    finally:
+        ray_tpu_torch.shutdown()
+    assert got == [("0", 1), ("0", 1)]
+
+
+def _nccl_sum_loop(config):
+    import torch.distributed as dist
+
+    from ray_tpu_torch import train
+
+    x = torch.full((4,), float(train.get_world_rank() + 1), device="cuda")
+    dist.all_reduce(x)
+    train.report({"sum": x[0].item(), "backend": dist.get_backend()})
+
+
+def test_nccl_gang_of_two_ranks(card, tmp_path):
+    """Two workers, one card each, all-reduce over NCCL. NCCL takes one
+    rank per card, so this needs two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip(f"needs 2 CUDA cards for 2 NCCL ranks (one rank per "
+                    f"card); this machine has {torch.cuda.device_count()}")
+    import ray_tpu_torch
+    from ray_tpu_torch import train
+
+    ray_tpu_torch.init(num_cpus=4)
+    try:
+        result = train.TorchTrainer(
+            _nccl_sum_loop,
+            scaling_config=train.ScalingConfig(num_workers=2, use_gpu=True,
+                                               gpus_per_worker=1),
+            run_config=train.RunConfig(name="nccl",
+                                       storage_path=str(tmp_path))).fit()
+    finally:
+        ray_tpu_torch.shutdown()
+    assert result.metrics == {"sum": 3.0, "backend": "nccl"}

@@ -256,12 +256,20 @@ def assert_deltas_close(got, want):
 def test_full_4d_training_step(sp2_run):
     """Every parallelism mode in one train step: pp 2 (GPipe), sp 2 (the
     ring in the stages), tp 2, experts over dp. The first step's AdamW
-    deltas match JAX's; 8 steps lower the loss, as JAX's do. The loss
-    includes aux, which under sp is each sequence block's own: the port
-    adds their mean (the objective JAX's gradient follows, since its
-    transpose splits a replicated output's cotangent over the sp blocks),
-    while JAX's value is one block's, so the losses agree to 2e-3 here,
-    not to float32 noise."""
+    deltas match JAX's; 8 steps lower the loss, as JAX's do.
+
+    The loss VALUES differ by design, which is why they agree to 2e-3
+    here and not to float32 noise. Under sp > 1 the MoE aux is each
+    sequence block's own (its tokens' routing). The port's loss adds the
+    mean of the sp blocks' aux: the objective whose gradient both
+    packages take, since JAX's transpose splits a replicated output's
+    cotangent over the sp blocks. JAX's returned value instead carries
+    one block's aux (the value of the replicated output it reads off its
+    first device). The two values differ by aux_loss_weight times the
+    spread of aux over the blocks, inside the 2e-3 relative held here; the gradients
+    and so the AdamW deltas are the same. The port keeps the mean: it is
+    the value of the objective it trains, where JAX's is an artifact of
+    which block's copy it reads."""
     inputs, results = sp2_run
     moe, toks = inputs["moe"]
     want_losses, want_delta = jax_steps(jcfg(MOE), moe, toks, (1, 2, 2, 2),

@@ -329,8 +329,8 @@ def test_init_and_what_waits_for_later_slices(both):
     # init(address=...) joins a cluster, as the reference's does: where
     # nothing listens, both fail to reach the GCS with the same error.
     assert _init_unreachable(ref, port) == ["ConnectionLost"] * 2
-    with pytest.raises(NotImplementedError, match="task_events"):
-        port.timeline()
+    # The timeline is served from the port's task events now.
+    assert isinstance(port.timeline(), list)
     res = port.cluster_resources()
     assert res["CPU"] > 0 and "TPU" not in res
 
@@ -379,3 +379,72 @@ def test_task_error_is_a_ray_task_error(both):
 
     with pytest.raises(RayTaskError):
         port.get(fail.remote())
+
+
+def _task_event_traces(pkg, fn_ok, fn_bad):
+    """What `pkg`'s in-process runtime records for one task that returns
+    and one that raises: each event's keys and the events in order for
+    each task name, and the timeline's slice and instant keys."""
+    job = pkg.core.worker.current_runtime().job_id.hex()
+    before = len(pkg.core.worker.current_runtime().task_events(job))
+    ok, bad = pkg.remote(fn_ok), pkg.remote(fn_bad)
+    assert pkg.get(ok.remote(3)) == 4
+    with pytest.raises(Exception):
+        pkg.get(bad.remote(0))
+    events = pkg.core.worker.current_runtime().task_events(job)[before:]
+    by_name = {}
+    for e in events:
+        by_name.setdefault(e["name"].rsplit(".", 1)[-1], []).append(
+            e["event"])
+    trace = pkg.timeline()
+    return {"keys": sorted({k for e in events for k in e}),
+            "events": {k: sorted(v) for k, v in by_name.items()},
+            "slice_keys": sorted({k for t in trace if t["ph"] == "X"
+                                  for k in t}),
+            "instant_keys": sorted({k for t in trace if t["ph"] == "i"
+                                    for k in t})}
+
+
+def event_inc(x):
+    return x + 1
+
+
+def event_boom(x):
+    raise ValueError("boom")
+
+
+def test_local_mode_task_events_match_reference(both):
+    """Local mode records SUBMITTED, RUNNING and FINISHED or FAILED for
+    each task, with the reference's keys, and `timeline` turns them into
+    the reference's Chrome-trace records."""
+    ref, port = both
+    want = _task_event_traces(ref, event_inc, event_boom)
+    got = _task_event_traces(port, event_inc, event_boom)
+    assert got == want
+    assert got["events"] == {
+        "event_inc": ["FINISHED", "RUNNING", "SUBMITTED"],
+        "event_boom": ["FAILED", "RUNNING", "SUBMITTED"]}
+
+
+def test_top_level_names_match_reference():
+    """`ray_tpu_torch` exports every name of `ray_tpu.__all__` (and
+    `resolve_device`, its own), and importing it loads no torch."""
+    import subprocess
+    import sys
+
+    assert set(ray_tpu.__all__) <= set(ray_tpu_torch.__all__)
+    assert set(ray_tpu_torch.__all__) - set(ray_tpu.__all__) == {
+        "resolve_device"}
+    for name in ray_tpu.__all__:
+        assert hasattr(ray_tpu_torch, name), name
+    assert ray_tpu_torch.exceptions.TaskCancelledError.__name__ == \
+        "TaskCancelledError"
+    assert {"PlacementGroup", "placement_group", "remove_placement_group",
+            "placement_group_table", "get_current_placement_group"} <= set(
+                ray_tpu_torch.util.__all__)
+    out = subprocess.run(
+        [sys.executable, "-c", "import sys, ray_tpu_torch; "
+         "ray_tpu_torch.util; print('torch' in sys.modules)"],
+        capture_output=True, text=True, timeout=60)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["False"]

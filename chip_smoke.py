@@ -132,6 +132,30 @@ result line:
    after shutdown. Prints the worker's step ms beside the train phase's
    and the restart's split (detect, group re-reserve, worker start with
    imports, first step);
+9b. data: the Data library on the cluster runtime. (a) 48 sequences of
+   512 tokens (numpy seed) in 12 blocks of 4 through
+   `map_batches(FlagshipScorer, compute="actors", concurrency=2,
+   num_gpus=0.5)`: two replica processes sharing the card, each making the
+   float32 flagship from this script's seed and scoring each sequence by
+   its mean logit; gated on the scores within 1e-3 (relative to their
+   largest) of an in-process float32 forward of the same blocks, K1 (f32)
+   launched 12 times a block in the replicas (144 in all), the stats'
+   two `actor_pool_map[replica=N]` entries, and the replicas gone within
+   10 s of the stage; sequences/s and tokens/s through the pool beside
+   the in-process forward's. (b) 6 batches of bench.py's train shape
+   (96 x 1025 tokens, numpy seed) as `from_numpy` in 12 blocks, then
+   `random_shuffle(seed=0)`, into `TorchTrainer(datasets={"train": ds})`
+   with one worker leasing the card (NCCL world 1), whose loop runs the
+   train phase's step over `get_dataset_shard("train").iter_torch_batches(
+   batch_size=16, drop_last=True)`; gated on its losses bitwise equal to
+   the same steps run in-process on the batches the driver reads through
+   `iter_batches`, in the same order, K1-K3 12 a step, every step's
+   `data_wait` telemetry, no port process left; step ms beside the
+   in-process step's, data_wait ms a step. (c) in that worker, before its
+   first step, an `nccl` `util.collective` group of world 1 runs
+   allreduce, allgather, broadcast, reducescatter and barrier on CUDA
+   tensors, each giving its input back, and their seconds land in the
+   step's `collective` telemetry;
 10. MoE float32 gradients: the same widths with 4 experts (top 2, capacity
     factor 1.25), depth 2, float32, 2 x 1024 tokens, remat
     "save_attn_qkv": `lm_loss` gradients through K1, K2 and K3's float32
@@ -228,7 +252,9 @@ MIN_TOKEN_AGREEMENT = 0.98
 # scaled by 4, whose peaked softmax moves the running max from tile to
 # tile and puts p near 1 and 0, where the rounding of p acts, and the MoE
 # train step's shape (96 (batch, head) pairs: K1's block groups of 64
-# pairs at D 128 split 64 + 32 there, as at no other row).
+# pairs at D 128 split 64 + 32 there, as at no other row), and the float32
+# blocks `phase_data`'s actor pool scores (48 pairs), v a view of the fused
+# projection there as in the model.
 KERNEL_SHAPES = [
     ((1, 128, 12, 128), "float32", "contiguous", 1.0),
     ((1, 256, 12, 128), "float32", "contiguous", 1.0),
@@ -243,6 +269,7 @@ KERNEL_SHAPES = [
     ((16, 1024, 12, 64), "bfloat16", "qkv", 1.0),
     ((4, 1024, 12, 128), "bfloat16", "qkv", 4.0),
     ((8, 1024, 12, 128), "bfloat16", "qkv", 1.0),    # the MoE train step's
+    ((4, 512, 12, 128), "float32", "qkv", 1.0),      # the data pool's blocks
 ]
 # The engine's largest bucket, the train step's shape and the MoE train
 # step's.
@@ -2718,6 +2745,374 @@ def result_lines(exp_dir: str) -> list:
     return out
 
 
+# The data phase: batch inference through a Dataset's actor pool, and bench.py's
+# train step fed from a shuffled Dataset in a GPU-leased TorchTrainer worker,
+# with the eager NCCL collectives inside that worker.
+DATA_SEQS, DATA_SEQ_LEN, DATA_BLOCKS = 48, 512, 12
+DATA_REPLICAS, DATA_GPU_SHARE = 2, 0.5
+DATA_SCORE_RTOL = 1e-3
+DATA_TRAIN_BATCHES, DATA_TRAIN_BLOCKS = 6, 12
+DATA_TIMEOUT_S = 600.0
+
+
+class FlagshipScorer:
+    """`map_batches(..., compute="actors")` replica of the data phase: it
+    makes the float32 flagship once, from chip_smoke's seed, on the card
+    its GPU lease shows it, then scores each block of token sequences by
+    each sequence's mean logit. Each block's result carries this process's
+    pid and the K1 launches the block's forward made here."""
+
+    def __init__(self):
+        from dataclasses import replace
+
+        import torch
+
+        t0 = time.perf_counter()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        params, cfg = flagship_params()
+        self.params, self.cfg = params, replace(cfg, dtype=torch.float32)
+        self.checksum = param_checksum(params)
+        self.build_s = time.perf_counter() - t0
+        self.visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+
+    def __call__(self, block):
+        import numpy as np
+        import torch
+
+        from ray_tpu_torch.models import forward
+        from ray_tpu_torch.util import to_torch
+
+        before = _counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits, _ = forward(self.params, to_torch(block["tokens"]),
+                                self.cfg)
+            score = logits.mean(dim=(1, 2)).cpu().numpy()
+        ms = (time.perf_counter() - t0) * 1e3
+        after = _counts()
+        n = len(score)
+        return {"score": score,
+                "pid": np.full(n, os.getpid()),
+                "k1": np.full(n, after[0] - before[0]),
+                "k2k3": np.full(n, after[1] + after[2] - before[1]
+                                - before[2]),
+                "ms": np.full(n, ms),
+                "build_s": np.full(n, self.build_s),
+                "visible": np.full(n, int(self.visible or -1))}
+
+
+def data_tokens(rows: int, cols: int, seed: int):
+    import numpy as np
+
+    return np.random.default_rng(seed).integers(
+        0, FLAGSHIP["vocab_size"], (rows, cols), dtype=np.int64)
+
+
+def data_train_loop(config):
+    """`TorchTrainer`'s loop of the data phase, in the GPU-leased worker:
+    bench.py's step (as `cluster_train_loop` runs it) over the batches of
+    this worker's Dataset shard through `iter_torch_batches`. Before the
+    first step, an `nccl` `util.collective` group of world 1 runs
+    allreduce, allgather, broadcast, reducescatter and barrier on CUDA
+    tensors (each must give its input back), inside the step's
+    telemetry."""
+    from dataclasses import replace
+
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import lm_loss
+    from ray_tpu_torch.parallel import adamw, make_train_step
+    from ray_tpu_torch.util import collective as col
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    params, cfg = flagship_params()
+    cfg = replace(cfg, remat=True, remat_policy="save_attn_qkv")
+    info = dict(pid=os.getpid(),
+                visible=os.environ.get("CUDA_VISIBLE_DEVICES"),
+                backend=dist.get_backend(), world=dist.get_world_size(),
+                checksum_equal=param_checksum(params) == config["checksum"])
+    optimizer = adamw(1e-4)
+    opt_state = optimizer.init(params)
+    step = make_train_step(lambda p, b: lm_loss(p, b, cfg), optimizer)
+    shard = train.get_dataset_shard("train")
+    batches = shard.iter_torch_batches(
+        batch_size=TRAIN_BATCH, drop_last=True,
+        dtypes={"tokens": torch.int64})
+    coll = None
+    for i, batch in enumerate(batches, start=1):
+        if coll is None:
+            coll = data_collectives(col)
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, loss = step(params, opt_state, batch)
+        value = loss.item()
+        ms = (time.perf_counter() - t0) * 1e3
+        k1, k2, k3 = _counts()
+        train.report(dict(info, step=i, loss=value, step_ms=ms, k1=k1,
+                          k2=k2, k3=k3, coll=coll if i == 1 else None,
+                          device=str(batch["tokens"].device),
+                          shape=list(batch["tokens"].shape)))
+
+
+def data_collectives(col) -> dict:
+    """The eager collectives on an `nccl` group of world 1 (this worker's
+    card): each op's result against its input, and their seconds."""
+    import torch
+
+    t0 = time.perf_counter()
+    col.init_collective_group(1, 0, backend="nccl", group_name="smoke")
+    init_s = time.perf_counter() - t0
+    x = torch.arange(8, dtype=torch.float32, device="cuda") * 1.5
+    ok = {}
+    t0 = time.perf_counter()
+    out = col.allreduce(x, group_name="smoke")
+    ok["allreduce"] = bool(out.is_cuda and torch.equal(out, x))
+    outs = col.allgather(x, group_name="smoke")
+    ok["allgather"] = bool(len(outs) == 1 and outs[0].is_cuda
+                           and torch.equal(outs[0], x))
+    out = col.broadcast(x, src_rank=0, group_name="smoke")
+    ok["broadcast"] = bool(out.is_cuda and torch.equal(out, x))
+    out = col.reducescatter(x, group_name="smoke")
+    ok["reducescatter"] = bool(out.is_cuda and torch.equal(out, x))
+    col.barrier(group_name="smoke")
+    ok["barrier"] = True
+    ops_s = time.perf_counter() - t0
+    col.destroy_collective_group("smoke")
+    return dict(ok=ok, init_s=init_s, ops_s=ops_s)
+
+
+def phase_data(card: str):
+    """The Data library on the cluster runtime: (a) flagship float32 batch
+    inference through `map_batches(FlagshipScorer, compute="actors",
+    concurrency=2, num_gpus=0.5)` against an in-process forward of the same
+    blocks; (b) bench.py's train step fed by `iter_torch_batches` of a
+    `random_shuffle`d Dataset in a `TorchTrainer` worker leasing the card,
+    against the same steps in-process on the same batches in the same
+    order; (c) the worker's NCCL collectives. Returns the K1 launches in
+    the pool's replicas and the K1, K2, K3 launches a step in the train
+    worker."""
+    import gc as _gc
+    import tempfile
+    import threading
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch import data, train
+    from ray_tpu_torch.models import forward, lm_loss
+    from ray_tpu_torch.parallel import adamw, make_train_step
+
+    os.environ[RUN_MARKER] = f"{os.getpid()}-{time.time_ns()}"
+    t0 = time.perf_counter()
+    ray_tpu_torch.init(num_cpus=CLUSTER_CPUS)
+    init_s = time.perf_counter() - t0
+    res = ray_tpu_torch.cluster_resources()
+    check(res.get("GPU") == 1.0, f"the node did not detect one GPU: {res}")
+    try:
+        # (a) batch inference: the in-process forward first.
+        tokens = data_tokens(DATA_SEQS, DATA_SEQ_LEN, seed=5)
+        per_block = DATA_SEQS // DATA_BLOCKS
+        params, cfg = flagship_params()
+        checksum = param_checksum(params)
+        f32 = replace(cfg, dtype=torch.float32)
+        want, fwd_ms = [], []
+        with torch.no_grad():
+            for i in range(DATA_BLOCKS):
+                blk = torch.from_numpy(
+                    tokens[i * per_block:(i + 1) * per_block]).cuda()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                logits, _ = forward(params, blk, f32)
+                want.append(logits.mean(dim=(1, 2)).cpu().numpy())
+                fwd_ms.append((time.perf_counter() - t1) * 1e3)
+                del logits
+        want = np.concatenate(want)
+        del params
+        _gc.collect()
+        torch.cuda.empty_cache()
+        ds = data.from_numpy({"tokens": tokens}, parallelism=DATA_BLOCKS)
+        scored = ds.map_batches(FlagshipScorer, compute="actors",
+                                concurrency=DATA_REPLICAS,
+                                num_gpus=DATA_GPU_SHARE)
+        t1 = time.perf_counter()
+        blocks = list(scored.iter_blocks())
+        pool_s = time.perf_counter() - t1
+        got = np.concatenate([b["score"] for b in blocks])
+        pids = sorted(set(int(p) for b in blocks for p in b["pid"]))
+        k1 = [int(b["k1"][0]) for b in blocks]
+        k2k3 = sum(int(b["k2k3"][0]) for b in blocks)
+        stats = scored.stats()
+        replicas = sorted(o.name for o in stats.operators
+                          if o.name.startswith("actor_pool_map[replica="))
+        t1 = time.perf_counter()
+        alive = [p for p in pids if proc_alive(p)]
+        while alive and time.perf_counter() - t1 < CLUSTER_DOWN_S:
+            time.sleep(0.1)
+            alive = [p for p in pids if proc_alive(p)]
+        err = float(np.abs(got - want).max())
+        scale = float(np.abs(want).max())
+        steady = [float(b["ms"][0]) for b in blocks]
+        n_tok = DATA_SEQS * DATA_SEQ_LEN
+        print(f"data pool flagship f32 [{per_block}, {DATA_SEQ_LEN}] x "
+              f"{DATA_BLOCKS} blocks: map_batches(FlagshipScorer, "
+              f"compute=actors, concurrency={DATA_REPLICAS}, num_gpus="
+              f"{DATA_GPU_SHARE}) on the cluster (init {init_s:.3f} s); "
+              f"replica pids {pids}, CUDA_VISIBLE_DEVICES "
+              f"{sorted(set(int(b['visible'][0]) for b in blocks))}, "
+              f"build s {sorted(set(round(float(b['build_s'][0]), 3)
+                                    for b in blocks))}; "
+              f"{pool_s:.3f} s through the pool: "
+              f"{DATA_SEQS / pool_s:.2f} sequences/s, "
+              f"{n_tok / pool_s:.1f} tokens/s (replica startup included); "
+              f"a block's forward in a replica median "
+              f"{sorted(steady)[len(steady) // 2]:.2f} ms; in-process "
+              f"forward {sum(fwd_ms):.2f} ms for all blocks: "
+              f"{DATA_SEQS / sum(fwd_ms) * 1e3:.2f} sequences/s, "
+              f"{n_tok / sum(fwd_ms) * 1e3:.1f} tokens/s (first block "
+              f"{fwd_ms[0]:.2f} ms); scores vs in-process max abs diff "
+              f"{err:.3e} (scale {scale:.4f}, gate {DATA_SCORE_RTOL} "
+              f"relative); K1 launches in the replicas {sum(k1)} "
+              f"(per block {sorted(set(k1))}), K2+K3 {k2k3}; stats "
+              f"{replicas}; replicas alive after the stage {alive} "
+              f"[{card}]", flush=True)
+        check(err <= DATA_SCORE_RTOL * scale, f"the pool's scores differ "
+              f"from the in-process forward by {err:.3e} (scale {scale})")
+        layers = FLAGSHIP["n_layers"]
+        check(sum(k1) == layers * DATA_BLOCKS and set(k1) == {layers},
+              f"the replicas launched K1 {k1} times per block, expected "
+              f"{layers} each ({layers * DATA_BLOCKS} in all)")
+        check(k2k3 == 0, "a replica's forward launched K2 or K3")
+        check(len(pids) == DATA_REPLICAS and len(replicas) == DATA_REPLICAS,
+              f"expected {DATA_REPLICAS} replicas and their stats entries: "
+              f"pids {pids}, stats {replicas}")
+        check(not alive, f"the pool's replicas outlived the stage by "
+              f"{CLUSTER_DOWN_S} s: {alive}")
+
+        # (b) ingest into TorchTrainer from a shuffled Dataset.
+        rows = DATA_TRAIN_BATCHES * TRAIN_BATCH
+        ds = data.from_numpy(
+            {"tokens": data_tokens(rows, TRAIN_SEQ + 1, seed=6)},
+            parallelism=DATA_TRAIN_BLOCKS).random_shuffle(seed=0)
+        host = [b["tokens"] for b in ds.iter_batches(
+            batch_size=TRAIN_BATCH, drop_last=True)]
+        check(len(host) == DATA_TRAIN_BATCHES, f"the shuffled Dataset gave "
+              f"{len(host)} batches of {TRAIN_BATCH}")
+        params, cfg = flagship_params()
+        tcfg = replace(cfg, remat=True, remat_policy="save_attn_qkv")
+        optimizer = adamw(1e-4)
+        opt_state = optimizer.init(params)
+        step = make_train_step(lambda p, b: lm_loss(p, b, tcfg), optimizer)
+        ref_losses, ref_ms = [], []
+        for b in host:
+            batch = {"tokens": torch.from_numpy(np.array(b)).cuda()}
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            params, opt_state, loss = step(params, opt_state, batch)
+            ref_losses.append(loss.item())
+            ref_ms.append((time.perf_counter() - t1) * 1e3)
+        del params, opt_state, step, batch, loss
+        _gc.collect()
+        torch.cuda.empty_cache()
+        storage = tempfile.mkdtemp(prefix="chip_smoke_data_")
+        run = "data_train"
+        trainer = train.TorchTrainer(
+            data_train_loop, train_loop_config={"checksum": checksum},
+            torch_config=train.TorchConfig(),
+            scaling_config=train.ScalingConfig(
+                num_workers=1, use_gpu=True, gpus_per_worker=1),
+            run_config=train.RunConfig(name=run, storage_path=storage),
+            datasets={"train": ds})
+        out = {}
+
+        def fit():
+            try:
+                out["result"] = trainer.fit()
+            except BaseException as e:  # noqa: BLE001
+                out["error"] = e
+
+        t1 = time.perf_counter()
+        thread = threading.Thread(target=fit, daemon=True)
+        thread.start()
+        thread.join(DATA_TIMEOUT_S)
+        fit_s = time.perf_counter() - t1
+        check(not thread.is_alive(), f"TorchTrainer.fit did not end within "
+              f"{DATA_TIMEOUT_S} s")
+        if "error" in out:
+            raise PhaseError(f"TorchTrainer.fit failed: {out['error']!r}")
+        result = out["result"]
+        lines = result_lines(os.path.join(storage, run))
+    finally:
+        ray_tpu_torch.shutdown()
+    t0 = time.perf_counter()
+    left = port_processes()
+    while left and time.perf_counter() - t0 < CLUSTER_DOWN_S:
+        time.sleep(0.1)
+        left = port_processes()
+    check(not left, f"port processes outlived shutdown by "
+          f"{CLUSTER_DOWN_S} s: {left}")
+    if result.error is not None:
+        raise PhaseError(f"the data train loop failed: {result.error!r}")
+    history = result.metrics_history
+    losses = [m["loss"] for m in history]
+    counts = sorted(set((m["k1"], m["k2"], m["k3"]) for m in history))
+    waits = [ln["_telemetry"]["data_wait_s"] for ln in lines
+             if "_telemetry" in ln]
+    colls = [ln["_telemetry"]["collective_s"] for ln in lines
+             if "_telemetry" in ln]
+    coll = history[0]["coll"] if history else None
+    step_ms = sorted(m["step_ms"] for m in history[1:])
+    diffs = [abs(a - b) for a, b in zip(losses, ref_losses)]
+    first = history[0] if history else {}
+    print(f"data train flagship bf16 remat save_attn_qkv AdamW 1e-4: "
+          f"TorchTrainer(datasets={{'train': from_numpy({rows} x "
+          f"{TRAIN_SEQ + 1} tokens, {DATA_TRAIN_BLOCKS} blocks)"
+          f".random_shuffle(seed=0)}}), 1 worker leasing the card "
+          f"(CUDA_VISIBLE_DEVICES={first.get('visible')}, "
+          f"{first.get('backend')} world {first.get('world')}), "
+          f"iter_torch_batches(batch_size={TRAIN_BATCH}, drop_last=True) "
+          f"on {first.get('device')} {first.get('shape')}; fit "
+          f"{fit_s:.3f} s; {len(history)} steps, step_ms median "
+          f"{step_ms[len(step_ms) // 2] if step_ms else float('nan'):.2f} "
+          f"after the first (in-process "
+          f"{sorted(ref_ms[1:])[len(ref_ms[1:]) // 2]:.2f}); data_wait ms "
+          f"a step {' '.join(f'{w * 1e3:.3f}' for w in waits)}; launches "
+          f"a step K1 K2 K3 {counts}; losses "
+          f"{' '.join(f'{x:.5f}' for x in losses)}; against the "
+          f"in-process steps on the same batches: largest difference "
+          f"{max(diffs) if diffs else float('nan'):.3e} (gate: bitwise "
+          f"equal); shutdown left {len(left)} port processes [{card}]",
+          flush=True)
+    print(f"data collective nccl world 1 in the train worker: "
+          f"{json.dumps(coll)}; the step's collective telemetry s "
+          f"{' '.join(f'{c:.6f}' for c in colls)} [{card}]", flush=True)
+    check(len(history) == DATA_TRAIN_BATCHES, f"the data train loop ran "
+          f"{len(history)} steps, expected {DATA_TRAIN_BATCHES}")
+    check(first.get("checksum_equal") and first.get("visible") == "0"
+          and first.get("backend") == "nccl" and first.get("world") == 1,
+          f"the data train worker does not hold the card over NCCL with "
+          f"the driver's weights: {first}")
+    check(losses == ref_losses, f"the Dataset-fed worker's losses differ "
+          f"from the in-process steps' by up to {max(diffs):.3e}")
+    layers = FLAGSHIP["n_layers"]
+    check(counts == [(layers,) * 3], f"the data train worker launched K1, "
+          f"K2, K3 {counts} times a step, expected {layers} each")
+    check(len(waits) == DATA_TRAIN_BATCHES and all(w > 0 for w in waits),
+          f"the steps' data_wait telemetry is missing: {waits}")
+    check(coll is not None and all(coll["ok"].values()),
+          f"an NCCL collective did not give its input back: {coll}")
+    check(colls and colls[0] >= coll["ops_s"] * 0.5,
+          f"the collectives' {coll['ops_s'] if coll else None} s did not "
+          f"land in the first step's collective telemetry {colls}")
+    return sum(k1), counts[0]
+
+
 class RoutingRecorder:
     """While open, keeps each `ops.moe.top_k_gating` call's router logits
     and aux loss, in call order (`moe_ffn` looks the function up in its
@@ -3536,6 +3931,7 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         cluster_train_launches = phase_cluster_train(card, train_stats)
+        data_pool_launches, data_train_launches = phase_data(card)
         moe_cfg = replace(train_cfg, **MOE)
         params = init_params(moe_cfg,
                              torch.Generator(device="cuda").manual_seed(2))
@@ -3576,11 +3972,14 @@ def main() -> int:
            for kname, line, n, m in (
                ("dkv", 1121, train_launches[1], moe_launches[1]),
                ("dq", 1456, train_launches[2], moe_launches[2]))]
-    for entry, n, m in zip(bwd, mesh_launches[1:],
-                           cluster_train_launches[1:]):
+    for entry, n, m, d in zip(bwd, mesh_launches[1:],
+                              cluster_train_launches[1:],
+                              data_train_launches[1:]):
         entry["mesh_train_launches"] = n
         entry["cluster_train_launches_per_step"] = m
         entry["cluster_train_launches_in"] = "the train worker process"
+        entry["data_train_launches_per_step"] = d
+        entry["data_train_launches_in"] = "the Dataset-fed train worker"
     shape, dtype, layout, qk_scale = F32_BWD_SHAPE
     bwd += [dict(name=f"flash_attn_bwd_{kname}_f32", route="cuda",
                  kernel=f"flash_bwd_{kname}_f32",
@@ -3610,6 +4009,10 @@ def main() -> int:
         mesh_train_launches=mesh_launches[0],
         cluster_train_launches_per_step=cluster_train_launches[0],
         cluster_train_launches_in="the train worker process",
+        data_pool_launches_f32=data_pool_launches,
+        data_pool_launches_in="the actor pool's two replica processes",
+        data_train_launches_per_step=data_train_launches[0],
+        data_train_launches_in="the Dataset-fed train worker",
         shape=list(MAIN_SHAPE[0]), dtype=MAIN_SHAPE[1],
         layout=MAIN_SHAPE[2], **main_row,
         at_train_shape=dict(shape=list(TRAIN_SHAPE[0]),

@@ -9,8 +9,9 @@ lockstep at report boundaries.
 
 Step telemetry: each `report()` closes one "step" whose wall time is
 split into data-wait (time blocked in the instrumented dataset-shard
-iterators), collective time (0 until the port's `util/collective.py`
-records it, as the reference's does), and compute (the remainder). The
+iterators, `iter_torch_batches` among them), collective time (recorded by
+`util/collective.py` ops through `_record_collective`), and compute (the
+remainder). The
 split rides the report as `telemetry` metadata for the backend executor
 AND lands in worker-local `train_*_seconds` histograms, which the metrics
 push sends to the raylet (reference: ray.train's per-step reporting +
@@ -49,6 +50,14 @@ def _train_histograms() -> Dict[str, Any]:
         }
 
     return get_instruments("train.session", build)
+
+
+def _record_collective(seconds: float) -> None:
+    """Called by util/collective.py ops: attribute collective wall time
+    to the active training step (no-op outside a train loop)."""
+    s = _get_session(required=False)
+    if s is not None:
+        s._collective_s += seconds
 
 
 class _TimedIter:

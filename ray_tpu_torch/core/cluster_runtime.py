@@ -26,6 +26,7 @@ import concurrent.futures
 import contextlib
 import logging
 import os
+import sys
 import threading
 import time
 import uuid
@@ -326,6 +327,12 @@ def _size_bucket(nbytes: int) -> int:
     return len(_SIZE_BUCKETS)
 
 
+def _no_line_trace(frame, event, arg):
+    """The thread's trace function while a swallowed cancel is re-armed:
+    it traces no new frame (the armed frame has its own)."""
+    return None
+
+
 class ClusterRuntime:
     is_local_mode = False
 
@@ -474,6 +481,18 @@ class ClusterRuntime:
         self._running_task_cfuts: Dict[str, Any] = {}
         # worker-side: cancels that arrived before their task started
         self._cancelled_pending: set = set()
+        # worker-side: task_id -> thread ident while that thread runs the
+        # task's own code (`_run_user_code`), the cancels sent to running
+        # tasks, those Python swallowed and not yet re-delivered, the
+        # frames armed to re-raise them, the lock that orders a cancel's
+        # send against the thread's leaving, and the unraisablehook that
+        # `_on_unraisable` replaced (see `_run_user_code`).
+        self._user_code_threads: Dict[str, int] = {}
+        self._cancel_sent: set = set()
+        self._cancel_swallowed: set = set()
+        self._cancel_armed: Dict[int, Any] = {}    # thread -> armed frame
+        self._cancel_lock = threading.Lock()
+        self._prev_unraisablehook = None
         # worker-side actor sequencing: caller address -> {next, cond}
         self._actor_seq: Dict[str, dict] = {}
         # driver-side: actor_id -> next seq to stamp
@@ -780,6 +799,9 @@ class ClusterRuntime:
             return
         self._shutdown = True
         self.shutdown_event.set()
+        if (self._prev_unraisablehook is not None
+                and sys.unraisablehook == self._on_unraisable):
+            sys.unraisablehook = self._prev_unraisablehook
         if self._flight_watch is not None:
             # Stop the heartbeat before the loop dies: a stale entry
             # would read as a permanent stall to the watchdog thread.
@@ -1635,7 +1657,7 @@ class ClusterRuntime:
         rec = None
         if (stored and opts.max_retries > 0 and num_returns != 0
                 and self._lineage.enabled()):
-            wire_spec, _, _ = self._encode_task_spec(
+            wire_spec, _ = self._encode_task_spec(
                 remote_function, opts, fn_key, num_returns, False,
                 task_id=task_id.hex(), args=args_blob,
                 arg_oids=[a.hex() for a in
@@ -2980,12 +3002,99 @@ class ClusterRuntime:
             # the coroutine instead.
             cfut.cancel()
             return {"found": True}
+        if self._prev_unraisablehook is None:
+            self._prev_unraisablehook = sys.unraisablehook
+            sys.unraisablehook = self._on_unraisable
+        self._cancel_sent.add(task_id)
+        with self._cancel_lock:
+            thread_id = self._user_code_threads.get(task_id)
+            if thread_id is not None:
+                import ctypes
+
+                ctypes.pythonapi.PyThreadState_SetAsyncExc(
+                    ctypes.c_ulong(thread_id),
+                    ctypes.py_object(TaskCancelledError))
+        return {"found": True}
+
+    # A cancel is raised once in the task's thread, as the reference does.
+    # Where it lands in code whose exceptions Python reports as "Exception
+    # ignored" (a `gc.callbacks` hook such as the flight recorder's, a
+    # `__del__`, a weakref callback), Python swallows it and the task would
+    # run on. `_on_unraisable` sees that report and re-raises the cancel
+    # in the frame that was interrupted, at its next line; if that frame
+    # is `_run_user_code` itself, its return raises instead.
+
+    def _on_unraisable(self, unraisable) -> None:
+        """sys.unraisablehook: a TaskCancelledError swallowed in a thread
+        that runs a cancelled task's code is re-armed; anything else goes
+        to the hook this one replaced."""
+        if (unraisable.exc_type is not None
+                and issubclass(unraisable.exc_type, TaskCancelledError)):
+            tid = threading.get_ident()
+            task_id = next(
+                (t for t, th in tuple(self._user_code_threads.items())
+                 if th == tid and t in self._cancel_sent), None)
+            if task_id is not None:
+                self._cancel_swallowed.add(task_id)
+                self._rearm_cancel(task_id, tid, sys._getframe().f_back)
+                return
+        self._prev_unraisablehook(unraisable)
+
+    def _rearm_cancel(self, task_id: str, tid: int, frame) -> None:
+        if (frame.f_code is _RUN_USER_CODE or tid in self._cancel_armed
+                or sys.gettrace() is not None):
+            return      # leaving (the return raises), armed, or a debugger
+
+        def _raise_swallowed(frame, event, arg):
+            self._cancel_swallowed.discard(task_id)
+            raise TaskCancelledError(task_id)
+
+        self._cancel_armed[tid] = frame
+        sys.settrace(_no_line_trace)
+        frame.f_trace_lines = True
+        frame.f_trace = _raise_swallowed
+
+    def _run_user_code(self, task_id: str, call):
+        """`call()`, the task's own code, in this thread, cancellable.
+
+        The thread marks itself, then looks for a cancel; a cancel is added
+        first, then sent under `_cancel_lock` to a marked thread, so one of
+        the two sees the other. Leaving, the thread drops its mark; if a
+        cancel was sent, it waits out a send in progress under the lock,
+        disarms a re-armed frame and clears a pending cancel, so none lands
+        after it has left. One that lands while it leaves, or was swallowed
+        and never re-raised, makes the return raise TaskCancelledError."""
+        tid = threading.get_ident()
+        try:
+            self._user_code_threads[task_id] = tid
+            if task_id in self._cancel_sent:
+                raise TaskCancelledError(task_id)
+            value = call()
+        finally:
+            while True:
+                try:
+                    self._user_code_threads.pop(task_id, None)
+                    if task_id in self._cancel_sent:
+                        self._leave_cancelled(tid)
+                    break
+                except TaskCancelledError:
+                    self._cancel_swallowed.add(task_id)
+        if task_id in self._cancel_swallowed:
+            raise TaskCancelledError(task_id)
+        return value
+
+    def _leave_cancelled(self, tid: int) -> None:
         import ctypes
 
-        ctypes.pythonapi.PyThreadState_SetAsyncExc(
-            ctypes.c_ulong(thread_id),
-            ctypes.py_object(TaskCancelledError))
-        return {"found": True}
+        with self._cancel_lock:
+            pass        # a send that read this thread's mark has ended
+        frame = self._cancel_armed.pop(tid, None)
+        if frame is not None:
+            frame.f_trace = None
+            del frame
+        if sys.gettrace() is _no_line_trace:
+            sys.settrace(None)
+        ctypes.pythonapi.PyThreadState_SetAsyncExc(ctypes.c_ulong(tid), None)
 
     # ==================================================================
     # placement groups (reference: python/ray/util/placement_group.py:41 +
@@ -3539,12 +3648,16 @@ class ClusterRuntime:
                           parent=spec.get("trace_ctx"),
                           attributes={"task_id": task_id,
                                       "component": "worker"}):
-                    value = (profiler.runcall(fn, *args, **kwargs)
-                             if profiler is not None
-                             else fn(*args, **kwargs))
+                    value = self._run_user_code(
+                        task_id, lambda: (
+                            profiler.runcall(fn, *args, **kwargs)
+                            if profiler is not None
+                            else fn(*args, **kwargs)))
             else:
-                value = (profiler.runcall(fn, *args, **kwargs)
-                         if profiler is not None else fn(*args, **kwargs))
+                value = self._run_user_code(
+                    task_id, lambda: (
+                        profiler.runcall(fn, *args, **kwargs)
+                        if profiler is not None else fn(*args, **kwargs)))
             exec_us = int((time.perf_counter() - _e0) * 1e6)
             if profiler is not None:
                 self._dump_task_profile(profiler, task_id, name)
@@ -3574,6 +3687,8 @@ class ClusterRuntime:
             self._commit_arg_borrows(arg_refs)
             self._running_task_threads.pop(task_id, None)
             self._cancelled_pending.discard(task_id)
+            self._cancel_sent.discard(task_id)
+            self._cancel_swallowed.discard(task_id)
             self._record_task_event(
                 task_id, name, "FINISHED" if ok else "FAILED",
                 job_id=spec.get("job_id"))
@@ -3840,10 +3955,13 @@ class ClusterRuntime:
                     # running arbitrary code against a live actor
                     # (reference: __ray_call__ in python/ray/actor.py).
                     fn, args = args[0], args[1:]
-                    value = fn(self._actor_instance, *args, **kwargs)
+                    value = self._run_user_code(
+                        task_id,
+                        lambda: fn(self._actor_instance, *args, **kwargs))
                 else:
                     method = getattr(self._actor_instance, spec["method"])
-                    value = method(*args, **kwargs)
+                    value = self._run_user_code(
+                        task_id, lambda: method(*args, **kwargs))
             if _inspect.iscoroutine(value):
                 cfut = asyncio.run_coroutine_threadsafe(
                     value, self._actor_loop)
@@ -3875,6 +3993,8 @@ class ClusterRuntime:
             self._commit_arg_borrows(arg_refs)
             self._running_task_threads.pop(task_id, None)
             self._cancelled_pending.discard(task_id)
+            self._cancel_sent.discard(task_id)
+            self._cancel_swallowed.discard(task_id)
             self._record_task_event(
                 task_id, name, "FINISHED" if ok else "FAILED",
                 job_id=spec.get("job_id"),
@@ -4091,3 +4211,6 @@ class ClusterRuntime:
     def kv_keys(self, prefix: bytes) -> List[bytes]:
         p = prefix.decode() if isinstance(prefix, bytes) else prefix
         return [k.encode() for k in self._loop.run(self._gcs.kv_keys(p))]
+
+
+_RUN_USER_CODE = ClusterRuntime._run_user_code.__code__

@@ -179,6 +179,9 @@ class TorchTrainer:
 
     # ------------------------------------------------------------------
     def _dataset_shards(self) -> Optional[List[Any]]:
+        """Each worker's {name: shard}: a `data.Dataset` splits with
+        `split_for_workers` (disjoint blocks, round-robin), an object with
+        `split` with that, anything else goes whole to every worker."""
         if not self._datasets:
             return None
         n = self._scaling.num_workers

@@ -62,10 +62,20 @@ def test_forward_matches_jax(widths, seq, flash_calls, monkeypatch):
     got = got.numpy()
     want, want_aux = jax_forward(jparams, jnp.asarray(tokens), jcfg)
     want = np.asarray(want)
+    # Each side again on the same inputs: both are deterministic, so a
+    # run that varies is named here, apart from the two sides' distance.
+    again = forward(params, tokens, cfg, device="cpu")[0].numpy()
+    assert np.array_equal(again, got), (
+        f"the port's forward varied between two calls: max diff "
+        f"{np.abs(again - got).max():.3e}")
+    again = np.asarray(jax_forward(jparams, jnp.asarray(tokens), jcfg)[0])
+    assert np.array_equal(again, want), (
+        f"JAX's forward varied between two calls: max diff "
+        f"{np.abs(again - want).max():.3e}")
     # A dense model's load-balancing loss: a float32 zero on both sides.
     assert aux.dtype == torch.float32 and aux.item() == float(want_aux) == 0
     assert got.shape == want.shape == (2, seq, cfg.vocab_size)
-    assert len(calls) == flash_calls          # one per layer when eligible
+    assert len(calls) == 2 * flash_calls      # one per layer when eligible
     scale = np.abs(want).max()
     np.testing.assert_allclose(got, want, atol=REL_TOL * scale,
                                rtol=REL_TOL)

@@ -194,6 +194,66 @@ def spin(started, seconds):
     return "finished"
 
 
+def gc_churn(started, seconds):
+    """Announce the start in a file, then make cyclic garbage and collect
+    it in a tight loop over a heap of 200,000 live lists, for `seconds`:
+    the thread spends nearly all its time inside `gc.collect()`, so an
+    asynchronous cancel nearly always lands while the gc callbacks (the
+    flight recorder's `_gc_callback`) run, where Python reports it as
+    "Exception ignored" and swallows it."""
+    import gc
+
+    keep = [[i] for i in range(200_000)]
+    with open(started, "w") as f:
+        f.write("1")
+    end = time.monotonic() + seconds
+    while time.monotonic() < end:
+        cycle = []
+        cycle.append(cycle)
+        del cycle
+        gc.collect()
+    return len(keep)
+
+
+def churn_then_clean_up(started, cleaned, seconds):
+    """`gc_churn` until cancelled; the cancel caught, 200 ms of cleanup
+    that keeps collecting, then a file with the cleanup's collections."""
+    import gc
+
+    from ray_tpu_torch.exceptions import TaskCancelledError
+
+    try:
+        gc_churn(started, seconds)
+        return "ran out"
+    except TaskCancelledError:
+        end = time.monotonic() + 0.2
+        collections = 0
+        while time.monotonic() < end:
+            cycle = []
+            cycle.append(cycle)
+            del cycle
+            gc.collect()
+            collections += 1
+        with open(cleaned, "w") as f:
+            f.write(str(collections))
+        return "cleaned up"
+
+
+class Churner:
+    """`gc_churn` and a nap as an actor's methods: two run at once in one
+    process when the actor has max_concurrency=2."""
+
+    def churn(self, started, seconds):
+        return gc_churn(started, seconds)
+
+    def nap(self, started, seconds):
+        """One sleep: a cancel sent meanwhile waits until it returns."""
+        with open(started, "w") as f:
+            f.write("1")
+        time.sleep(seconds)
+        return "woke"
+
+
 def probe(x):
     return x
 

@@ -84,7 +84,8 @@ result line:
    the serve phase, with K1 counted in the replica process;
 5d. microbench: `python -m ray_tpu_torch.perf --microbench`'s
    `run_microbench` on the cluster (tasks/s, actor calls/s, put/get
-   10 MB, on this machine's host), printed as a JSON line;
+   10 MB, a 3-actor chain lazily and compiled, a 4 MB array over compiled
+   `"array"` edges, on this machine's host), printed as a JSON line;
 5e. perf twins: `ray_tpu_torch.perf`'s `run_llm_serve_bench` (its paged
    section's model on the card: paged parity 1, no host gather) and
    `run_fleet_bench`, each printed as a JSON line.
@@ -156,6 +157,32 @@ result line:
    allreduce, allgather, broadcast, reducescatter and barrier on CUDA
    tensors, each giving its input back, and their seconds land in the
    step's `collective` telemetry;
+9c. cgraph: the lazy DAG and compiled graphs on the cluster runtime. The
+   float32 flagship forward split over two actors leasing 0.5 of the card
+   each, `FlagshipHead` (the embedding and layers 0-5) and `FlagshipTail`
+   (layers 6-11, the final norm, the tied-embedding logits, and from them
+   each position's log-probability of the next token [4, 511] and the
+   last position's logits [4, 32768]), each making the flagship weights
+   from this script's seed (checksummed against the driver's) and keeping
+   its half. `tail.score.bind(head.hidden.bind(inp).with_channel("array"),
+   inp)`: the hidden state [4, 512, 1536] crosses as a CUDA tensor, host
+   bytes re-landed on the tail's card. 24 batches of [4, 512] (numpy seed)
+   in-process, through `dag.execute` (two actor tasks a batch, the hidden
+   state through the object store) and through
+   `experimental_compile(max_in_flight=4)` after one warm-up: ms a batch
+   and sequences/s of each; gated on every output bitwise the in-process
+   forward's, K1 (f32) 6 times a batch in each stage process (144 a run),
+   the hidden state arriving in the tail as a CUDA tensor. Then an error
+   fan-out (one execution of a window holds the id 32768: it alone raises
+   the head's host-side range check), a SIGKILL of the tail with a window
+   in flight (the next execute recompiles onto the restarted tail; its
+   seconds split into detection, the tail's restart and the recompile;
+   later outputs bitwise), teardown (no loop thread, no stage process
+   within 10 s; card memory freed), the same halves as Serve deployments
+   (0.25 GPU each) compiled by `serve.compile_deployment_chain` (8 batches
+   bitwise), and a durable three-step workflow on the host whose middle
+   step fails once: FAILED, then `workflow.resume` loads the first step's
+   checkpoint and reads SUCCEEDED. No port process is left after shutdown;
 10. MoE float32 gradients: the same widths with 4 experts (top 2, capacity
     factor 1.25), depth 2, float32, 2 x 1024 tokens, remat
     "save_attn_qkv": `lm_loss` gradients through K1, K2 and K3's float32
@@ -1989,6 +2016,12 @@ def phase_microbench(card: str):
 
     out = run_microbench(scale=0.5)
     print(f"perf microbench {json.dumps(out)} [{card}]", flush=True)
+    keys = ("dag_chain_calls_per_s", "dag_chain_call_ms",
+            "cgraph_calls_per_s", "cgraph_call_ms", "cgraph_vs_dag_speedup",
+            "array_chan_MBps")
+    check(all(isinstance(out.get(k), float) and out[k] > 0 for k in keys),
+          f"the microbench's DAG and compiled-graph keys are not all "
+          f"positive numbers: {[out.get(k) for k in keys]}")
 
 
 def phase_perf_twins(card: str):
@@ -3113,6 +3146,549 @@ def phase_data(card: str):
     return sum(k1), counts[0]
 
 
+# The compiled-graph phase: the float32 flagship forward split over two
+# GPU-leased actors (embedding and layers 0-5; layers 6-11, the final norm
+# and the tied-embedding logits), the hidden edge a CUDA tensor over an
+# "array" channel.
+CGRAPH_BATCHES, CGRAPH_BATCH, CGRAPH_SEQ = 24, 4, 512
+CGRAPH_SPLIT = 6
+CGRAPH_IN_FLIGHT = 4
+CGRAPH_GPU_SHARE = 0.5
+CGRAPH_SERVE_GPU_SHARE = 0.25
+CGRAPH_SERVE_BATCHES = 8
+# The error fan-out's window: batch 2 of it holds the id vocab_size.
+CGRAPH_FANOUT, CGRAPH_BAD = 8, 3
+CGRAPH_RESTART_BATCHES = 8
+CGRAPH_TIMEOUT_S = 600.0
+CGRAPH_RESTART_S = 240.0
+
+
+class FlagshipStage:
+    """One half of the float32 flagship in a worker leasing half the card.
+    It makes the flagship weights from chip_smoke's seed on the card its
+    lease shows it (their checksum must equal the driver's), keeps its
+    half and frees the rest. Each call counts the K1 launches it makes in
+    this process. The compiled loop calls the methods on its own thread,
+    so each sets `no_grad` itself."""
+
+    def __init__(self, checksum, half: str):
+        self.init_s = time.time()
+        from dataclasses import replace
+
+        import torch
+
+        self.start_s = proc_start_time()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        params, cfg = flagship_params()
+        self.checksum_equal = param_checksum(params) == checksum
+        self.cfg = replace(cfg, dtype=torch.float32)
+        self.embed = params["embed"]
+        layers = params["layers"]
+        self.layers = (layers[:CGRAPH_SPLIT] if half == "head"
+                       else layers[CGRAPH_SPLIT:])
+        self.ln_f = params["ln_f"]
+        del params, layers
+        gc.collect()
+        torch.cuda.empty_cache()
+        self.ready_s = time.time()
+        self.build_s = self.ready_s - self.init_s
+        self.visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+        self.k1 = 0
+        self.arrived = []
+
+    def info(self) -> dict:
+        return dict(pid=os.getpid(), visible=self.visible,
+                    checksum_equal=self.checksum_equal, k1=self.k1,
+                    start_s=self.start_s, init_s=self.init_s,
+                    ready_s=self.ready_s, build_s=self.build_s,
+                    arrived=sorted(set(self.arrived)))
+
+    def reset(self) -> bool:
+        self.k1 = 0
+        self.arrived = []
+        return True
+
+    def _layers(self, x):
+        from ray_tpu_torch.models.transformer import _layers
+
+        before = _counts()[0]
+        x, _ = _layers(x, self.layers, self.cfg, None)
+        self.k1 += _counts()[0] - before
+        return x
+
+
+class FlagshipHead(FlagshipStage):
+    def __init__(self, checksum):
+        super().__init__(checksum, "head")
+
+    def hidden(self, tokens):
+        """tokens [B, S] (numpy) -> the hidden states after layer 5, [B,
+        S, D] float32 on the card. Ids outside the vocabulary raise here
+        on the host, as `forward` raises them."""
+        import numpy as np
+        import torch
+
+        from ray_tpu_torch.models.transformer import _check_ids, _embed
+
+        with torch.no_grad():
+            t = _check_ids(torch.from_numpy(np.array(tokens, np.int64)),
+                           self.cfg).cuda()
+            return self._layers(_embed(self.embed, t, self.cfg))
+
+    def __call__(self, tokens):
+        """The Serve chain's head: the hidden states and the tokens, which
+        the tail scores against."""
+        return self.hidden(tokens), tokens
+
+
+class FlagshipTail(FlagshipStage):
+    def __init__(self, checksum):
+        super().__init__(checksum, "tail")
+
+    def score(self, hidden, tokens):
+        """hidden [B, S, D] from the head, tokens [B, S] -> (each position's
+        log-probability of the next token [B, S-1], the last position's
+        logits [B, V]), float32 on the card."""
+        import torch
+
+        from ray_tpu_torch.models.transformer import _rmsnorm
+
+        self.arrived.append(f"{type(hidden).__name__} on "
+                            f"{getattr(hidden, 'device', None)}")
+        with torch.no_grad():
+            x = _rmsnorm(self._layers(hidden), self.ln_f)
+            logits = torch.einsum("bsd,vd->bsv", x,
+                                  self.embed.to(self.cfg.dtype))
+            return next_token_scores(logits, tokens)
+
+    def __call__(self, pair):
+        hidden, tokens = pair
+        return self.score(hidden, tokens)
+
+
+def next_token_scores(logits, tokens):
+    """(log-probability of each next token [B, S-1], last logits [B, V])
+    of [B, S, V] logits."""
+    import numpy as np
+    import torch
+
+    t = torch.from_numpy(np.array(tokens, np.int64)).to(logits.device)
+    logp = torch.log_softmax(logits[:, :-1], dim=-1)
+    return (logp.gather(-1, t[:, 1:, None])[..., 0].contiguous(),
+            logits[:, -1].contiguous())
+
+
+def cgraph_tokens(seed: int):
+    """CGRAPH_BATCHES batches of [CGRAPH_BATCH, CGRAPH_SEQ] token ids."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, FLAGSHIP["vocab_size"],
+                         (CGRAPH_BATCH, CGRAPH_SEQ), dtype=np.int64)
+            for _ in range(CGRAPH_BATCHES)]
+
+
+def wf_tokens(seed):
+    """Workflow step 1 (host): a batch of token ids."""
+    import numpy as np
+
+    return np.random.default_rng(seed).integers(
+        0, FLAGSHIP["vocab_size"], (CGRAPH_BATCH, CGRAPH_SEQ),
+        dtype=np.int64)
+
+
+def wf_histogram(tokens, flag):
+    """Workflow step 2 (host): the ids' counts in 16 bins of the
+    vocabulary; its first attempt fails (it leaves `flag` behind)."""
+    import numpy as np
+
+    if not os.path.exists(flag):
+        open(flag, "w").close()
+        raise RuntimeError("first attempt fails by design")
+    return np.bincount(np.asarray(tokens).ravel()
+                       // (FLAGSHIP["vocab_size"] // 16), minlength=16)
+
+
+def wf_summary(counts):
+    """Workflow step 3 (host)."""
+    return {"total": int(sum(counts)), "bins": [int(c) for c in counts]}
+
+
+def same_scores(a, b) -> bool:
+    """Both parts of two (log-probabilities, last logits) pairs bitwise
+    equal."""
+    import torch
+
+    return all(x.shape == y.shape and x.dtype == y.dtype
+               and torch.equal(x.to(y.device), y) for x, y in zip(a, b))
+
+
+def phase_cgraph(card: str):
+    """The lazy DAG and compiled graphs on the cluster runtime: the
+    float32 flagship forward as a two-stage pipeline of GPU-leased actors
+    (`FlagshipHead`, `FlagshipTail`, 0.5 of the card each), the hidden
+    edge `.with_channel("array")` (a CUDA tensor, re-landed on the tail's
+    card). 24 batches of [4, 512] in-process, lazily (`dag.execute`) and
+    compiled (`experimental_compile(max_in_flight=4)`), each output
+    bitwise the in-process forward's; an error fan-out; a SIGKILL of the
+    tail and the graph's restart; the same halves as a compiled Serve
+    deployment chain; a durable workflow with a failed step and its
+    resume; teardown. Returns the K1 launches in each stage process of
+    the compiled run."""
+    import signal
+    import tempfile
+    import threading
+    from dataclasses import replace
+
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch import serve, workflow
+    from ray_tpu_torch.dag import InputNode
+    from ray_tpu_torch.models import forward
+
+    os.environ[RUN_MARKER] = f"{os.getpid()}-{time.time_ns()}"
+    batches = cgraph_tokens(seed=7)
+    n_seq = CGRAPH_BATCHES * CGRAPH_BATCH
+    params, cfg = flagship_params()
+    checksum = param_checksum(params)
+    f32 = replace(cfg, dtype=torch.float32)
+    want, inproc_ms = [], []
+    with torch.no_grad():
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = forward(params, b, f32)
+            want.append(next_token_scores(logits, b))
+            torch.cuda.synchronize()
+            inproc_ms.append((time.perf_counter() - t0) * 1e3)
+            del logits
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    inproc_total = sum(inproc_ms[1:]) / (len(inproc_ms) - 1) * len(batches)
+    free_before = torch.cuda.mem_get_info()[0]
+
+    t0 = time.perf_counter()
+    ray_tpu_torch.init(num_cpus=CLUSTER_CPUS)
+    init_s = time.perf_counter() - t0
+    storage = tempfile.mkdtemp(prefix="chip_smoke_workflow_")
+    pids, stage_info = [], {}
+    try:
+        check(ray_tpu_torch.cluster_resources().get("GPU") == 1.0,
+              "the node did not detect one GPU")
+        opts = dict(num_gpus=CGRAPH_GPU_SHARE, max_restarts=1,
+                    max_task_retries=1)
+        head = ray_tpu_torch.remote(**opts)(FlagshipHead).remote(checksum)
+        tail = ray_tpu_torch.remote(**opts)(FlagshipTail).remote(checksum)
+        t0 = time.perf_counter()
+        stage_info = dict(zip(("head", "tail"), ray_tpu_torch.get(
+            [head.info.remote(), tail.info.remote()],
+            timeout=CGRAPH_TIMEOUT_S)))
+        stages_s = time.perf_counter() - t0
+        pids = [i["pid"] for i in stage_info.values()]
+        free_up = torch.cuda.mem_get_info()[0]
+        check(all(i["checksum_equal"] and i["visible"] == "0"
+                  for i in stage_info.values()),
+              f"a stage does not hold the card with the driver's weights: "
+              f"{stage_info}")
+        with InputNode() as inp:
+            dag = tail.score.bind(head.hidden.bind(inp).with_channel("array"),
+                                  inp)
+
+        def launches():
+            return ray_tpu_torch.get(
+                [head.info.remote(), tail.info.remote()], timeout=60)
+
+        def reset():
+            ray_tpu_torch.get([head.reset.remote(), tail.reset.remote()],
+                              timeout=60)
+
+        # 2. lazy: two actor tasks a batch, the hidden state through the
+        # object store.
+        ray_tpu_torch.get(dag.execute(batches[0]), timeout=CGRAPH_TIMEOUT_S)
+        reset()
+        t0 = time.perf_counter()
+        refs = [dag.execute(b) for b in batches]
+        lazy = ray_tpu_torch.get(refs, timeout=CGRAPH_TIMEOUT_S)
+        lazy_s = time.perf_counter() - t0
+        lazy_info = launches()
+        del refs
+
+        # 3. compiled, after one warm-up execution.
+        compiled = dag.experimental_compile(max_in_flight=CGRAPH_IN_FLIGHT)
+        ray_tpu_torch.get(compiled.execute(batches[0]),
+                          timeout=CGRAPH_TIMEOUT_S)
+        reset()
+        t0 = time.perf_counter()
+        crefs = [compiled.execute(b) for b in batches]
+        got = [ray_tpu_torch.get(r, timeout=CGRAPH_TIMEOUT_S) for r in crefs]
+        compiled_s = time.perf_counter() - t0
+        compiled_info = launches()
+        del crefs
+
+        lazy_bitwise = [same_scores(g, w) for g, w in zip(lazy, want)]
+        compiled_bitwise = [same_scores(g, w) for g, w in zip(got, want)]
+        lazy_ms = lazy_s / len(batches) * 1e3
+        compiled_ms = compiled_s / len(batches) * 1e3
+        inproc_batch_ms = inproc_total / len(batches)
+        k1 = {name: (lazy_info[i]["k1"], compiled_info[i]["k1"])
+              for i, name in enumerate(("head", "tail"))}
+        print(f"cgraph flagship f32 two-stage pipeline [{CGRAPH_BATCH}, "
+              f"{CGRAPH_SEQ}] x {CGRAPH_BATCHES} batches: head (embedding, "
+              f"layers 0-{CGRAPH_SPLIT - 1}) and tail (layers "
+              f"{CGRAPH_SPLIT}-{FLAGSHIP['n_layers'] - 1}, norm, logits) "
+              f"as actors leasing {CGRAPH_GPU_SHARE} GPU each (pids "
+              f"{pids}, CUDA_VISIBLE_DEVICES "
+              f"{[i['visible'] for i in stage_info.values()]}, build s "
+              f"{[round(i['build_s'], 3) for i in stage_info.values()]}, "
+              f"both up {stages_s:.3f} s after init {init_s:.3f} s); "
+              f"hidden edge [{CGRAPH_BATCH}, {CGRAPH_SEQ}, "
+              f"{FLAGSHIP['d_model']}] f32 "
+              f"{CGRAPH_BATCH * CGRAPH_SEQ * FLAGSHIP['d_model'] * 4} B an "
+              f"execution over an array channel; in-process "
+              f"{inproc_batch_ms:.2f} ms a batch "
+              f"({CGRAPH_BATCH / inproc_batch_ms * 1e3:.2f} sequences/s; "
+              f"first {inproc_ms[0]:.2f} ms); lazy dag.execute "
+              f"{lazy_ms:.2f} ms a batch ({n_seq / lazy_s:.2f} "
+              f"sequences/s); compiled max_in_flight={CGRAPH_IN_FLIGHT} "
+              f"{compiled_ms:.2f} ms a batch ({n_seq / compiled_s:.2f} "
+              f"sequences/s): compiled over lazy "
+              f"{lazy_ms / compiled_ms:.3f}x, compiled over in-process "
+              f"{inproc_batch_ms / compiled_ms:.3f}x; bitwise the "
+              f"in-process forward: lazy {sum(lazy_bitwise)}/"
+              f"{len(batches)}, compiled {sum(compiled_bitwise)}/"
+              f"{len(batches)}; K1 launches (lazy, compiled) {k1}; the "
+              f"tail received {compiled_info[1]['arrived']} (lazy "
+              f"{lazy_info[1]['arrived']}) [{card}]", flush=True)
+        check(all(lazy_bitwise), f"lazy outputs differ from the in-process "
+              f"forward: {lazy_bitwise}")
+        check(all(compiled_bitwise), f"compiled outputs differ from the "
+              f"in-process forward: {compiled_bitwise}")
+        per_stage = CGRAPH_SPLIT * CGRAPH_BATCHES
+        check(all(v == (per_stage, per_stage) for v in k1.values()),
+              f"K1 ran {k1} times in the stages (lazy, compiled), expected "
+              f"{per_stage} each ({CGRAPH_SPLIT} a batch)")
+        check(compiled_info[1]["arrived"] == ["Tensor on cuda:0"]
+              and lazy_info[1]["arrived"] == ["Tensor on cuda:0"],
+              f"the hidden state did not arrive in the tail as a CUDA "
+              f"tensor: {compiled_info[1]['arrived']}, "
+              f"{lazy_info[1]['arrived']}")
+
+        # Error fan-out: one batch in the window holds an id past the
+        # vocabulary; only its execution raises.
+        window = list(batches[:CGRAPH_FANOUT])
+        bad = window[CGRAPH_BAD].copy()
+        bad[1, 7] = FLAGSHIP["vocab_size"]
+        window[CGRAPH_BAD] = bad
+        frefs = [compiled.execute(b) for b in window]
+        outcome = []
+        for i, r in enumerate(frefs):
+            try:
+                outcome.append(same_scores(ray_tpu_torch.get(
+                    r, timeout=CGRAPH_TIMEOUT_S), want[i]))
+            except ValueError as e:
+                outcome.append(str(e).splitlines()[-1])
+        print(f"cgraph error fan-out: {CGRAPH_FANOUT} executions, #"
+              f"{CGRAPH_BAD} holds id {FLAGSHIP['vocab_size']}: {outcome} "
+              f"[{card}]", flush=True)
+        check(all(o is True for i, o in enumerate(outcome)
+                  if i != CGRAPH_BAD)
+              and isinstance(outcome[CGRAPH_BAD], str)
+              and "token ids must lie" in outcome[CGRAPH_BAD],
+              f"the error fan-out did not fail exactly its bad execution: "
+              f"{outcome}")
+
+        # Restart: SIGKILL the tail with a window in flight.
+        old_tail = stage_info["tail"]["pid"]
+        krefs = [compiled.execute(b) for b in batches[:CGRAPH_IN_FLIGHT]]
+        t_kill = time.time()
+        os.kill(old_tail, signal.SIGKILL)
+        failed, detect_t = 0, None
+        for r in krefs:
+            try:
+                ray_tpu_torch.get(r, timeout=60)
+            except Exception:  # noqa: BLE001
+                failed += 1
+                detect_t = detect_t or time.time()
+        recovered_t, attempts, after = None, 0, []
+        deadline = time.time() + CGRAPH_RESTART_S
+        while recovered_t is None and time.time() < deadline:
+            attempts += 1
+            try:
+                r = compiled.execute(batches[0])
+                out = ray_tpu_torch.get(r, timeout=60)
+                recovered_t = time.time()
+                after.append(same_scores(out, want[0]))
+            except Exception:  # noqa: BLE001
+                detect_t = detect_t or time.time()
+                time.sleep(0.2)
+        check(recovered_t is not None, "the compiled graph never recovered "
+              "from the tail's SIGKILL")
+        rrefs = [compiled.execute(b)
+                 for b in batches[1:CGRAPH_RESTART_BATCHES]]
+        after += [same_scores(ray_tpu_torch.get(r, timeout=CGRAPH_TIMEOUT_S),
+                              w)
+                  for r, w in zip(rrefs, want[1:CGRAPH_RESTART_BATCHES])]
+        new_tail = ray_tpu_torch.get(tail.info.remote(), timeout=60)
+        detect_t = detect_t or recovered_t
+        print(f"cgraph restart: SIGKILL of the tail (pid {old_tail}) with "
+              f"{CGRAPH_IN_FLIGHT} executions in flight, {failed} of them "
+              f"failed; recovered in {recovered_t - t_kill:.3f} s after "
+              f"{attempts} execute(s): detection "
+              f"{detect_t - t_kill:.3f} s; the tail's restart "
+              f"{new_tail['ready_s'] - detect_t:.3f} s (to its __init__ in "
+              f"pid {new_tail['pid']}, a process started "
+              f"{new_tail['start_s'] - t_kill:+.3f} s from the kill: "
+              f"{new_tail['init_s'] - detect_t:.3f} s; imports and weights "
+              f"{new_tail['build_s']:.3f} s); recompile and first execution "
+              f"{recovered_t - new_tail['ready_s']:.3f} s; "
+              f"{sum(after)}/{len(after)} later outputs bitwise "
+              f"[{card}]", flush=True)
+        check(all(after) and len(after) == CGRAPH_RESTART_BATCHES,
+              f"outputs after the restart differ: {after}")
+        check(new_tail["pid"] != old_tail and new_tail["checksum_equal"],
+              f"the restarted tail is not a new process with the driver's "
+              f"weights: {new_tail}")
+        pids.append(new_tail["pid"])
+
+        compiled.teardown()
+        loops = [t.name for t in threading.enumerate()
+                 if t.name.startswith("cgraph-loop")]
+        stage_loops = [ray_tpu_torch.get(s.__ray_call__.remote(
+            cgraph_live_loops), timeout=60) for s in (head, tail)]
+        free_stages = torch.cuda.mem_get_info()[0]
+        ray_tpu_torch.kill(head)
+        ray_tpu_torch.kill(tail)
+        t0 = time.perf_counter()
+        alive = [p for p in pids if proc_alive(p)]
+        while alive and time.perf_counter() - t0 < CLUSTER_DOWN_S:
+            time.sleep(0.1)
+            alive = [p for p in pids if proc_alive(p)]
+        # CUDA returns a dead process's card memory a moment after
+        # its exit: read until it stops rising.
+        free_after = torch.cuda.mem_get_info()[0]
+        while time.perf_counter() - t0 < CLUSTER_DOWN_S:
+            time.sleep(0.5)
+            now = torch.cuda.mem_get_info()[0]
+            if now <= free_after:
+                break
+            free_after = now
+        print(f"cgraph teardown: loop threads in the driver {loops}, in "
+              f"the stages {stage_loops}; stage processes alive "
+              f"{CLUSTER_DOWN_S} s after kill {alive}; card memory free "
+              f"{free_before} B before the stages, {free_up} B once they "
+              f"were up, {free_stages} B before the kill, {free_after} B "
+              f"after: {free_after - free_stages} B freed [{card}]",
+              flush=True)
+        check(not loops and stage_loops == [0, 0], f"loop threads left: "
+              f"driver {loops}, stages {stage_loops}")
+        check(not alive, f"stage processes outlived teardown: {alive}")
+
+        # The Serve chain: the same halves as deployments, compiled.
+        serve.start(serve.HTTPOptions(host="127.0.0.1", port=0))
+        try:
+            actor_opts = {"num_gpus": CGRAPH_SERVE_GPU_SHARE}
+            t0 = time.perf_counter()
+            serve.run(serve.deployment(
+                FlagshipHead, ray_actor_options=actor_opts).bind(checksum),
+                name="cgraph_head", route_prefix="/cgraph_head")
+            serve.run(serve.deployment(
+                FlagshipTail, ray_actor_options=actor_opts).bind(checksum),
+                name="cgraph_tail", route_prefix="/cgraph_tail")
+            deploy_s = time.perf_counter() - t0
+            chain = serve.compile_deployment_chain(
+                ["FlagshipHead", "FlagshipTail"],
+                max_in_flight=CGRAPH_IN_FLIGHT)
+            try:
+                ray_tpu_torch.get(chain.execute(batches[0]),
+                                  timeout=CGRAPH_TIMEOUT_S)
+                t0 = time.perf_counter()
+                srefs = [chain.execute(b)
+                         for b in batches[:CGRAPH_SERVE_BATCHES]]
+                sgot = [ray_tpu_torch.get(r, timeout=CGRAPH_TIMEOUT_S)
+                        for r in srefs]
+                chain_s = time.perf_counter() - t0
+            finally:
+                chain.teardown()
+            serve_bitwise = [same_scores(g, w) for g, w in
+                             zip(sgot, want[:CGRAPH_SERVE_BATCHES])]
+        finally:
+            serve.shutdown()
+        print(f"cgraph serve chain: FlagshipHead -> FlagshipTail as "
+              f"deployments leasing {CGRAPH_SERVE_GPU_SHARE} GPU each "
+              f"(deployed {deploy_s:.3f} s), compile_deployment_chain, "
+              f"{CGRAPH_SERVE_BATCHES} batches {chain_s:.3f} s "
+              f"({chain_s / CGRAPH_SERVE_BATCHES * 1e3:.2f} ms a batch): "
+              f"{sum(serve_bitwise)}/{len(serve_bitwise)} bitwise [{card}]",
+              flush=True)
+        check(all(serve_bitwise), f"the Serve chain's outputs differ: "
+              f"{serve_bitwise}")
+
+        # A durable workflow on the host: a failed step, then resume.
+        os.environ["RAY_TPU_WORKFLOW_STORAGE"] = storage
+        flag = os.path.join(storage, "attempted")
+        rf = ray_tpu_torch.remote
+        wdag = rf(wf_summary).bind(rf(wf_histogram).bind(
+            rf(wf_tokens).bind(11), flag))
+        try:
+            workflow.run(wdag, workflow_id="smoke")
+            first = "ran"
+        except RuntimeError as e:
+            first = str(e).splitlines()[-1]
+        failed_status = workflow.get_status("smoke")
+        value = workflow.resume("smoke")
+        status = workflow.get_status("smoke")
+        print(f"cgraph workflow: first run {first!r}, status "
+              f"{failed_status['status']} (ran "
+              f"{failed_status['steps_ran']}); resume -> {value['total']} "
+              f"ids, status {status['status']}, loaded "
+              f"{status['steps_loaded']}, ran {status['steps_ran']}; "
+              f"cloudpickle importable here: "
+              f"{importable('cloudpickle')} [{card}]", flush=True)
+        check(failed_status["status"] == "FAILED"
+              and status["status"] == "SUCCEEDED"
+              and [s.split("-")[0] for s in status["steps_loaded"]]
+              == ["wf_tokens"]
+              and [s.split("-")[0] for s in status["steps_ran"]]
+              == ["wf_histogram", "wf_summary"]
+              and value["total"] == CGRAPH_BATCH * CGRAPH_SEQ,
+              f"the workflow did not fail once and resume from its first "
+              f"step's checkpoint: {failed_status}, {status}, {value}")
+    finally:
+        ray_tpu_torch.shutdown()
+        import shutil
+
+        shutil.rmtree(storage, ignore_errors=True)
+        os.environ.pop("RAY_TPU_WORKFLOW_STORAGE", None)
+    t0 = time.perf_counter()
+    left = port_processes()
+    while left and time.perf_counter() - t0 < CLUSTER_DOWN_S:
+        time.sleep(0.1)
+        left = port_processes()
+    print(f"cgraph shutdown: {len(left)} port processes left [{card}]",
+          flush=True)
+    check(not left, f"port processes outlived shutdown by "
+          f"{CLUSTER_DOWN_S} s: {left}")
+    return {name: v[1] for name, v in k1.items()}
+
+
+def cgraph_live_loops(instance):
+    """`__ray_call__` body: compiled-graph loop threads alive in the
+    actor's process."""
+    from ray_tpu_torch.cgraph.loop import _live_loop_count
+
+    return _live_loop_count()
+
+
+def importable(name: str) -> bool:
+    import importlib.util
+
+    return importlib.util.find_spec(name) is not None
+
+
+
 class RoutingRecorder:
     """While open, keeps each `ops.moe.top_k_gating` call's router logits
     and aux loss, in call order (`moe_ffn` looks the function up in its
@@ -3932,6 +4508,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         cluster_train_launches = phase_cluster_train(card, train_stats)
         data_pool_launches, data_train_launches = phase_data(card)
+        cgraph_launches = phase_cgraph(card)
         moe_cfg = replace(train_cfg, **MOE)
         params = init_params(moe_cfg,
                              torch.Generator(device="cuda").manual_seed(2))
@@ -4011,6 +4588,9 @@ def main() -> int:
         cluster_train_launches_in="the train worker process",
         data_pool_launches_f32=data_pool_launches,
         data_pool_launches_in="the actor pool's two replica processes",
+        cgraph_launches_per_stage=cgraph_launches,
+        cgraph_launches_in=("each stage process of the compiled two-stage "
+                            "pipeline, 24 batches"),
         data_train_launches_per_step=data_train_launches[0],
         data_train_launches_in="the Dataset-fed train worker",
         shape=list(MAIN_SHAPE[0]), dtype=MAIN_SHAPE[1],

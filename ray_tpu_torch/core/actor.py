@@ -1,6 +1,6 @@
 """Actor API: `@remote class`, `.remote()` creation, handles, method calls
-(the port of `ray_tpu/core/actor.py`, without `.bind` to DAG nodes: the
-DAG comes with a later slice, and Serve has its own `bind`).
+and their `.bind` to lazy DAG nodes (the port of `ray_tpu/core/actor.py`;
+Serve has its own `bind`).
 
 Reference equivalent: `python/ray/actor.py` — `ActorClass` (`:425`),
 `ActorClass.remote` (`:565`), `ActorHandle` (`:1067`) with method proxies; GCS
@@ -35,9 +35,21 @@ class ActorMethod:
         base = task_options({"num_returns": self._num_returns})
         opts = task_options(updates, base=base)
         handle, name = self._handle, self._method_name
+
+        def _bind(args, kwargs):
+            from ray_tpu_torch.dag import ClassMethodNode
+            return ClassMethodNode(handle, name, args, kwargs, options=opts)
+
         return OptionsProxy(
             submit=lambda args, kwargs: handle._submit(name, args, kwargs,
-                                                       opts))
+                                                       opts),
+            bind=_bind)
+
+    def bind(self, *args, **kwargs):
+        from ray_tpu_torch.dag import ClassMethodNode
+        opts = task_options({"num_returns": self._num_returns})
+        return ClassMethodNode(self._handle, self._method_name, args, kwargs,
+                               options=opts)
 
     def __call__(self, *args, **kwargs):
         raise TypeError(
@@ -126,8 +138,18 @@ class ActorClass:
     def options(self, **updates):
         from ray_tpu_torch.core.options import OptionsProxy
         new_opts = actor_options(updates, base=self._default_options)
+
+        def _bind(args, kwargs):
+            from ray_tpu_torch.dag import ClassNode
+            return ClassNode(self, args, kwargs, new_opts)
+
         return OptionsProxy(
-            submit=lambda args, kwargs: self._remote(args, kwargs, new_opts))
+            submit=lambda args, kwargs: self._remote(args, kwargs, new_opts),
+            bind=_bind)
+
+    def bind(self, *args, **kwargs):
+        from ray_tpu_torch.dag import ClassNode
+        return ClassNode(self, args, kwargs, self._default_options)
 
     def method_meta(self) -> Dict[str, Any]:
         meta: Dict[str, Any] = {}

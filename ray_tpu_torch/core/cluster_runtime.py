@@ -828,6 +828,9 @@ class ClusterRuntime:
             pass
         self._shm.close()
         self._exec_pool.shutdown(wait=False, cancel_futures=True)
+        pool = getattr(self, "_cgraph_deposit_pool", None)
+        if pool is not None:
+            pool.shutdown(wait=False, cancel_futures=True)
         if self._node is not None:
             self._node.stop()
         self._loop.stop()
@@ -4130,6 +4133,45 @@ class ClusterRuntime:
                 entry["cond"].notify_all()
 
         asyncio.ensure_future(notify())
+
+    async def handle_cgraph_push(self, conn: ServerConnection, *,
+                                 channel: str, data: bytes, seq: int = 0,
+                                 capacity: int = 8, kind: str = "obj",
+                                 ordered: bool = True) -> bool:
+        """Compiled-graph channel deposit (reference: the shared-memory
+        channel write in ray/experimental/channel/). The reader process
+        hosts the slot buffer; this handler admits one pushed frame in
+        writer order (a large frame arrives as an RPC blob, `data` then
+        being its one buffer). The deposit blocks while the slot is full
+        — the delayed reply IS the writer's backpressure — so it runs on
+        a thread pool of its own, never on the RPC loop."""
+        from ray_tpu_torch.cgraph.channel import (deposit_nowait,
+                                                  deposit_remote)
+
+        if deposit_nowait(kind, channel, capacity, data, seq,
+                          ordered=ordered):
+            return True   # free slot, in-order frame: no thread hop
+        # Dedicated pool: a full channel parks its deposit thread for up
+        # to the push timeout — on the shared default executor that would
+        # head-of-line-block unrelated work (generator pushes, to_thread).
+        pool = getattr(self, "_cgraph_deposit_pool", None)
+        if pool is None:
+            pool = self._cgraph_deposit_pool = (
+                concurrent.futures.ThreadPoolExecutor(
+                    max_workers=32, thread_name_prefix="cgraph-deposit"))
+        loop = asyncio.get_running_loop()
+        return await loop.run_in_executor(
+            pool,
+            lambda: deposit_remote(kind, channel, capacity, data, seq,
+                                   ordered=ordered))
+
+    async def handle_collective_ranks(self, conn: ServerConnection) -> dict:
+        """{group: rank} of this process's collective groups — the
+        device-channel writer's route discovery (cgraph/channel.py
+        DeviceChannel._ensure_route)."""
+        from ray_tpu_torch.util.collective import local_ranks
+
+        return local_ranks()
 
     async def handle_exit_worker(self, conn: ServerConnection) -> bool:
 

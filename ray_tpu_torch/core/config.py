@@ -159,6 +159,13 @@ _D("lineage_reconstruction_budget", 8,
    "Hard cap on per-object re-executions, regardless of max_retries: "
    "a flapping node must not re-run a task unboundedly. Exhausting "
    "the budget degrades the next loss to ObjectLostError.")
+_D("cgraph_restart", True,
+   "Compiled-graph recovery: when a loop actor of a compiled DAG dies, "
+   "recompile its schedule onto the restarted replacement (bounded by "
+   "the actors' max_task_retries budget) and resume — in-flight "
+   "executions still fail with the actor-death error, but the graph "
+   "accepts new executes instead of staying poisoned until teardown. "
+   "Disabling restores permanent poisoning.")
 _D("borrow_escrow_s", 600.0,
    "How long a result-embedded ref stays escrow-pinned in its owner "
    "process, bridging the gap between shipping a result and the "

@@ -1,9 +1,9 @@
-"""`@remote` functions (the port of `ray_tpu/core/remote_function.py`,
-without `.bind` to DAG nodes, which come with a later slice).
+"""`@remote` functions (the port of `ray_tpu/core/remote_function.py`).
 
 Reference equivalent: `python/ray/remote_function.py` (`RemoteFunction` at
 `:40`, `._remote` at `:261`): a decorated function gains `.remote(*a, **kw)`
-returning ObjectRef(s), and `.options(**opts)` for per-call overrides.
+returning ObjectRef(s), `.options(**opts)` for per-call overrides, and
+`.bind(*a, **kw)`, a lazy `ray_tpu_torch.dag.FunctionNode`.
 """
 
 from __future__ import annotations
@@ -59,7 +59,16 @@ class RemoteFunction:
         from ray_tpu_torch.core.options import OptionsProxy
         new_opts = task_options(updates, base=self._default_options)
         return OptionsProxy(
-            submit=lambda args, kwargs: self._remote(args, kwargs, new_opts))
+            submit=lambda args, kwargs: self._remote(args, kwargs, new_opts),
+            bind=lambda args, kwargs: self._bind_node(args, kwargs, new_opts))
+
+    def _bind_node(self, args, kwargs, opts):
+        from ray_tpu_torch.dag import FunctionNode
+        return FunctionNode(self, args, kwargs, opts)
+
+    def bind(self, *args, **kwargs):
+        """Lazy DAG-node construction (reference: python/ray/dag)."""
+        return self._bind_node(args, kwargs, self._default_options)
 
     def _remote(self, args, kwargs, opts: TaskOptions):
         from ray_tpu_torch.core.worker import current_runtime

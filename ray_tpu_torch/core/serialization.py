@@ -22,8 +22,26 @@ A fast frame is a 1-byte tag and a payload:
   length, the header, then the raw buffer. The header is the msgpack
   encoding of ``{"d": dtype.str, "s": list(shape)}``.
 
-Any other value raises `TypeError` on the fast path: there is no pickle
-fallback there, and a frame with another tag raises `ValueError`.
+`serialize_fast` writes only those four and raises `TypeError` for any
+other value (prefix shipping never pickles). Compiled-graph channels
+write the reference's full form with `serialize_fast_into`, into a buffer
+they reuse, and read it with `deserialize_fast(blob, full=True)`; it adds
+
+- ``M`` — a bool, int or float, msgpack-encoded;
+- ``T`` — a torch tensor (the port's own tag): like ``A``, with the header
+  ``{"t": torch dtype name, "s": shape, "c": 1 if it lay on a card}``, so
+  that bfloat16, which numpy lacks, survives. A tensor from a card is
+  copied to the host once its stream is done with it, and the reader
+  lands it on its own card (`util.device_arrays.to_torch`: `cuda:0`
+  inside its lease), or raises where it has none; a CPU tensor lands as
+  a CPU tensor;
+- ``P`` — anything else, through the full object path below.
+
+Without `full`, a frame with any tag but the first four raises
+`ValueError`.
+
+A CUDA tensor inside any pickled value (a task's return, a ``P`` frame)
+travels the same way: its bytes out of band, landed on the reader's card.
 
 The port carries no msgpack: `core/codec.py` writes and reads msgpack's
 bytes, so either side decodes the other's. Nor cloudpickle: a function or
@@ -46,7 +64,8 @@ import numpy as np
 from ray_tpu_torch.core.codec import packb, unpackb
 
 __all__ = ["SerializedObject", "serialize", "serialize_error", "deserialize",
-           "serialize_fast", "deserialize_fast"]
+           "serialize_fast", "serialize_fast_into", "pack_array_chunks",
+           "deserialize_fast"]
 
 _HEADER = struct.Struct("<I")
 
@@ -84,7 +103,117 @@ def _decode_header(head: bytes) -> Tuple[np.dtype, List[int]]:
     return np.dtype(meta["d"]), list(meta["s"])
 
 
-def deserialize_fast(blob) -> Any:
+def serialize_fast_into(value: Any, buf: bytearray) -> None:
+    """Append the full fast form of `value` to `buf` (reused across calls
+    by channel writers): N, B, S, M, A or T where the value allows, else
+    P."""
+    t = type(value)
+    if value is None:
+        buf += b"N"
+    elif t is bytes:
+        buf += b"B"
+        buf += value
+    elif t is str:
+        buf += b"S"
+        buf += value.encode()
+    elif t in (bool, int, float):
+        try:
+            buf += b"M" + packb(value)
+        except OverflowError:   # an int past 64 bits
+            buf += b"P"
+            serialize(value).write_into(buf)
+    elif is_plain_ndarray(value) or _is_tensor(value):
+        for chunk in pack_array_chunks(value):
+            buf += chunk
+    else:
+        buf += b"P"
+        serialize(value).write_into(buf)
+
+
+def _is_tensor(value: Any) -> bool:
+    torch = sys.modules.get("torch")
+    return torch is not None and type(value) is torch.Tensor
+
+
+def _tensor_host_bytes(t) -> Tuple[Any, bool]:
+    """(a contiguous CPU tensor of `t`'s values, whether `t` lay on a
+    card). A card tensor is copied on its current stream, which the copy
+    waits out, so the producer's work on it has finished."""
+    t = t.detach()
+    on_card = t.device.type == "cuda"
+    if on_card:
+        t = t.to("cpu")
+    return t.contiguous(), on_card
+
+
+def dtype_name(t) -> str:
+    """A tensor's dtype as torch names it ("float32", "bfloat16")."""
+    return str(t.dtype).rpartition(".")[2]
+
+
+def _byte_view(t) -> memoryview:
+    """The bytes of a contiguous CPU tensor, as a view."""
+    import torch
+
+    return memoryview(t.reshape(-1).view(torch.uint8).numpy())
+
+
+def pack_array_chunks(value) -> list:
+    """The ``A`` frame of a plain C-contiguous ndarray, or the ``T`` frame
+    of a torch tensor, as a chunk list ``[tag + u32 head_len + head, raw
+    buffer]`` for a transport that sends the chunks as they are. The
+    buffer chunk views the array (or the CPU tensor; a card tensor's is
+    its host copy): a caller that cannot keep the array unchanged until
+    the transport has sent it copies it first."""
+    if _is_tensor(value):
+        host, on_card = _tensor_host_bytes(value)
+        head = packb({"t": dtype_name(host),
+                      "s": [int(n) for n in host.shape],
+                      "c": int(on_card)})
+        chunks = [b"T" + _HEADER.pack(len(head)) + head]
+        if host.numel():
+            chunks.append(_byte_view(host))
+        return chunks
+    head = _array_header(value.dtype.str, value.shape)
+    chunks = [b"A" + _HEADER.pack(len(head)) + head]
+    if value.size:   # a view of an empty array cannot be cast to bytes
+        chunks.append(memoryview(value).cast("B"))
+    return chunks
+
+
+def land_tensor(dtype_name: str, shape, data, on_card: bool):
+    """A tensor from its raw bytes: on this process's card (`cuda:0`
+    inside its lease) where it came from one, which raises without a
+    card; else a CPU tensor that owns its memory."""
+    import warnings
+
+    import torch
+
+    dtype = getattr(torch, dtype_name)
+    if not isinstance(dtype, torch.dtype):
+        raise ValueError(f"bad tensor dtype {dtype_name!r}")
+    n = 1
+    for d in shape:
+        n *= int(d)
+    if n == 0:
+        host = torch.empty(shape, dtype=dtype)
+    else:
+        with warnings.catch_warnings():
+            # The wire buffer may be read-only: the tensor made over it
+            # is only read, to copy it.
+            warnings.simplefilter("ignore", UserWarning)
+            host = torch.frombuffer(data, dtype=dtype, count=n).reshape(
+                shape)
+    if on_card:
+        from ray_tpu_torch.util.device_arrays import to_torch
+
+        return to_torch(host)
+    return host.clone()
+
+
+def deserialize_fast(blob, *, full: bool = False) -> Any:
+    """Read one fast frame. With `full`, also the M, T and P frames of
+    `serialize_fast_into`."""
     view = memoryview(blob)
     tag = view[:1].tobytes()
     body = view[1:]
@@ -100,6 +229,17 @@ def deserialize_fast(blob) -> Any:
         dtype, shape = _decode_header(bytes(body[_HEADER.size:start]))
         arr = np.frombuffer(body[start:], dtype=dtype)
         return arr.reshape(shape)
+    if full:
+        if tag == b"M":
+            return unpackb(bytes(body))
+        if tag == b"T":
+            (head_len,) = _HEADER.unpack_from(body, 0)
+            start = _HEADER.size + head_len
+            head = unpackb(bytes(body[_HEADER.size:start]))
+            return land_tensor(head["t"], head["s"], body[start:],
+                               bool(head["c"]))
+        if tag == b"P":
+            return deserialize(body)
     raise ValueError(f"bad fast-serialization tag {tag!r}")
 
 
@@ -167,6 +307,18 @@ class _Pickler(pickle.Pickler):
                 reduce_by_reference)
 
             return reduce_by_reference(obj)
+        if (type(obj).__name__ == "Tensor" and _is_tensor(obj)
+                and obj.is_cuda and not obj.requires_grad):
+            # torch's own pickling would record the writer's device index
+            # and go through torch.save; this sends the bytes (out of
+            # band where the caller takes buffers) and lands them on the
+            # reader's card. A tensor that requires grad keeps torch's
+            # own, which carries (or refuses) its autograd state.
+            host, _ = _tensor_host_bytes(obj)
+            data = (pickle.PickleBuffer(_byte_view(host)) if host.numel()
+                    else b"")
+            return land_tensor, (dtype_name(host), tuple(host.shape), data,
+                                 True)
         return NotImplemented
 
 

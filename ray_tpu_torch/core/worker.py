@@ -139,6 +139,13 @@ def put(value: Any) -> ObjectRef:
 
 def get(object_refs: Union[ObjectRef, Sequence[ObjectRef]],
         *, timeout: Optional[float] = None):
+    # Compiled-graph futures resolve through their channel, not the
+    # object plane (reference: ray.get accepts CompiledDAGRef).
+    if getattr(object_refs, "_is_compiled_dag_ref", False):
+        return object_refs.get(timeout=timeout)
+    if isinstance(object_refs, (list, tuple)) and any(
+            getattr(r, "_is_compiled_dag_ref", False) for r in object_refs):
+        return [get(r, timeout=timeout) for r in object_refs]
     return current_runtime().get(object_refs, timeout=timeout)
 
 

@@ -6,10 +6,12 @@ serving half:
     python -m ray_tpu_torch.perf --fleet [--scale S]
 
 `run_microbench` measures the runtime on the host: tasks/s, actor
-calls/s, put/get of 10 MB, on the cluster runtime (worker processes) or,
-with `--local`, the in-process one. Its keys are the reference's; the
-DAG and compiled-graph keys are null, since `dag` and `cgraph` come with
-a later slice.
+calls/s, put/get of 10 MB, a 3-actor chain through the lazy DAG
+(`dag.execute`, three actor tasks a call) and compiled
+(`experimental_compile`, persistent loops and channels), and a 4 MB
+array over a 2-stage compiled chain's `"array"` edges, on the cluster
+runtime (worker processes) or, with `--local`, the in-process one. Its
+keys are the reference's.
 
 `run_llm_serve_bench` drives one `InferenceEngine`: continuous vs static
 batching, 2x overload behind the ingress's admission gate, prefix
@@ -55,11 +57,12 @@ class _Counter:
         return self.n
 
 
-# The reference's keys that its DAG and compiled-graph sections fill; the
-# port reports them null until those come.
-_LATER_KEYS = ("dag_chain_calls_per_s", "dag_chain_call_ms",
-               "cgraph_calls_per_s", "cgraph_call_ms", "cgraph_vs_dag_speedup",
-               "array_chan_MBps")
+class _ChainStage:
+    def step(self, x):
+        return x + 1
+
+    def echo(self, x):
+        return x
 
 
 def run_microbench(local_mode: bool = False,
@@ -136,11 +139,72 @@ def run_microbench(local_mode: bool = False,
         mb = arr.nbytes / 1e6
         out["put_bw_MBps"] = round(mb / max(_p50(puts), 1e-9), 1)
         out["get_bw_MBps"] = round(mb / max(_p50(gets), 1e-9), 1)
-        out.update(dict.fromkeys(_LATER_KEYS))
+        out.update(_dag_chain_bench(scale))
         ray_tpu_torch.kill(counter)
     finally:
         ray_tpu_torch.shutdown()
     return out
+
+def _dag_chain_bench(scale: float) -> Dict[str, Any]:
+    """Compiled graphs vs the lazy DAG: the same 3-actor chain through
+    `dag.execute` (3 actor tasks a call) and `experimental_compile`
+    (persistent loops and channels; no per-call task plane), pipelined
+    with a bounded in-flight window; then a 4 MB float32 array a call
+    over a 2-stage compiled chain's `"array"` edges (blob-framed pushes),
+    in MB/s end to end."""
+    import numpy as np
+
+    import ray_tpu_torch
+    from ray_tpu_torch.dag import InputNode
+
+    get = ray_tpu_torch.get
+    out: Dict[str, Any] = {}
+    stage_cls = ray_tpu_torch.remote(num_cpus=0)(_ChainStage)
+    stages = [stage_cls.remote() for _ in range(3)]
+    get([s.step.remote(0) for s in stages], timeout=120)
+    with InputNode() as inp:
+        dag = stages[2].step.bind(
+            stages[1].step.bind(stages[0].step.bind(inp)))
+    n = max(1, int(200 * scale))
+
+    t0 = time.perf_counter()
+    get([dag.execute(i) for i in range(n)], timeout=600)
+    dt = time.perf_counter() - t0
+    out["dag_chain_calls_per_s"] = round(n / dt, 1)
+    out["dag_chain_call_ms"] = round(dt / n * 1e3, 3)
+
+    compiled = dag.experimental_compile(max_in_flight=16)
+    get(compiled.execute(0), timeout=120)  # warm the loops
+    t0 = time.perf_counter()
+    refs = [compiled.execute(i) for i in range(n)]
+    for r in refs:
+        get(r, timeout=600)
+    dt = time.perf_counter() - t0
+    out["cgraph_calls_per_s"] = round(n / dt, 1)
+    out["cgraph_call_ms"] = round(dt / n * 1e3, 3)
+    out["cgraph_vs_dag_speedup"] = round(
+        out["dag_chain_call_ms"] / max(out["cgraph_call_ms"], 1e-9), 1)
+    compiled.teardown()
+
+    with InputNode() as inp:
+        adag = stages[1].echo.bind(
+            stages[0].echo.bind(inp).with_channel("array")
+        ).with_channel("array")
+    acomp = adag.experimental_compile(max_in_flight=4)
+    tensor = np.zeros(4 * 1024 * 1024 // 4, np.float32)
+    get(acomp.execute(tensor), timeout=120)  # warm
+    n = max(4, int(24 * scale))
+    t0 = time.perf_counter()
+    arefs = [acomp.execute(tensor) for _ in range(n)]
+    for r in arefs:
+        get(r, timeout=600)
+    dt = time.perf_counter() - t0
+    out["array_chan_MBps"] = round(n * tensor.nbytes / 1e6 / dt, 1)
+    acomp.teardown()
+    for s in stages:
+        ray_tpu_torch.kill(s)
+    return out
+
 
 _PAGED_BENCH_MODELS: Dict[Any, Any] = {}
 

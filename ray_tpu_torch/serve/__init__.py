@@ -13,9 +13,11 @@ its own event loop, so a replica's model shares the process (and a card)
 with every other. The serving engine (`serve.engine`) and the fleet over
 it (`serve.fleet`) are subpackages.
 
+`compile_deployment_chain` (`serve/cgraph.py`) compiles a chain of
+deployments into a compiled graph over one pinned replica of each.
+
 Left out until later slices: `start_grpc_ingress` and `GrpcServeClient`
-(the gRPC ingress), `multiplexed` and `get_multiplexed_model_id`, and
-`compile_deployment_chain`.
+(the gRPC ingress), `multiplexed` and `get_multiplexed_model_id`.
 """
 
 from __future__ import annotations
@@ -43,8 +45,16 @@ __all__ = [
     "DeploymentResponse", "DeploymentResponseGenerator",
     "AutoscalingConfig", "DeploymentConfig",
     "HTTPOptions", "RayServeException", "ReplicaDrainingError",
-    "DeploymentUnavailableError",
+    "DeploymentUnavailableError", "compile_deployment_chain",
 ]
+
+
+def __getattr__(name):
+    if name == "compile_deployment_chain":
+        from ray_tpu_torch.serve.cgraph import compile_deployment_chain
+
+        return compile_deployment_chain
+    raise AttributeError(name)
 
 _PROXY_NAME = "SERVE_PROXY"
 _http_port: Optional[int] = None

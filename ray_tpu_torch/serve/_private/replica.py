@@ -182,6 +182,20 @@ class Replica:
                 "define __call__ or route to a named method")
         return call
 
+    def cgraph_call(self, value: Any, method_name: str = "__call__") -> Any:
+        """Compiled-graph op: invoke the user callable synchronously on
+        the replica's persistent loop thread (`serve.cgraph` compiles
+        deployment chains into `cgraph` pipelines — no router, no
+        per-request actor task). Coroutine deployments run to completion
+        here: the loop thread has no ambient event loop."""
+        method = (self._resolve_call() if method_name == "__call__"
+                  else getattr(self._instance, method_name))
+        self._total += 1
+        out = method(value)
+        if inspect.iscoroutine(out):
+            return asyncio.run(out)
+        return out
+
     # -- control plane -------------------------------------------------
     def queue_len(self) -> int:
         return self._ongoing

@@ -385,7 +385,9 @@ def send(tensor, dst_rank: int, group_name: str = "default",
     """P2P send to `dst_rank` (reference: collective.py send/recv pairs).
     Messages with one `tag` between one pair of ranks match in send
     order. `timeout` (seconds) bounds the wait: a dead receiver otherwise
-    parks this thread in the backend for good."""
+    parks this thread in the backend for good. A compiled graph's
+    `"device"` edge sends its payload here (`cgraph/channel.py
+    DeviceChannel.write`), one tag per edge."""
     group = _require(group_name)
     t = _to_torch(tensor, group)
     _wait(group.pg.send([t], dst_rank, tag), timeout)
@@ -398,7 +400,9 @@ def send(tensor, dst_rank: int, group_name: str = "default",
 def recv(tensor, src_rank: int, group_name: str = "default",
          tag: int = 0, timeout: Optional[float] = None):
     """Receives into a tensor of the given shape/dtype; returns it.
-    `timeout` bounds the wait (see send)."""
+    `timeout` bounds the wait (see send). The reading end of a `"device"`
+    edge (`DeviceChannel._decode`), into a buffer on the group's card
+    for NCCL."""
     group = _require(group_name)
     t = _to_torch(tensor, group)
     _wait(group.pg.recv([t], src_rank, tag), timeout)
@@ -413,5 +417,8 @@ def _wait(work, timeout: Optional[float]) -> None:
 
 
 def local_ranks() -> Dict[str, int]:
-    """{group_name: rank} for every group this process has initialized."""
+    """{group_name: rank} for every group this process has initialized.
+    A worker answers the `collective_ranks` RPC with it
+    (`core/cluster_runtime.py`), which a `"device"` edge's writer asks to
+    find a group that it shares with its reader."""
     return {name: g.rank for name, g in _GROUPS.items()}

@@ -638,3 +638,49 @@ def test_nccl_gang_of_two_ranks(card, tmp_path):
     finally:
         ray_tpu_torch.shutdown()
     assert result.metrics == {"sum": 3.0, "backend": "nccl"}
+
+
+class _CardStage:
+    """A stage of a compiled graph in a worker leasing half the card."""
+
+    def make(self, seed):
+        gen = torch.Generator(device="cuda").manual_seed(int(seed))
+        return torch.randn((64, 1024), generator=gen, device="cuda")
+
+    def arrived(self, x):
+        """What came over the edge, and the tensor itself (which the
+        output edge carries back to the driver's card)."""
+        return (type(x).__name__, x.device.type, str(x.dtype)), x
+
+
+def test_array_edge_between_gpu_leased_workers_lands_a_cuda_tensor(card):
+    """`"array"` edge, worker to worker on one card: the tensor crosses as
+    host bytes and lands on the reader's card bitwise; the output edge
+    brings it to the driver's card; the lazy run (the object store)
+    gives the same."""
+    import ray_tpu_torch
+    from ray_tpu_torch.dag import InputNode
+
+    ray_tpu_torch.init(num_cpus=2)
+    try:
+        stage = ray_tpu_torch.remote(num_gpus=0.5)(_CardStage)
+        head, tail = stage.remote(), stage.remote()
+        with InputNode() as inp:
+            dag = tail.arrived.bind(head.make.bind(inp).with_channel("array"))
+        lazy = [ray_tpu_torch.get(dag.execute(s), timeout=300)
+                for s in (1, 2)]
+        compiled = dag.experimental_compile(max_in_flight=2)
+        try:
+            got = [ray_tpu_torch.get(compiled.execute(s), timeout=300)
+                   for s in (1, 2, 3)]
+        finally:
+            compiled.teardown()
+    finally:
+        ray_tpu_torch.shutdown()
+    for seed, (seen, out) in zip((1, 2, 3), got):
+        want = _CardStage().make(seed)
+        assert seen == ("Tensor", "cuda", "torch.float32")
+        assert out.is_cuda and torch.equal(out, want)
+    for seed, (seen, out) in zip((1, 2), lazy):
+        assert seen == ("Tensor", "cuda", "torch.float32")
+        assert out.is_cuda and torch.equal(out, _CardStage().make(seed))

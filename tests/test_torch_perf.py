@@ -73,7 +73,10 @@ def test_microbench_keys_equal_reference(ref_microbench_keys, local_mode):
     assert set(out) == ref_microbench_keys
     assert out["mode"] == ("local" if local_mode else "cluster")
     assert out["tasks_per_s"] > 0 and out["actor_calls_per_s"] > 0
-    assert out["cgraph_calls_per_s"] is None
+    for key in ("dag_chain_calls_per_s", "dag_chain_call_ms",
+                "cgraph_calls_per_s", "cgraph_call_ms",
+                "cgraph_vs_dag_speedup", "array_chan_MBps"):
+        assert isinstance(out[key], float) and out[key] > 0, (key, out[key])
 
 
 @pytest.mark.parametrize("bench", ["llm", "fleet"])

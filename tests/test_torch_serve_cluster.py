@@ -138,6 +138,41 @@ def test_transformer_replica_process_streams_jax_engine_tokens(
     assert streamed == want
 
 
+def test_compile_deployment_chain_matches_the_routed_handles(port_results):
+    """tests/test_serve.py's compiled deployment chain, on replica
+    processes: one pinned replica of each deployment, channels between
+    them, the routed path's answers, and the routed path still serving
+    after the compiled graph's teardown."""
+    import torch_cgraph_helpers as cg
+
+    from ray_tpu_torch import serve
+
+    serve.start(serve.HTTPOptions(host="127.0.0.1", port=0))
+    try:
+        serve.run(serve.deployment(cg.Doubler).bind(), name="d",
+                  route_prefix="/double")
+        serve.run(serve.deployment(cg.Biaser).bind(), name="b",
+                  route_prefix="/bias")
+        compiled = serve.compile_deployment_chain(["Doubler", "Biaser"])
+        try:
+            assert ray_tpu_torch.get(compiled.execute(5), timeout=60) == 13
+            d = serve.get_deployment_handle("Doubler")
+            b = serve.get_deployment_handle("Biaser")
+            assert b.remote(d.remote(5).result(timeout_s=60)).result(
+                timeout_s=60) == 13
+            refs = [compiled.execute(i) for i in range(20)]
+            assert [ray_tpu_torch.get(r, timeout=60) for r in refs] \
+                == [i * 2 + 3 for i in range(20)]
+        finally:
+            compiled.teardown()
+        d = serve.get_deployment_handle("Doubler")
+        assert d.remote(4).result(timeout_s=60) == 8
+        serve.delete("Doubler")
+        serve.delete("Biaser")
+    finally:
+        serve.shutdown()
+
+
 def test_shutdown_leaves_no_process(port_cluster):
     """The last test: the cluster's own shutdown ends every process of
     the port within the grace period."""

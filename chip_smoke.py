@@ -16,7 +16,8 @@ result line:
    with a tensor-core instruction (its route is the CUDA cores);
 3. kernels: K1 against its plain PyTorch version on the card at the shapes
    the serving and training paths give it and a few more (a ragged block
-   count, D 64 at the train shape, a peaked softmax), with the error
+   count, D 64 at the train shape, a peaked softmax, and D 256: the
+   D-256 phase's train and serving shapes, ragged, peaked), with the error
    against the stated tolerance, the kernel's time (CUDA events) and
    achieved TFLOP/s, the plain version's time, one PyTorch library call's
    time as a yardstick, and the least time the card could take (bytes
@@ -91,7 +92,8 @@ result line:
    `run_fleet_bench`, each printed as a JSON line.
 6. backward kernels: K2 (dK, dV) and K3 (dQ) against their plain versions
    at the shapes the train step gives them and a few more (bf16 and
-   float32; a ragged block count, D 64, QKV views, a peaked softmax), with
+   float32; a ragged block count, D 64, QKV views, a peaked softmax, and
+   the D-256 phase's rows, as for K1), with
    error, time, achieved TFLOP/s, plain time, bound at the route's peak
    (float32 also at the tensor cores' 3xTF32 rate) and, as a yardstick
    for the pair, the backward of one `scaled_dot_product_attention` call
@@ -183,6 +185,17 @@ result line:
    bitwise), and a durable three-step workflow on the host whose middle
    step fails once: FAILED, then `workflow.resume` loads the first step's
    checkpoint and reads SUCCEEDED. No port process is left after shutdown;
+9d. d256: heads of 256. The flagship's widths with 6 heads of 256 in place
+   of 12 of 128 (the same 503,354,880 parameters, from the same seed)
+   through the engine phase (float32, its 8 prompts and 32 new tokens, its
+   gates: logits within 1e-3 of a no-cache forward, token agreement, K1 12
+   a no-prefix prefill), the bf16 gradient gate at depth 2, float32
+   gradients at depth 2 (rel L2 1e-4 per part, K1-K3 once a layer) and 5
+   steps of bench.py's train step (losses finite and falling, K1-K3 12 a
+   step, one profiled step). Fails if `plain_attention` runs on the card
+   other than as a reference (explicit positions). K1, K2 and K3 run their
+   D-256 instantiations (`flash_bwd_*_tc_wide` in bf16), which the kernel
+   phases hold to their plain versions on rows of their own;
 10. MoE float32 gradients: the same widths with 4 experts (top 2, capacity
     factor 1.25), depth 2, float32, 2 x 1024 tokens, remat
     "save_attn_qkv": `lm_loss` gradients through K1, K2 and K3's float32
@@ -227,7 +240,9 @@ prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import gc
+import importlib
 import json
 import os
 import re
@@ -297,6 +312,13 @@ KERNEL_SHAPES = [
     ((4, 1024, 12, 128), "bfloat16", "qkv", 4.0),
     ((8, 1024, 12, 128), "bfloat16", "qkv", 1.0),    # the MoE train step's
     ((4, 512, 12, 128), "float32", "qkv", 1.0),      # the data pool's blocks
+    # Heads of 256 (`phase_d256`): its train step's, its engine's largest
+    # bucket, a ragged block count in both types, a peaked softmax.
+    ((16, 1024, 6, 256), "bfloat16", "qkv", 1.0),
+    ((1, 1024, 6, 256), "float32", "qkv", 1.0),
+    ((2, 384, 3, 256), "bfloat16", "contiguous", 1.0),
+    ((2, 384, 3, 256), "float32", "contiguous", 1.0),
+    ((4, 1024, 6, 256), "bfloat16", "qkv", 4.0),
 ]
 # The engine's largest bucket, the train step's shape and the MoE train
 # step's.
@@ -326,10 +348,22 @@ BWD_SHAPES = [
     ((2, 384, 3, 128), "float32", "contiguous", 1.0),
     ((4, 1024, 12, 128), "float32", "qkv", 4.0),
     MOE_TRAIN_SHAPE,
+    # Heads of 256 (`phase_d256`): its train step's, the float32 route at
+    # its serving width, a ragged block count in both types, a peaked
+    # softmax.
+    ((16, 1024, 6, 256), "bfloat16", "qkv", 1.0),
+    ((1, 1024, 6, 256), "float32", "qkv", 1.0),
+    ((2, 384, 3, 256), "bfloat16", "contiguous", 1.0),
+    ((2, 384, 3, 256), "float32", "contiguous", 1.0),
+    ((4, 1024, 6, 256), "bfloat16", "qkv", 4.0),
 ]
 MAIN_BWD_SHAPE = ((16, 1024, 12, 128), "bfloat16", "qkv", 1.0)
 # The float32 route's row reported in the kernels line.
 F32_BWD_SHAPE = ((1, 1024, 12, 128), "float32", "contiguous", 1.0)
+# The rows of heads of 256 reported in the kernels line (K1, K2, K3): the
+# D-256 train step's (bf16) and the float32 route at its serving width.
+D256_SHAPE = ((16, 1024, 6, 256), "bfloat16", "qkv", 1.0)
+D256_F32_SHAPE = ((1, 1024, 6, 256), "float32", "qkv", 1.0)
 # K2/K3 against their plain versions, (atol, rtol) plus, in bf16,
 # `bwd_flip_bound`. float32: summation order only. bf16: both sides round p
 # and ds where the TPU kernel does, so they differ by float32 noise, which
@@ -650,7 +684,7 @@ def engine_prompts(cfg):
     return prompts
 
 
-def phase_engine(params, cfg, card: str):
+def phase_engine(params, cfg, card: str, label: str = "flagship"):
     """Returns the K1 launches and the measured pass's tokens/s."""
     import numpy as np
     import torch
@@ -734,7 +768,7 @@ def phase_engine(params, cfg, card: str):
         agree += int((picks == np.asarray(gen)).sum())
         total += len(gen)
     share = agree / total
-    print(f"engine flagship f32 paged: {len(prompts)} requests, "
+    print(f"engine {label} f32 paged: {len(prompts)} requests, "
           f"{n_tokens} tokens in {wall:.3f} s, tokens_per_s "
           f"{n_tokens / wall:.2f}, ttft_p50_ms {st['ttft_p50_ms']}, "
           f"prefills {st['prefills']} (no-prefix {model.full_prefills}), "
@@ -2378,7 +2412,7 @@ def phase_grad(params, cfg, card: str):
               replace(cfg, n_layers=GRAD_GATE_LAYERS), card)
 
 
-def grad_gate(params, cfg, card: str):
+def grad_gate(params, cfg, card: str, label: str = "flagship"):
     """The bf16 gradient gate at cfg's depth: each leaf and wqkv part of
     the kernel path within GRAD_ERR_RATIO of the plain path's distance to
     float32, K1, K2, K3 once a layer."""
@@ -2389,7 +2423,7 @@ def grad_gate(params, cfg, card: str):
     part_names, part_k, part_p = r["part_names"], r["part_k"], r["part_p"]
     pworst, pratio, _, _, ok = grad_summary(part_k, part_p, part_names)
     loss_k, loss_p, loss_r = r["losses"]
-    print(f"grad flagship bf16 depth {cfg.n_layers} [{GRAD_BATCH}, "
+    print(f"grad {label} bf16 depth {cfg.n_layers} [{GRAD_BATCH}, "
           f"{TRAIN_SEQ}] remat "
           f"{cfg.remat_policy}: loss kernels {loss_k:.5f} plain "
           f"{loss_p:.5f} float32 {loss_r:.5f}; per-leaf "
@@ -2411,7 +2445,7 @@ def grad_gate(params, cfg, card: str):
               f"({part_p[pworst]:.3e}) allows")
 
 
-def phase_grad_f32(params, cfg, card: str):
+def phase_grad_f32(params, cfg, card: str, label: str = "flagship"):
     """The float32 training path through K1, K2 and K3's float32 route:
     `lm_loss` gradients of a float32 model at the flagship width, depth
     cut to F32_GRAD_LAYERS, against plain attention's, leaf by leaf with
@@ -2426,7 +2460,7 @@ def phase_grad_f32(params, cfg, card: str):
     names, part_k, counts = r["part_names"], r["part_k"], r["counts"]
     worst = max(range(len(names)), key=part_k.__getitem__)
     loss_k, loss_p, _ = r["losses"]
-    print(f"grad flagship f32 depth {cfg.n_layers} [{GRAD_BATCH}, "
+    print(f"grad {label} f32 depth {cfg.n_layers} [{GRAD_BATCH}, "
           f"{TRAIN_SEQ}] remat {cfg.remat_policy}: loss kernels "
           f"{loss_k:.6f} plain {loss_p:.6f}; rel_l2 kernels vs plain "
           f"attention over {len(names)} parts (wqkv split into q, k, v): "
@@ -2445,7 +2479,8 @@ def phase_grad_f32(params, cfg, card: str):
     return counts
 
 
-def phase_train(params, cfg, card: str, power_w: float):
+def phase_train(params, cfg, card: str, power_w: float,
+                steps: int = TRAIN_STEPS, label: str = "flagship"):
     import torch
 
     from ray_tpu_torch.kernels import flash_attn
@@ -2467,7 +2502,7 @@ def phase_train(params, cfg, card: str, power_w: float):
     flash_attn.launches = flash_attn.dkv_launches = 0
     flash_attn.dq_launches = 0
     t0 = time.perf_counter()
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         params, opt_state, loss = step(params, opt_state, batch)
         losses.append(loss)
     torch.cuda.synchronize()
@@ -2476,32 +2511,33 @@ def phase_train(params, cfg, card: str, power_w: float):
                 flash_attn.dq_launches)
     peak = torch.cuda.max_memory_allocated()
     values = [x.item() for x in losses]
-    tokens_per_s = TRAIN_BATCH * TRAIN_SEQ * TRAIN_STEPS / dt
+    tokens_per_s = TRAIN_BATCH * TRAIN_SEQ * steps / dt
     mfu = 6.0 * n_params * tokens_per_s / PEAK_FLOPS["bfloat16"]
-    per_step = [n / TRAIN_STEPS for n in launches]
-    print(f"train flagship bf16 remat {cfg.remat_policy} AdamW 1e-4 "
+    per_step = [n / steps for n in launches]
+    print(f"train {label} bf16 remat {cfg.remat_policy} AdamW 1e-4 "
           f"[{TRAIN_BATCH}, {TRAIN_SEQ}], {n_params} params: warm-up step "
-          f"{warm_s:.3f} s; {TRAIN_STEPS} steps in {dt:.4f} s, step_ms "
-          f"{dt / TRAIN_STEPS * 1e3:.2f}, tokens_per_s {tokens_per_s:.1f}, "
+          f"{warm_s:.3f} s; {steps} steps in {dt:.4f} s, step_ms "
+          f"{dt / steps * 1e3:.2f}, tokens_per_s {tokens_per_s:.1f}, "
           f"MFU {mfu:.4f} (6 N tokens/s over 989 TFLOP/s bf16; "
           f"{mfu * FULL_POWER_W / power_w if power_w else mfu:.4f} of the "
           f"peak derated to the power limit), peak_memory_bytes {peak} "
           f"({peak / 2 ** 30:.2f} GiB), launches per step K1 {per_step[0]:g}"
           f" K2 {per_step[1]:g} K3 {per_step[2]:g} [{card}]", flush=True)
-    print(f"train losses {' '.join(f'{x:.5f}' for x in values)}",
+    tag = "train" if label == "flagship" else f"{label} train"
+    print(f"{tag} losses {' '.join(f'{x:.5f}' for x in values)}",
           flush=True)
     check(all(x == x and abs(x) != float("inf") for x in values),
           "a train loss is not finite")
     check(values[-1] < values[0],
           f"the loss did not fall: {values[0]:.5f} -> {values[-1]:.5f}")
-    check(all(n == cfg.n_layers * TRAIN_STEPS for n in launches),
+    check(all(n == cfg.n_layers * steps for n in launches),
           f"the train steps launched K1, K2, K3 {launches} times, expected "
-          f"{cfg.n_layers * TRAIN_STEPS} each (once per layer per step)")
+          f"{cfg.n_layers * steps} each (once per layer per step)")
     prof = profile_step(lambda: step(params, opt_state, batch),
-                        dt / TRAIN_STEPS * 1e3, card)
+                        dt / steps * 1e3, card, f"{tag} step")
     return launches, dict(tokens_per_s=tokens_per_s, mfu=mfu,
                           peak_memory_bytes=peak,
-                          step_ms=dt / TRAIN_STEPS * 1e3, profile=prof,
+                          step_ms=dt / steps * 1e3, profile=prof,
                           losses=values, start_checksum=start_sum)
 
 
@@ -2514,6 +2550,124 @@ def train_batch(cfg):
     return {"tokens": torch.randint(0, cfg.vocab_size,
                                     (TRAIN_BATCH, TRAIN_SEQ + 1),
                                     generator=gen, device="cuda")}
+
+
+# Heads of 256: the flagship's widths with 6 heads of 256 in place of 12
+# of 128 (V32768 D1536 L12 F6144, the same 503,354,880 parameters), as
+# Gemma's and PaLM's heads are 256 wide. `phase_d256` drives it through
+# the engine phase, the bf16 gradient gate at GRAD_GATE_LAYERS, the
+# float32 gradients at F32_GRAD_LAYERS and D256_TRAIN_STEPS of bench.py's
+# step.
+D256 = dict(FLAGSHIP, n_heads=6)
+D256_TRAIN_STEPS = 5
+
+
+@contextlib.contextmanager
+def plain_attention_calls():
+    """Counts `ops.attention.plain_attention`'s calls on CUDA tensors while
+    open: {"dispatch": calls without positions, which only `attention`'s
+    fallback from the flash kernels makes; "reference": calls with explicit
+    positions, the plain-attention references this script runs on
+    purpose}."""
+    mod = importlib.import_module("ray_tpu_torch.ops.attention")
+    real = mod.plain_attention
+    calls = {"dispatch": 0, "reference": 0}
+
+    def counting(q, k, v, *, causal=True, positions=None):
+        if q.is_cuda:
+            calls["dispatch" if positions is None else "reference"] += 1
+        return real(q, k, v, causal=causal, positions=positions)
+
+    mod.plain_attention = counting
+    try:
+        yield calls
+    finally:
+        mod.plain_attention = real
+
+
+def phase_d256(card: str, power_w: float):
+    """The D256 model from the flagship's seed: the engine phase (float32,
+    its 8 prompts, ENGINE_NEW new tokens, its gates), the bf16 gradient
+    gate at GRAD_GATE_LAYERS, float32 gradients at F32_GRAD_LAYERS, then
+    D256_TRAIN_STEPS of bench.py's train step (bf16, remat
+    "save_attn_qkv", 16 x 1024), gated as the train phase. Fails if
+    `plain_attention` ran on the card other than as a reference (explicit
+    positions). Returns the K1 launches of the engine pass, and the K1, K2,
+    K3 launches of the float32 gradient and of the train steps."""
+    from dataclasses import replace
+
+    import torch
+
+    from ray_tpu_torch.models import TransformerConfig, init_params
+
+    cfg = TransformerConfig(dtype=torch.bfloat16, **D256)
+    check(cfg.head_dim == 256, f"head_dim {cfg.head_dim}, expected 256")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(t.numel() for t in _leaves(params))
+    check(n_params == 503_354_880,
+          f"the D256 model has {n_params} parameters, not the flagship's")
+    train_cfg = replace(cfg, remat=True, remat_policy="save_attn_qkv")
+    t0 = time.perf_counter()
+    with plain_attention_calls() as plain:
+        engine_launches, _ = phase_engine(
+            params, replace(cfg, dtype=torch.float32), card, label="d256")
+        grad_gate(dict(params, layers=params["layers"][:GRAD_GATE_LAYERS]),
+                  replace(train_cfg, n_layers=GRAD_GATE_LAYERS), card,
+                  label="d256")
+        f32_launches = phase_grad_f32(params, train_cfg, card, label="d256")
+        train_launches, _ = phase_train(params, train_cfg, card, power_w,
+                                        steps=D256_TRAIN_STEPS,
+                                        label="d256")
+    print(f"d256 [6 heads of 256, {n_params} params]: plain_attention on "
+          f"the card {plain['dispatch']} times through the flash dispatch "
+          f"(must be 0), {plain['reference']} as the references "
+          f"(explicit positions); phase {time.perf_counter() - t0:.1f} s "
+          f"[{card}]", flush=True)
+    check(plain["dispatch"] == 0,
+          f"plain_attention ran {plain['dispatch']} times on the card "
+          f"through the flash dispatch at head_dim 256")
+    return dict(engine=engine_launches, f32=f32_launches,
+                train=train_launches)
+
+
+def d256_kernel_entries(rows, bwd_rows, d256):
+    """The kernels line's entries of the six D-256 variants: each row's
+    numbers from the kernel phases (K1's `rows`, K2/K3's `bwd_rows`), its
+    launches from `phase_d256` (`d256`)."""
+    jax_site = "jax/experimental/pallas/ops/tpu/flash_attention.py"
+    fwd_src = "ray_tpu_torch/kernels/csrc/flash_attn_fwd.cu"
+    bwd_src = "ray_tpu_torch/kernels/csrc/flash_attn_bwd.cu"
+    d256_in = f"the D-256 phase's train steps ({D256_TRAIN_STEPS})"
+    entries = [
+        dict(name="flash_attn_fwd_d256", route="cuda",
+             kernel="flash_fwd_tc<256>", source=fwd_src,
+             replaces="ray_tpu/ops/attention.py:28",
+             pallas_call=f"{jax_site}:758", launches=d256["train"][0],
+             launches_in=d256_in, shape=list(D256_SHAPE[0]),
+             dtype=D256_SHAPE[1], layout=D256_SHAPE[2], **rows[D256_SHAPE]),
+        dict(name="flash_attn_fwd_f32_d256", route="cuda",
+             kernel="flash_fwd_f32<256>", source=fwd_src,
+             replaces="ray_tpu/ops/attention.py:28",
+             pallas_call=f"{jax_site}:758", launches=d256["engine"],
+             launches_in="the D-256 phase's engine pass",
+             f32_grad_launches=d256["f32"][0],
+             shape=list(D256_F32_SHAPE[0]), dtype=D256_F32_SHAPE[1],
+             layout=D256_F32_SHAPE[2], **rows[D256_F32_SHAPE])]
+    for kname, line, i in (("dkv", 1121, 1), ("dq", 1456, 2)):
+        for shape_row, suffix, kernel, n, where in (
+                (D256_SHAPE, "", f"flash_bwd_{kname}_tc_wide<256>",
+                 d256["train"][i], d256_in),
+                (D256_F32_SHAPE, "_f32", f"flash_bwd_{kname}_f32<256>",
+                 d256["f32"][i], "the D-256 phase's float32 gradients")):
+            shape, dtype, layout, _ = shape_row
+            entries.append(dict(
+                name=f"flash_attn_bwd_{kname}{suffix}_d256", route="cuda",
+                kernel=kernel, source=bwd_src,
+                replaces="ray_tpu/ops/attention.py:28",
+                pallas_call=f"{jax_site}:{line}", launches=n,
+                launches_in=where, shape=list(shape), dtype=dtype,
+                layout=layout, **bwd_rows[(kname,) + shape_row]))
+    return entries
 
 
 # The cluster train phase: steps of bench.py's step in the train worker,
@@ -4425,7 +4579,8 @@ def main() -> int:
     from dataclasses import replace
 
     from ray_tpu_torch.kernels import build
-    from ray_tpu_torch.models import TransformerConfig, init_params
+    from ray_tpu_torch.kernels.flash_attn import HEAD_DIMS
+    from ray_tpu_torch.models import init_params
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4463,14 +4618,16 @@ def main() -> int:
                   if any(n in f for n in tc_names)}
             for fn, (hgmma, hmma) in sorted(counts[kname].items()):
                 print(f"  sass {kname} {fn}: HGMMA {hgmma} HMMA {hmma}")
-            # One instantiation per head dim (64, 128) of each kernel.
-            check(len(tc) == 2 * len(tc_names)
+            # One instantiation per head dim of each kernel (at D 256 the
+            # backward's are the *_tc_wide kernels).
+            check(len(tc) == len(HEAD_DIMS) * len(tc_names)
                   and all(c[0] > 0 for c in tc.values()),
                   f"the bf16 kernels of {kname} are not all on the tensor "
                   f"cores (wgmma): {tc}")
         f32 = {f: c for f, c in counts["flash_attn_bwd"].items()
                if "flash_bwd_dkv_f32" in f or "flash_bwd_dq_f32" in f}
-        check(len(f32) == 4 and all(c == (0, 0) for c in f32.values()),
+        check(len(f32) == 2 * len(HEAD_DIMS)
+              and all(c == (0, 0) for c in f32.values()),
               f"the float32 backward kernels are on the CUDA-core route "
               f"but run tensor-core instructions: {f32}")
         print("  sass: the float32 backward kernels run no tensor-core "
@@ -4509,6 +4666,9 @@ def main() -> int:
         cluster_train_launches = phase_cluster_train(card, train_stats)
         data_pool_launches, data_train_launches = phase_data(card)
         cgraph_launches = phase_cgraph(card)
+        d256 = phase_d256(card, power_w)
+        gc.collect()
+        torch.cuda.empty_cache()
         moe_cfg = replace(train_cfg, **MOE)
         params = init_params(moe_cfg,
                              torch.Generator(device="cuda").manual_seed(2))
@@ -4601,7 +4761,8 @@ def main() -> int:
         at_moe_train_shape=dict(shape=list(moe_shape),
                                 dtype=MOE_TRAIN_SHAPE[1],
                                 layout=MOE_TRAIN_SHAPE[2],
-                                **rows[MOE_TRAIN_SHAPE]))] + bwd}))
+                                **rows[MOE_TRAIN_SHAPE]))] + bwd
+        + d256_kernel_entries(rows, bwd_rows, d256)}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

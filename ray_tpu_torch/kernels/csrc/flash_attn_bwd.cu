@@ -70,6 +70,28 @@
 // - dQ computes p while dP's products run (committed as a group of their
 //   own); the same overlap in dK/dV measured no faster, so it waits once.
 // - A warpgroup skips a tile whose every (key, query) is masked.
+// - D 256 (flash_bwd_dkv_tc_wide, flash_bwd_dq_tc_wide): the design above
+//   does not fit. Its shared memory would be 258 KB (two 128-row resident
+//   tiles of 64 KB, two stages of 65 KB), over the 227 KB a block may
+//   have, and dK and dV of 64 keys at D 256 are 2 x 64 x 256 floats a
+//   warpgroup, 256 registers a thread. So a block owns 64 rows (keys or
+//   queries), all tiles are 64 rows (resident pair 64 KB, two stages of
+//   64 KB, 217 KB in all), and the two warpgroups split the work:
+//   dK/dV: warpgroup 0 computes S^T = K Q^T and p^T, hands p^T (float32,
+//   in the accumulator layout) to warpgroup 1 through shared memory and
+//   accumulates dV += P^T dO; warpgroup 1 computes dP^T = V dO^T, ds^T
+//   from p^T, and accumulates dK += dS^T Q. Each holds one 64 x 256 sum
+//   (128 registers a thread). dQ: warpgroup 0 computes S and p and hands
+//   p over; warpgroup 1 computes dP (two chains, as above), ds, and hands
+//   ds's bf16 A fragments back; each accumulates half of dQ's columns
+//   (dQ[:, 128 wg ..] += dS K[:, 128 wg ..]); the sums run as m64n128k16
+//   products over pairs of slabs. Named barriers (bar.arrive
+//   by the writer, bar.sync by the reader) order each hand-over and the
+//   buffer's reuse. Rounding points and sum orders are those of D 64/128:
+//   p and ds rounded to bf16 before their products, every sum over keys
+//   (queries) in tile order; dP (and dP^T in dK/dV) is summed as chains of
+//   four k-steps added in float32, the length of D 128's two chains in dQ
+//   (a longer chain errs more than float32 FMA; see gemm_abt_chained).
 // float32: flash_bwd_dkv_f32 and flash_bwd_dq_f32, on the CUDA cores.
 // - Why not the tensor cores: they take float32 only as TF32 (10 mantissa
 //   bits); 3xTF32 (hi/lo splits, three mma.sync passes) keeps products
@@ -88,7 +110,8 @@
 //   or 32 queries (dQ) resident, the other side's 32-row tiles streamed
 //   through a two-stage cp.async ring (with lse and di in dK/dV), so tile
 //   i + 1 lands while tile i's products run. About 111 KB of shared memory
-//   at D 128: two blocks share an SM. 32-row blocks halve the heaviest
+//   at D 128: two blocks share an SM. At D 256, 205 KB: one block an SM,
+//   and dK/dV's sums are 128 floats a thread. 32-row blocks halve the heaviest
 //   block's work (the causal grid's critical path) against 64-row ones.
 // - Blocks are issued heaviest first (the first k tile in dK/dV, the last
 //   q tile in dQ) across every (batch, head) pair, in groups of pairs whose
@@ -851,12 +874,352 @@ flash_bwd_dq_tc(const __grid_constant__ CUtensorMap tq,
 }
 
 
+// ---------------------------------------------------------------------------
+// bf16 at D 256: the wide-head kernels (see the header).
+
+// Shared memory of both wide kernels: a resident pair of 64-row tiles (K
+// and V, or Q and dO), two stages of a pair of 64-row tiles (Q and dO, or K
+// and V), the hand-over buffers (p: 64 x 64 float32; dS's A fragments:
+// 64 x 64 bf16, dQ only), each stage's 64 floats of lse and di (dK/dV
+// only), then the mbarriers. A tile is D / 64 slabs of [64][64] bf16,
+// 1024-byte aligned for the swizzle.
+template <int D>
+struct WideSmem {
+  static constexpr int kTile = 64 * D * 2;
+  static constexpr int kStage = 2 * kTile;
+  static constexpr int kP = 2 * kTile + 2 * kStage;
+  static constexpr int kDs = kP + 64 * 64 * 4;
+  static constexpr int kLse = kDs + 64 * 64 * 2;   // stage s at + 512 s
+  static constexpr int kBars = kLse + 2 * 2 * 64 * 4;
+  static constexpr int kBytes = 1024 + kBars + 5 * 8;   // + alignment slack
+  static_assert(kBytes <= 232448, "a block's shared memory");
+};
+
+// Named barriers between the two warpgroups (0 is __syncthreads): p handed
+// over, p's buffer free again (dK/dV), dS handed over (dQ).
+constexpr int kBarPReady = 1, kBarPFree = 2, kBarDsReady = 3;
+
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, %1;" :: "r"(id), "n"(kTcThreads) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;" :: "r"(id), "n"(kTcThreads)
+               : "memory");
+}
+
+// Chains C.. of acc = A B^T (two 64-row K-major tiles, C >= 2), one at a
+// time in `part`, each added to acc in order.
+template <int D, int C>
+__device__ __forceinline__ void chains_from(float (&acc)[32],
+                                            float (&part)[32],
+                                            const uint8_t* a,
+                                            const uint8_t* bt) {
+  wgmma_fence();
+  gemm_abt<D, 4 * C, 4 * C + 4>(part, a, 64, 0, bt, 64, 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  reg_fence(part);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] += part[i];
+  if constexpr (4 * C + 4 < D / 16) chains_from<D, C + 1>(acc, part, a, bt);
+}
+
+// acc = A B^T over D (two 64-row K-major tiles: dP = dO V^T or dP^T = V
+// dO^T) as chains of four k-steps (64 columns of D) added in float32 in
+// order, ((c0 + c1) + c2) + c3 at D 256. Four k-steps is the chain of D
+// 128's two: its sum errs as little as float32 FMA's, where a chain of 8
+// or 16 errs more (tools/wgmma_products.py), and the peaked softmax's dQ
+// and dK, where dp - di cancels, read that error against the plain
+// version. `part` holds one chain.
+template <int D>
+__device__ __forceinline__ void gemm_abt_chained(float (&acc)[32],
+                                                 float (&part)[32],
+                                                 const uint8_t* a,
+                                                 const uint8_t* bt) {
+  static_assert(D % 128 == 0, "at least two chains of 64 columns");
+  wgmma_fence();
+  gemm_abt<D, 0, 4>(acc, a, 64, 0, bt, 64, 0);
+  gemm_abt<D, 4, 8>(part, a, 64, 0, bt, 64, 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  reg_fence(acc);
+  reg_fence(part);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] += part[i];
+  if constexpr (D > 128) chains_from<D, 2>(acc, part, a, bt);
+}
+
+// dK/dV at D 256. Block (head, batch, 64-key tile), the most q tiles
+// first; both warpgroups own keys k0 .. k0 + 63. Warpgroup 0: S^T, p^T,
+// dV; warpgroup 1: dP^T, ds^T, dK.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_bwd_dkv_tc_wide(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tdo,
+                      const TcArgs a) {
+  using L = WideSmem<D>;
+  constexpr int NS = D / 64;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align1024(smem_raw);
+  uint8_t* Ks = sm;
+  uint8_t* Vs = Ks + L::kTile;
+  uint8_t* stages = Vs + L::kTile;
+  float* px = reinterpret_cast<float*>(sm + L::kP);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sm + L::kBars);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = kv_full + 3;
+
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int wg = tid / 128, t = tid % 128, warp = t / 32;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int S = a.S, H = a.H;
+  const int k0 = 64 * blockIdx.z;
+  const int nq = (S - k0) / 64;   // q tiles q0 = k0 + 64 i; 0 is diagonal
+  const float* lse = a.lse + (int64_t(b) * H + h) * S;
+  const float* di = a.di + (int64_t(b) * H + h) * S;
+
+  auto issue = [&](int i) {   // q tile i into stage i % 2 (thread 0)
+    uint8_t* st = stages + (i % 2) * L::kStage;
+    uint8_t* ld = sm + L::kLse + (i % 2) * 512;
+    uint64_t* bar = full + i % 2;
+    const int q0 = k0 + 64 * i;
+    mbar_expect(bar, L::kStage + 2 * 64 * 4);
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      tma_load(st + s * 64 * 128, &tq, bar, s * kSlab, h, q0, b);
+      tma_load(st + L::kTile + s * 64 * 128, &tdo, bar, s * kSlab, h, q0,
+               b);
+    }
+    bulk_load(ld, lse + q0, 64 * 4, bar);
+    bulk_load(ld + 64 * 4, di + q0, 64 * 4, bar);
+  };
+
+  if (tid == 0) {
+    mbar_init(kv_full, 1);
+    mbar_init(full, 1);
+    mbar_init(full + 1, 1);
+    mbar_init(empty, kTcThreads / 32);
+    mbar_init(empty + 1, kTcThreads / 32);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect(kv_full, 2 * L::kTile);
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      tma_load(Ks + s * 64 * 128, &tk, kv_full, s * kSlab, h, k0, b);
+      tma_load(Vs + s * 64 * 128, &tv, kv_full, s * kSlab, h, k0, b);
+    }
+    issue(0);
+    if (nq > 1) issue(1);
+  }
+  __syncwarp();
+
+  // acc: dV (warpgroup 0) or dK; x: S^T or dP^T; x2: a chain of dP^T
+  float acc[NS][32], x[32], x2[32];
+  zero<D>(acc);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) x[i] = x2[i] = 0.f;
+  const int row0 = 16 * warp + lane / 4;
+  const float scale = a.scale, scale_log2 = a.scale * kLog2e;
+  // Warpgroup 0 accumulates dV += P^T dO, warpgroup 1 dK += dS^T Q.
+  const int sum_off = wg == 0 ? L::kTile : 0;
+  mbar_wait(kv_full, 0);
+
+  for (int i = 0; i < nq; ++i) {
+    const int parity = (i / 2) % 2;
+    const uint8_t* st = stages + (i % 2) * L::kStage;
+    const float* lse_t =
+        reinterpret_cast<const float*>(sm + L::kLse + (i % 2) * 512);
+    const float* di_t = lse_t + 64;
+    mbar_wait(full + i % 2, parity);
+    uint32_t frag[4][4];
+    if (wg == 0) {
+      wgmma_fence();
+      gemm_abt<D>(x, Ks, 64, 0, st, 64, 0);                      // K Q^T
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(x);
+      tile_p<true>(x, i == 0, row0, lane,
+                   [&](int e) { return lse_t[acc_col(e, lane)] * kLog2e; },
+                   scale_log2);
+      if (i > 0) bar_sync(kBarPFree);   // warpgroup 1 has read p of i - 1
+#pragma unroll
+      for (int e = 0; e < 32; ++e) px[e * 128 + t] = x[e];
+      bar_arrive(kBarPReady);
+    } else {
+      gemm_abt_chained<D>(x, x2, Vs, st + L::kTile);             // V dO^T
+      bar_sync(kBarPReady);
+      // ds^T = p^T (dP^T - di) scale, p^T as warpgroup 0's thread t made it
+#pragma unroll
+      for (int e = 0; e < 32; ++e)
+        x[e] = px[e * 128 + t] * (x[e] - di_t[acc_col(e, lane)]) * scale;
+      if (i + 1 < nq) bar_arrive(kBarPFree);
+    }
+    to_frags(x, frag);
+    wgmma_fence();
+    gemm_ax_wide<D>(acc, frag, st + sum_off, 64, 0);   // dV or dK
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int s = 0; s < NS; ++s) reg_fence(acc[s]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + i % 2);
+    if (tid == 0 && i + 2 < nq) {
+      mbar_wait(empty + i % 2, parity);
+      issue(i + 2);
+    }
+    __syncwarp();
+  }
+
+  const int64_t rs = int64_t(H) * D;
+  const int64_t base = ((int64_t(b) * S + k0) * H + h) * D;
+  store_tile<D>((wg == 0 ? a.out1 : a.out0) + base, rs, acc, row0, lane);
+}
+
+// dQ at D 256. Block (head, batch, 64-query tile), the last q tile (the
+// most k tiles) first; both warpgroups own queries q0 .. q0 + 63.
+// Warpgroup 0: S and p; warpgroup 1: dP and ds; each then half of dQ's
+// columns.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_bwd_dq_tc_wide(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tdo,
+                     const TcArgs a) {
+  using L = WideSmem<D>;
+  constexpr int NS = D / 64, HALF = D / 2;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align1024(smem_raw);
+  uint8_t* Qs = sm;
+  uint8_t* dOs = Qs + L::kTile;
+  uint8_t* stages = dOs + L::kTile;
+  float* px = reinterpret_cast<float*>(sm + L::kP);
+  uint32_t* dsx = reinterpret_cast<uint32_t*>(sm + L::kDs);
+  uint64_t* qd_full = reinterpret_cast<uint64_t*>(sm + L::kBars);
+  uint64_t* full = qd_full + 1;
+  uint64_t* empty = qd_full + 3;
+
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int wg = tid / 128, t = tid % 128, warp = t / 32;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int S = a.S, H = a.H;
+  const int q0 = 64 * (gridDim.z - 1 - blockIdx.z);
+  const int nk = q0 / 64 + 1;   // k tiles k0 = 64 j up to the diagonal
+
+  auto issue = [&](int j) {   // k tile j into stage j % 2 (thread 0)
+    uint8_t* st = stages + (j % 2) * L::kStage;
+    uint64_t* bar = full + j % 2;
+    mbar_expect(bar, L::kStage);
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      tma_load(st + s * 64 * 128, &tk, bar, s * kSlab, h, 64 * j, b);
+      tma_load(st + L::kTile + s * 64 * 128, &tv, bar, s * kSlab, h,
+               64 * j, b);
+    }
+  };
+
+  if (tid == 0) {
+    mbar_init(qd_full, 1);
+    mbar_init(full, 1);
+    mbar_init(full + 1, 1);
+    mbar_init(empty, kTcThreads / 32);
+    mbar_init(empty + 1, kTcThreads / 32);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect(qd_full, 2 * L::kTile);
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      tma_load(Qs + s * 64 * 128, &tq, qd_full, s * kSlab, h, q0, b);
+      tma_load(dOs + s * 64 * 128, &tdo, qd_full, s * kSlab, h, q0, b);
+    }
+    issue(0);
+    if (nk > 1) issue(1);
+  }
+  __syncwarp();
+
+  const int row0 = 16 * warp + lane / 4;
+  const float* lse = a.lse + (int64_t(b) * H + h) * S + q0;
+  const float* di = a.di + (int64_t(b) * H + h) * S + q0;
+  const float lse2[2] = {lse[row0] * kLog2e, lse[row0 + 8] * kLog2e};
+  const float dir[2] = {di[row0], di[row0 + 8]};
+  float acc[HALF / 64][32], x[32], x2[32];   // acc: dQ[:, HALF wg ..]
+  zero<HALF>(acc);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) x[i] = x2[i] = 0.f;
+  const float scale = a.scale, scale_log2 = a.scale * kLog2e;
+  mbar_wait(qd_full, 0);
+
+  for (int j = 0; j < nk; ++j) {
+    const int k0 = 64 * j;
+    const int parity = (j / 2) % 2;
+    const uint8_t* st = stages + (j % 2) * L::kStage;
+    mbar_wait(full + j % 2, parity);
+    uint32_t frag[4][4];
+    if (wg == 0) {
+      wgmma_fence();
+      gemm_abt<D>(x, Qs, 64, 0, st, 64, 0);                       // Q K^T
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(x);
+      tile_p<false>(x, k0 == q0, row0, lane,
+                    [&](int e) { return lse2[(e / 2) % 2]; }, scale_log2);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) px[e * 128 + t] = x[e];
+      bar_arrive(kBarPReady);
+      bar_sync(kBarDsReady);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) frag[jj][r] = dsx[(4 * jj + r) * 128 + t];
+    } else {
+      gemm_abt_chained<D>(x, x2, dOs, st + L::kTile);            // dO V^T
+      bar_sync(kBarPReady);
+#pragma unroll
+      for (int e = 0; e < 32; ++e)
+        x[e] = px[e * 128 + t] * (x[e] - dir[(e / 2) % 2]) * scale;
+      to_frags(x, frag);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) dsx[(4 * jj + r) * 128 + t] = frag[jj][r];
+      bar_arrive(kBarDsReady);
+    }
+    wgmma_fence();
+    gemm_ax_wide<HALF>(acc, frag, st + wg * (HALF / 64) * 64 * 128, 64,
+                       0);                                         // dS K
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int s = 0; s < HALF / 64; ++s) reg_fence(acc[s]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + j % 2);
+    if (tid == 0 && j + 2 < nk) {
+      mbar_wait(empty + j % 2, parity);
+      issue(j + 2);
+    }
+    __syncwarp();
+  }
+
+  const int64_t rs = int64_t(H) * D;
+  store_tile<HALF>(a.out0 + ((int64_t(b) * S + q0) * H + h) * D + HALF * wg,
+                   rs, acc, row0, lane);
+}
+
 // `dkv`: the dK/dV kernel (K, V resident in 128-row boxes, Q, dO streamed
-// in 64-row boxes); else the dQ kernel (the other way round).
+// in 64-row boxes); else the dQ kernel (the other way round). At D 256 the
+// wide kernels, all boxes 64 rows.
 template <int D>
 cudaError_t launch_tc(bool dkv, const Args& a, int B, cudaStream_t stream) {
+  constexpr bool kWide = D > 128;
   const int S = a.S, H = a.H;
-  const int qrows = dkv ? 64 : 128, krows = dkv ? 128 : 64;
+  const int qrows = dkv || kWide ? 64 : 128;
+  const int krows = dkv && !kWide ? 128 : 64;
   const int64_t qs[3] = {a.qsb, a.qss, a.qsh}, ks[3] = {a.ksb, a.kss, a.ksh},
                 vs[3] = {a.vsb, a.vss, a.vsh},
                 ds[3] = {int64_t(S) * H * D, int64_t(H) * D, D};
@@ -875,15 +1238,30 @@ cudaError_t launch_tc(bool dkv, const Args& a, int B, cudaStream_t stream) {
   t.S = S;
   t.H = H;
   t.scale = a.scale;
-  const auto kernel = dkv ? flash_bwd_dkv_tc<D> : flash_bwd_dq_tc<D>;
-  constexpr int kSmem = TcSmem<D>::kBytes;
-  static SmemLimit dkv_limit{
-      reinterpret_cast<const void*>(&flash_bwd_dkv_tc<D>), kSmem};
-  static SmemLimit dq_limit{
-      reinterpret_cast<const void*>(&flash_bwd_dq_tc<D>), kSmem};
-  if ((err = (dkv ? dkv_limit : dq_limit).apply()) != cudaSuccess) return err;
-  kernel<<<dim3(H, B, S / 128), kTcThreads, kSmem, stream>>>(tq, tk, tv, tdo,
-                                                              t);
+  if constexpr (kWide) {
+    const auto kernel =
+        dkv ? flash_bwd_dkv_tc_wide<D> : flash_bwd_dq_tc_wide<D>;
+    constexpr int kSmem = WideSmem<D>::kBytes;
+    static SmemLimit dkv_limit{
+        reinterpret_cast<const void*>(&flash_bwd_dkv_tc_wide<D>), kSmem};
+    static SmemLimit dq_limit{
+        reinterpret_cast<const void*>(&flash_bwd_dq_tc_wide<D>), kSmem};
+    if ((err = (dkv ? dkv_limit : dq_limit).apply()) != cudaSuccess)
+      return err;
+    kernel<<<dim3(H, B, S / 64), kTcThreads, kSmem, stream>>>(tq, tk, tv,
+                                                               tdo, t);
+  } else {
+    const auto kernel = dkv ? flash_bwd_dkv_tc<D> : flash_bwd_dq_tc<D>;
+    constexpr int kSmem = TcSmem<D>::kBytes;
+    static SmemLimit dkv_limit{
+        reinterpret_cast<const void*>(&flash_bwd_dkv_tc<D>), kSmem};
+    static SmemLimit dq_limit{
+        reinterpret_cast<const void*>(&flash_bwd_dq_tc<D>), kSmem};
+    if ((err = (dkv ? dkv_limit : dq_limit).apply()) != cudaSuccess)
+      return err;
+    kernel<<<dim3(H, B, S / 128), kTcThreads, kSmem, stream>>>(tq, tk, tv,
+                                                                tdo, t);
+  }
   return cudaGetLastError();
 }
 
@@ -908,6 +1286,8 @@ int flash_attn_bwd_dkv(int dtype, const void* q, const void* k, const void* v,
   if (dtype == 0 && D == 128) return launch_f32<128>(true, a, B, st);
   if (dtype == 1 && D == 64) return launch_tc<64>(true, a, B, st);
   if (dtype == 1 && D == 128) return launch_tc<128>(true, a, B, st);
+  if (dtype == 0 && D == 256) return launch_f32<256>(true, a, B, st);
+  if (dtype == 1 && D == 256) return launch_tc<256>(true, a, B, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -923,6 +1303,8 @@ int flash_attn_bwd_dq(int dtype, const void* q, const void* k, const void* v,
   if (dtype == 0 && D == 128) return launch_f32<128>(false, a, B, st);
   if (dtype == 1 && D == 64) return launch_tc<64>(false, a, B, st);
   if (dtype == 1 && D == 128) return launch_tc<128>(false, a, B, st);
+  if (dtype == 0 && D == 256) return launch_f32<256>(false, a, B, st);
+  if (dtype == 1 && D == 256) return launch_tc<256>(false, a, B, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -44,8 +44,16 @@
 //   log2(e) D^-1/2; l += this lane's part of the unrounded p (the four
 //   lanes' parts are added once, at the end); O *= alpha; p rounded to
 //   bf16 in place as the register A operand of O += P V, V read transposed
-//   from its swizzled slabs (at D 128 one m64n128k16 per k-step).
+//   from its swizzled slabs (at D 128 and 256 one m64n128k16 per k-step
+//   and pair of slabs).
 // - At the end O / l is stored as bf16 and lse = ln 2 (m2 + log2 l).
+// - D 256 (heads of 256, e.g. Gemma's and PaLM's): the same design. Shared
+//   memory fits (Q 64 KB, two stages of K and V 128 KB: 193 KB), but the
+//   output sums alone are 64 x 256 floats a warpgroup, 128 registers a
+//   thread, the whole of what two blocks an SM leave each thread. So one
+//   block an SM (255 registers a thread): two warpgroups, where D 64 and
+//   128 interleave four. The key tile stays 64, so p is rounded where the
+//   plain version rounds it.
 // - Every warp waits for every phase of every stage's `full` barrier, also
 //   for a tile it skips as fully masked (see flash_attn_bwd.cu). Each block
 //   owns the rows it writes, so the result is bitwise the same from launch
@@ -62,6 +70,8 @@
 //   heavy ones. 32-row blocks give twice the blocks of 64-row ones, so the
 //   engine's short prefills spread over more of the 132 SMs and the
 //   heaviest block (the critical path of a causal grid) does half the work.
+//   The same kernel at D 256: 170 KB of shared memory, one block an SM,
+//   64 output sums a thread.
 // - Thread (ty, tx) of an 8 x 16 grid owns query rows ty + 8 i (i < 4) for
 //   both products: score columns tx + 16 j (j < 4) of the 64-key tile, and
 //   output columns tx*4 + 64 g .. +3, so the rescale of its output rows
@@ -327,6 +337,13 @@ constexpr int kTcThreads = 256;   // two warpgroups
 // memory, so two blocks (four warpgroups) share an SM.
 constexpr int kStages = 2;
 
+// Blocks of the tensor-core kernel an SM: two where a thread's output sums
+// (D / 2 floats) leave room in 128 registers, else one (D 256).
+template <int D>
+constexpr int tc_blocks_per_sm() {
+  return D <= 128 ? 2 : 1;
+}
+
 // Shared memory: the resident 128-row Q tile, then kStages stages, each a
 // 64-row K tile and a 64-row V tile, then the mbarriers (Q's, then `full`
 // and `empty` per stage). A tile is D / 64 slabs of [rows][64] bf16
@@ -392,7 +409,7 @@ __device__ __forceinline__ void scale_rows(float (&acc)[D / 64][32],
 }
 
 template <int D>
-__global__ void __launch_bounds__(kTcThreads, 2)
+__global__ void __launch_bounds__(kTcThreads, tc_blocks_per_sm<D>())
 flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
              const __grid_constant__ CUtensorMap tk,
              const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
@@ -483,8 +500,8 @@ flash_fwd_tc(const __grid_constant__ CUtensorMap tq,
                    pa);
       scale_rows<D>(acc, alpha);
       wgmma_fence();
-      if constexpr (D == 128) {   // one m64n128k16 product per k-step
-        gemm_ax_n128(acc, pa, st + L::kTile, 64, 0);               // O += P V
+      if constexpr (D % 128 == 0) {   // m64n128k16 products
+        gemm_ax_wide<D>(acc, pa, st + L::kTile, 64, 0);            // O += P V
       } else {
         gemm_ax<D>(acc, pa, st + L::kTile, 64, 0);
       }
@@ -568,6 +585,10 @@ int flash_attn_fwd(int dtype, const void* q, const void* k, const void* v,
     return launch_tc<64>(q, k, v, o, lse, B, S, H, qs, ks, vs, scale, st);
   if (dtype == 1 && D == 128)
     return launch_tc<128>(q, k, v, o, lse, B, S, H, qs, ks, vs, scale, st);
+  if (dtype == 0 && D == 256)
+    return launch_f32<256>(q, k, v, o, lse, B, S, H, qs, ks, vs, scale, st);
+  if (dtype == 1 && D == 256)
+    return launch_tc<256>(q, k, v, o, lse, B, S, H, qs, ks, vs, scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -8,8 +8,9 @@
 //
 // Layout conventions: a tile of R rows and D bf16 columns is D / 64 slabs
 // of [R][64] (128-byte rows, 1024-byte aligned), as a TMA box of 64 columns
-// with the 128-byte swizzle writes them. Every product is one wgmma shape,
-// m64n64k16: a 64 x D output is D / 64 accumulators of 32 floats a thread.
+// with the 128-byte swizzle writes them. The products are wgmma m64n64k16,
+// and m64n128k16 for P V-like products over a pair of slabs: a 64 x D
+// output is D / 64 accumulators of 32 floats a thread either way.
 
 #pragma once
 
@@ -175,7 +176,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
 // d[64 x 128] += A[64 x 16] B[16 x 128], A in registers (as in wgmma_rs),
 // B MN-major in shared memory: 16 rows of two 128-byte swizzled slabs (64
 // columns each), read transposed. The descriptor's leading byte offset is
-// the distance between the two slabs (see gemm_ax_n128). The accumulator
+// the distance between the two slabs (see gemm_ax_wide). The accumulator
 // layout extends that of m64n64: element i lies at row acc_row(i), column
 // acc_col(i) for i < 64, so elements 32 h .. 32 h + 31 hold columns
 // 64 h .. 64 h + 63 in the m64n64 layout.
@@ -230,20 +231,28 @@ __device__ __forceinline__ void gemm_ax(float (&acc)[D / 64][32],
                sw128_desc(x + (slab * x_rows + x_row0 + 16 * j) * 128));
 }
 
-// acc[2][64 x 64] += A[64 x 64] X[64 x 128]: gemm_ax at D 128 with one
-// m64n128k16 product per k-step instead of two m64n64k16 (the two 64 x 64
-// accumulators together are the m64n128 accumulator). X is the 64 rows of
-// the tile `x` (slabs of `x_rows` rows, starting at row `x_row0`); the
-// descriptor's leading byte offset steps from slab 0 to slab 1.
-__device__ __forceinline__ void gemm_ax_n128(float (&acc)[2][32],
+// acc[D / 64][64 x 64] += A[64 x 64] X[64 x D], D a multiple of 128:
+// gemm_ax with one m64n128k16 product per k-step and pair of slabs instead
+// of two m64n64k16 (the two 64 x 64 accumulators of a pair together are the
+// m64n128 accumulator). X is the 64 rows of the tile `x` (slabs of `x_rows`
+// rows, starting at row `x_row0`); each descriptor starts at the pair's
+// first slab, and its leading byte offset steps to the second.
+template <int D>
+__device__ __forceinline__ void gemm_ax_wide(float (&acc)[D / 64][32],
                                              const uint32_t (&a)[4][4],
                                              const uint8_t* x, int x_rows,
                                              int x_row0) {
-  float(&d)[64] = *reinterpret_cast<float(*)[64]>(&acc[0][0]);
+  static_assert(D % 128 == 0, "the products cover pairs of 64-column slabs");
 #pragma unroll
   for (int j = 0; j < 4; ++j)
-    wgmma_rs_n128(d, a[j],
-                  sw128_desc(x + (x_row0 + 16 * j) * 128, x_rows * 128));
+#pragma unroll
+    for (int pr = 0; pr < D / 128; ++pr) {
+      float(&d)[64] = *reinterpret_cast<float(*)[64]>(&acc[2 * pr][0]);
+      wgmma_rs_n128(
+          d, a[j],
+          sw128_desc(x + (2 * pr * x_rows + x_row0 + 16 * j) * 128,
+                     x_rows * 128));
+    }
 }
 
 // Element i of a thread's 64 x 64 tile in the wgmma accumulator layout

@@ -40,10 +40,13 @@ def _count_launch(counter: str) -> None:
         globals()[counter] += 1
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
+# The head dims both sources instantiate. JAX's rule also admits 384, 512
+# and other multiples of 128; their tiles outgrow a block's shared memory
+# (ROADMAP B.1).
+HEAD_DIMS = (64, 128, 256)
 # Keys per tile of the kernel's online softmax (64-key tiles in both routes
-# of the source): the running max, and so the scale at which p is rounded,
-# moves per tile.
+# of the source, at every head dim): the running max, and so the scale at
+# which p is rounded, moves per tile.
 BLOCK_K = 64
 _lib: Optional[ctypes.CDLL] = None
 _bwd_lib: Optional[ctypes.CDLL] = None
@@ -88,7 +91,7 @@ def _bwd_library() -> ctypes.CDLL:
 
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     """What the kernels take: q, k, v of one shape [B, S, H, D], one dtype
-    (float32 or bfloat16) and one device; D in (64, 128); S a multiple of
+    (float32 or bfloat16) and one device; D in HEAD_DIMS; S a multiple of
     128; the last dimension contiguous and the other strides multiples of
     16 bytes (4 float32 or 8 bfloat16 elements) on a 16-byte-aligned base,
     so every row loads as whole 16-byte vectors and the bf16 backward's
@@ -279,13 +282,24 @@ def flash_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _bwd_plain_terms(q, k, v, do, lse, di):
     """float32 [B, H, S, S] round(p) and round(ds) as the kernels make
     them: p = exp(q.k * D^-1/2 - lse) under key <= query, ds = p * (dO.v -
-    di) * D^-1/2, each rounded to q's dtype (exact in float32)."""
+    di) * D^-1/2, each rounded to q's dtype (exact in float32).
+
+    dO.v of bf16 inputs is evaluated in float64 and rounded once to
+    float32: every product of two bf16 values is exact, so this is the
+    function itself, and the kernels' tensor-core sums (chains of k-steps
+    added in float32) are held to it rather than to a float32 GEMM's own
+    summation order. That order matters where a peaked softmax makes dp -
+    di cancel (p near 1 at one key): ds and dQ there are summation noise,
+    and at D 256 a float32 GEMM's noise alone exceeds the bf16 gate's
+    absolute tolerance (tools/bwd_peaked.py). float32 inputs keep the
+    float32 GEMM, whose order the float32 kernels repeat."""
     s = q.shape[1]
     scale = q.shape[-1] ** -0.5
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
     p = torch.exp(scores - lse[..., None]).masked_fill(~mask, 0.0)
-    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    exact = torch.float32 if q.dtype == torch.float32 else torch.float64
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.to(exact), v.to(exact)).float()
     ds = p * (dp - di[..., None]) * scale
     return p.to(q.dtype).float(), ds.to(q.dtype).float()
 

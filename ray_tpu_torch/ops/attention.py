@@ -84,7 +84,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
 def _flash_eligible(q: torch.Tensor) -> bool:
     """The JAX rule (a sequence that tiles by 128 and a lane-aligned
     head_dim: a multiple of 128, or 64) cut to the head dims the kernels
-    take, `HEAD_DIMS`; other head dims go to plain attention."""
+    take, `HEAD_DIMS` (64, 128 and 256): JAX's 384, 512 and wider go to
+    plain attention here."""
     s, d = q.shape[1], q.shape[3]
     return (d % 128 == 0 or d == 64) and d in HEAD_DIMS and s % 128 == 0
 

@@ -38,6 +38,9 @@ FLASH = dict(vocab_size=64, d_model=64, n_layers=2, n_heads=1, d_ff=128,
              max_seq_len=256)
 TINY = dict(vocab_size=64, d_model=32, n_layers=2, n_heads=2, d_ff=64,
             max_seq_len=128)
+# Two heads of 256: prefills in buckets of 128 and 256 take the flash path.
+WIDE = dict(vocab_size=64, d_model=512, n_layers=2, n_heads=2, d_ff=128,
+            max_seq_len=256)
 KV = (2, 3)          # toy per-token KV shape for manager-level tests
 
 
@@ -237,6 +240,38 @@ def test_engine_tokens_match_jax_engine(paged, tiny_models):
     assert st["cache"]["pool_residency"] == ("device" if paged else "host")
     if paged:
         assert st["cache"]["host_gathers"] == 0 and st["paged_steps"] > 0
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_engine_at_head_dim_256_matches_jax_engine(paged, monkeypatch):
+    """Heads of 256 through whole engines: prompts of 100 and 130 tokens
+    (buckets of 128 and 256, flash-eligible at head_dim 256) and a third
+    sharing the first's 96-token prefix, 6 new tokens each. The port's
+    tokens are the JAX engine's, token for token, and each no-prefix
+    prefill runs K1 (its plain version here) once a layer."""
+    jm, tm = _models(WIDE)
+    calls = []
+    real = torch_attention.flash_attention
+    monkeypatch.setattr(torch_attention, "flash_attention",
+                        lambda *a: calls.append(a[0].shape) or real(*a))
+    first = _prompt(30, 100)
+    prompts = [first, _prompt(31, 130), first[:96] + _prompt(32, 20)]
+
+    def run(eng_mod, model):
+        eng = eng_mod.InferenceEngine(model, eng_mod.EngineConfig(
+            max_batch_size=3, block_size=16, num_blocks=40,
+            paged_decode=paged))
+        streams = [eng.submit(p, 6) for p in prompts]
+        _drive(eng)
+        return [s.tokens_so_far() for s in streams], eng
+
+    want, _ = run(jax_engine, jm)
+    got, eng = run(torch_engine, tm)
+    assert got == want and all(len(t) == 6 for t in got)
+    assert eng.stats()["prefix_hit_tokens"] > 0
+    assert set(calls) == {(1, 128, 2, 256), (1, 256, 2, 256)}
+    assert len(calls) == WIDE["n_layers"] * (
+        eng.stats()["prefills"] - (eng.stats()["prefix_hit_tokens"] > 0))
 
 
 def test_engine_on_a_background_thread(tiny_models):

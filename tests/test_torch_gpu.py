@@ -34,6 +34,8 @@ def card():
     ((1, 384, 2, 128), torch.float32, F32_TOL),
     ((2, 256, 3, 128), torch.bfloat16, BF16_TOL),
     ((1, 128, 4, 64), torch.bfloat16, BF16_TOL),
+    ((2, 256, 3, 256), torch.float32, F32_TOL),
+    ((2, 256, 3, 256), torch.bfloat16, BF16_TOL),
 ])
 def test_flash_kernel_matches_plain(card, shape, dtype, tol):
     gen = torch.Generator(device=card).manual_seed(0)
@@ -87,14 +89,16 @@ def _fwd_inputs(card, shape, dtype, layout, qk_scale, seed):
     ((1, 1024, 4, 128), "qkv", 1.0),
     ((1, 1024, 2, 64), "contiguous", 1.0),
     ((2, 1024, 4, 128), "qkv", 4.0),
+    ((2, 384, 3, 256), "contiguous", 1.0),
+    ((2, 1024, 3, 256), "qkv", 4.0),
 ])
 def test_bf16_fwd_tensor_core_kernel_matches_plain(card, shape, layout,
                                                    qk_scale):
     """The bf16 K1 (wgmma on the tensor cores) against its plain version at
-    S 128, 384 (three 128-row blocks) and 1024, D 64 and 128, contiguous
-    and as views of a fused QKV tensor, and with q and k scaled by 4 (a
-    peaked softmax). Both sides round p to bf16 after subtracting the
-    running max up to its 64-key tile and sum in float32, so they differ
+    S 128, 384 (three 128-row blocks) and 1024, D 64, 128 and 256,
+    contiguous and as views of a fused QKV tensor, and with q and k scaled
+    by 4 (a peaked softmax). Both sides round p to bf16 after subtracting
+    the running max up to its 64-key tile and sum in float32, so they differ
     by float32 noise that can move an output by one bf16 ulp or flip the
     rounding of a p: o within 2e-2 of its largest element (about two ulps
     of it) and within 1e-2 relative L2; lse (float32 throughout) within
@@ -118,6 +122,7 @@ def test_bf16_fwd_tensor_core_kernel_matches_plain(card, shape, layout,
     ((1, 128, 4, 128), "contiguous"),
     ((1, 1024, 4, 128), "qkv"),
     ((2, 1024, 2, 64), "contiguous"),
+    ((1, 1024, 3, 256), "qkv"),
 ])
 def test_f32_fwd_kernel_matches_plain(card, shape, layout):
     """The float32 K1 (CUDA cores) at the engine's smallest and largest
@@ -178,6 +183,8 @@ def test_forward_and_engine_prefill_on_card_match_cpu(card):
     ((1, 256, 4, 64), torch.float32, "qkv", 1.0, F32_TOL),
     ((2, 384, 3, 128), torch.float32, "contiguous", 1.0, F32_TOL),
     ((1, 512, 2, 128), torch.float32, "qkv", 4.0, F32_TOL),
+    ((2, 384, 3, 256), torch.bfloat16, "contiguous", 1.0, BF16_TOL),
+    ((1, 512, 2, 256), torch.float32, "qkv", 1.0, F32_TOL),
 ])
 def test_flash_bwd_kernels_match_plain(card, shape, dtype, layout, qk_scale,
                                        tol):
@@ -231,11 +238,13 @@ def _bwd_inputs(card, shape, layout, seed, dtype=torch.bfloat16):
     ((1, 384, 4, 64), "qkv"),
     ((1, 1024, 4, 128), "qkv"),
     ((1, 1024, 2, 64), "contiguous"),
+    ((1, 128, 2, 256), "qkv"),
+    ((1, 1024, 3, 256), "contiguous"),
 ])
 def test_bf16_bwd_tensor_core_kernels_match_plain(card, shape, layout):
     """The bf16 K2 and K3 (wgmma on the tensor cores) against their plain
-    versions at S 128, 384 (three 128-row blocks) and 1024, D 64 and 128,
-    contiguous and as views of a fused QKV tensor. Both sides round p and
+    versions at S 128, 384 (three 128-row blocks) and 1024, D 64, 128 and
+    256, contiguous and as views of a fused QKV tensor. Both sides round p and
     ds to bf16 where the TPU kernel does and sum in float32, so they differ
     by float32 noise that can move an output by one bf16 ulp or flip the
     rounding of a term: each output within 2e-2 of its largest element
@@ -268,7 +277,7 @@ def test_bwd_kernels_are_deterministic(card, dtype):
 
 
 def test_flash_bwd_kernels_reject_what_they_cannot_take(card):
-    x = torch.zeros((1, 128, 2, 256), device=card)
+    x = torch.zeros((1, 128, 2, 192), device=card)   # not in HEAD_DIMS
     lse = torch.zeros((1, 2, 128), device=card)
     with pytest.raises(ValueError, match="head_dim"):
         flash_attn.flash_attn_bwd_dkv(x, x, x, x, lse, lse)

@@ -105,6 +105,8 @@ def test_plain_attention_matches_jax(causal, positions):
     ((1, 256, 2, 128), "float32"),
     ((1, 256, 2, 64), "bfloat16"),
     ((1, 128, 2, 128), "bfloat16"),
+    ((1, 256, 2, 256), "float32"),
+    ((1, 256, 2, 256), "bfloat16"),
 ])
 def test_flash_attention_matches_pallas_kernel(shape, dtype):
     """The port's flash function (its plain version, on the CPU) against
@@ -123,7 +125,8 @@ def test_flash_attention_matches_pallas_kernel(shape, dtype):
     np.testing.assert_allclose(got.float().numpy(), want, atol=tol)
 
 
-@pytest.mark.parametrize("shape", [(1, 256, 2, 128), (1, 384, 2, 64)])
+@pytest.mark.parametrize("shape", [(1, 256, 2, 128), (1, 384, 2, 64),
+                                   (1, 256, 2, 256)])
 def test_flash_attention_peaked_bf16_matches_pallas_kernel(shape):
     """q and k scaled by 4 (a peaked softmax: the running max moves from
     one 64-key tile to the next and p sits near 1 and 0), bf16, through the
@@ -152,6 +155,8 @@ def test_flash_attention_peaked_bf16_matches_pallas_kernel(shape):
     ((1, 256, 2, 128), "float32"),
     ((1, 256, 2, 128), "bfloat16"),
     ((1, 256, 2, 64), "float32"),
+    ((1, 256, 2, 256), "float32"),
+    ((1, 256, 2, 256), "bfloat16"),
 ])
 def test_flash_attention_grads_match_pallas_kernel(shape, dtype):
     """dq, dk, dv of the port's flash attention (its autograd function,
@@ -199,14 +204,37 @@ def test_flash_plain_logsumexp():
     np.testing.assert_array_equal(o.numpy(), o_plain.numpy())
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_plain_logsumexp_at_head_dim_256(dtype):
+    """K1's row logsumexp at head_dim 256 (the plain version, on the
+    CPU) against numpy's on the same inputs (bf16 ones rounded first):
+    float32 scores, so F32_TOL in both types; the output it comes with is
+    the one `flash_attn_fwd` returns without it."""
+    tdt = getattr(torch, dtype)
+    q, k, v = (_t(a, tdt) for a in _qkv(12, (2, 256, 2, 256)))
+    o, lse = flash_attn.flash_attn_fwd(q, k, v, return_lse=True)
+    qf, kf = (t.float().numpy().astype(np.float64) for t in (q, k))
+    scores = np.einsum("bqhd,bkhd->bhqk", qf, kf) / 16.0
+    scores = np.where(np.tril(np.ones((256, 256), bool)), scores, -np.inf)
+    mx = scores.max(-1, keepdims=True)
+    want = (mx + np.log(np.exp(scores - mx).sum(-1, keepdims=True)))[..., 0]
+    assert lse.shape == (2, 2, 256) and lse.dtype == torch.float32
+    assert o.dtype == tdt
+    np.testing.assert_allclose(lse.numpy(), want, atol=F32_TOL, rtol=F32_TOL)
+    o_plain, none = flash_attn.flash_attn_fwd(q, k, v)
+    assert none is None
+    assert torch.equal(o, o_plain)
+
+
 @pytest.mark.parametrize("s,d", [
     (128, 64), (128, 128), (256, 256), (384, 128), (128, 96), (100, 128),
-    (64, 64), (128, 32), (512, 192)])
+    (64, 64), (128, 32), (512, 192), (256, 384), (256, 512)])
 def test_flash_eligible_matches_jax_rule(s, d, monkeypatch):
     """The port's eligibility is the JAX rule on shapes (which also asks
     for a TPU backend, taken as present here), cut to the head dims the
-    port's kernels take: at (256, 256) JAX admits its kernel and the port
-    sends the shape to plain attention."""
+    port's kernels take: at (256, 256) both admit their kernels; at
+    (256, 384) and (256, 512) JAX admits its kernel and the port sends the
+    shape to plain attention."""
     monkeypatch.setattr(jax_attention.jax, "default_backend",
                         lambda: "tpu")
     x = np.zeros((1, s, 2, d), np.float32)
@@ -386,7 +414,7 @@ def test_flash_bwd_wrappers_reject_what_the_kernels_cannot_take():
     lse = torch.zeros(1, 2, 128)
     for fn in (flash_attn.flash_attn_bwd_dkv, flash_attn.flash_attn_bwd_dq):
         with pytest.raises(ValueError, match="head_dim"):
-            x = torch.zeros(1, 128, 2, 256)
+            x = torch.zeros(1, 128, 2, 192)
             fn(x, x, x, x, lse, lse)
         with pytest.raises(ValueError, match="dO"):
             fn(q, k, v, do.transpose(1, 2).contiguous().transpose(1, 2),

@@ -41,10 +41,12 @@ REL_TOL = 1e-4
 
 FLASH = dict(vocab_size=64, d_model=64, n_layers=2, n_heads=1, d_ff=128,
              max_seq_len=256)
-# head_dim 256: the JAX rule admits it for its TPU kernel; the port's
-# kernels take 64 and 128 only, so it runs plain attention.
+# head_dim 256: one head of 256 at S 128, and two at S 256 over two
+# layers; both take the flash path (the kernels' plain versions here).
 WIDE_HEAD = dict(vocab_size=64, d_model=256, n_layers=1, n_heads=1,
                  d_ff=128, max_seq_len=128)
+WIDE = dict(vocab_size=64, d_model=512, n_layers=2, n_heads=2, d_ff=128,
+            max_seq_len=256)
 POLICIES = [None, "dots", "dots_batch", "save_attn", "save_attn_qkv"]
 
 
@@ -208,7 +210,9 @@ def test_unknown_remat_policy_raises():
 
 def test_wide_head_dim_matches_jax(monkeypatch):
     """head_dim 256: the port gives JAX's forward and gradients through
-    plain attention (it used to raise in the kernel's wrapper)."""
+    the flash path (the kernels take 256): K1 once per forward, and its
+    saved logsumexp feeds K2/K3's plain versions, with and without
+    remat."""
     jparams, jcfg, params, cfg = make_pair(WIDE_HEAD)
     calls = []
     real = torch_attention.flash_attention
@@ -225,11 +229,42 @@ def test_wide_head_dim_matches_jax(monkeypatch):
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     jloss, jgrads = jax.jit(jax.value_and_grad(
         lambda p: jax_lm_loss(p, jbatch, jcfg)))(jparams)
+    assert len(calls) == cfg.n_layers
     for c in (cfg, replace(cfg, remat=True, remat_policy="save_attn")):
         loss, grads = port_grads(params, batch, c)
         np.testing.assert_allclose(loss, float(jloss), rtol=REL_TOL)
         assert_grads_close(grads, jgrads)
-    assert calls == []
+    assert len(calls) >= 3 * cfg.n_layers
+
+
+@pytest.mark.parametrize("policy", [None, "save_attn_qkv"])
+def test_head_dim_256_loss_and_grads_match_jax(policy, monkeypatch):
+    """Two layers of two heads of 256 at S 256: `lm_loss` and its
+    gradients against JAX's `value_and_grad`, through the flash path (the
+    flash function once a layer, again under remat; K2 and K3 once a layer
+    in the backward), plainly and under bench.py's remat policy."""
+    jparams, jcfg, params, cfg = make_pair(WIDE)
+    if policy is not None:
+        cfg = replace(cfg, remat=True, remat_policy=policy)
+    batch = make_batch(cfg, 2, 256, seed=6)
+    calls = []
+    real = torch_attention.flash_attention
+    monkeypatch.setattr(torch_attention, "flash_attention",
+                        lambda *a: calls.append(a[0].shape) or real(*a))
+    bwd = []
+    real_dkv = flash_attn.flash_attn_bwd_dkv
+    monkeypatch.setattr(flash_attn, "flash_attn_bwd_dkv",
+                        lambda *a: bwd.append(1) or real_dkv(*a))
+    loss, grads = port_grads(params, batch, cfg)
+    # Remat runs each layer's forward again in the backward, flash call
+    # and all (the named policy keeps K1's outputs, not the call).
+    assert calls == [(2, 256, 2, 256)] * cfg.n_layers * (1 + cfg.remat)
+    assert len(bwd) == cfg.n_layers
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    want, jgrads = jax.jit(jax.value_and_grad(
+        lambda p: jax_lm_loss(p, jbatch, jcfg)))(jparams)
+    np.testing.assert_allclose(loss, float(want), rtol=REL_TOL)
+    assert_grads_close(grads, jgrads)
 
 
 @pytest.mark.parametrize("steps", [1, 3])

@@ -26,10 +26,13 @@ torch_attention = importlib.import_module("ray_tpu_torch.ops.attention")
 # float32 on both sides; the two frameworks sum in different orders.
 REL_TOL = 1e-4
 
-# A config whose attention takes the flash path (head_dim 64, S % 128 == 0)
-# and the tiny config of the JAX engine's unit tests (head_dim 16: plain).
+# A config whose attention takes the flash path (head_dim 64, S % 128 == 0),
+# one whose heads are 256 wide (the flash path's widest head dim) and the
+# tiny config of the JAX engine's unit tests (head_dim 16: plain).
 FLASH = dict(vocab_size=64, d_model=64, n_layers=2, n_heads=1, d_ff=128,
              max_seq_len=256)
+WIDE = dict(vocab_size=64, d_model=512, n_layers=2, n_heads=2, d_ff=128,
+            max_seq_len=256)
 TINY = dict(vocab_size=64, d_model=32, n_layers=2, n_heads=2, d_ff=64,
             max_seq_len=128)
 
@@ -52,7 +55,8 @@ def _count_flash(monkeypatch):
 
 
 @pytest.mark.parametrize("widths,seq,flash_calls", [
-    (FLASH, 256, 2), (FLASH, 130, 0), (TINY, 128, 0), (TINY, 9, 0)])
+    (FLASH, 256, 2), (FLASH, 130, 0), (TINY, 128, 0), (TINY, 9, 0),
+    (WIDE, 256, 2)])
 def test_forward_matches_jax(widths, seq, flash_calls, monkeypatch):
     jparams, jcfg, params, cfg = make_pair(widths)
     calls = _count_flash(monkeypatch)

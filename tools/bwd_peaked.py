@@ -3,18 +3,19 @@
 to their plain versions when the softmax is peaked, on one CUDA card.
 
     python3 tools/bwd_peaked.py [--seeds 1 2 3] [--scale 4]
+                                [--dims 128 64 256]
                                               # from the repository root
 
-For each seed: q, k, v as views of one [4, 1024, 3, 12, 128] (and
-[4, 1024, 3, 12, 64]) bf16 tensor with q and k scaled by `--scale`, as
-`chip_smoke.py`'s peaked row makes them. It prints the worst diff/tol of
-dQ, dK and dV under `chip_smoke.py`'s gate (BWD_TOL plus the flip bound;
-above 1 fails), and each side's relative L2 distance to a float64
-evaluation that rounds p and ds to bf16 at the same points. At the worst
-dQ element it prints the kernel's, the plain version's and the float64
-value, and that row's largest p and dp - di: in a row whose p is near 1 at
-one key, dp - di cancels, so ds and dQ there are float32 noise on both
-sides. Nothing is written to disk.
+For each head dim and seed: q, k, v as views of one [4, 1024, 3, 12, 128]
+(and [4, 1024, 3, 12, 64], [4, 1024, 3, 6, 256]) bf16 tensor with q and k
+scaled by `--scale`, as `chip_smoke.py`'s peaked rows make them. It
+prints the worst diff/tol of dQ, dK and dV under `chip_smoke.py`'s gate
+(BWD_TOL plus the flip bound; above 1 fails), and each side's relative
+L2 distance to a float64 evaluation that rounds p and ds to bf16 at the
+same points. At the worst dQ element it prints the kernel's, the plain
+version's and the float64 value, and that row's largest p and dp - di:
+in a row whose p is near 1 at one key, dp - di cancels, so ds and dQ
+there are float32 noise on both sides. Nothing is written to disk.
 """
 
 from __future__ import annotations
@@ -57,14 +58,16 @@ def main() -> int:
     parser.add_argument("--seeds", type=int, nargs="+",
                         default=[112, 1, 2, 3, 4, 7])
     parser.add_argument("--scale", type=float, default=4.0)
+    parser.add_argument("--dims", type=int, nargs="+", default=[128, 64, 256],
+                        choices=[64, 128, 256])
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("bwd_peaked: no CUDA device", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     print(cs.smi(), flush=True)
-    for d in (128, 64):
-        shape = (4, 1024, 12, d)
+    for d in args.dims:
+        shape = (4, 1024, 6 if d == 256 else 12, d)
         for seed in args.seeds:
             gen = torch.Generator(device="cuda").manual_seed(seed)
             qkv = torch.randn((*shape[:2], 3, *shape[2:]), generator=gen,

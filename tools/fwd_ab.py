@@ -12,15 +12,18 @@ path, so it may include `hopper.cuh`) into the kernels' build directory and
 called through the same C entry point; ptxas's register and spill lines
 of both builds are printed. For each case (bf16: the train
 step's shape, D 64 at it, a ragged S 384, a peaked row with q, k scaled by
-4; float32: the engine's prefill buckets S 128-1024) and each side it
-prints the worst diff/tol of o under `chip_smoke.py`'s K1 gate
-(KERNEL_TOL, plus the flip bound in bf16; above 1 fails) with the lse
-error, and how many of `--launches` further launches on the same inputs
-differ bitwise from the first; then whether the two sides agree bitwise,
-and each side's time over alternating runs (base, tree, tree, base, ...;
-CUDA events over 20 launches each) beside the bound and
-`scaled_dot_product_attention`'s time. Exits 1 if the tree's side fails
-the gate or differs between launches.
+4; float32: the engine's prefill buckets S 128-1024; heads of 256: the
+D-256 train step's shape, a peaked row and the float32 serving width) and
+each side it prints the worst diff/tol of o under `chip_smoke.py`'s K1
+gate (KERNEL_TOL, plus the flip bound in bf16; above 1 fails) with the
+lse error, and how many of `--launches` further launches on the same
+inputs differ bitwise from the first; then whether the two sides agree
+bitwise, and each side's time over alternating runs (base, tree, tree,
+base, ...; CUDA events over 20 launches each) beside the bound, the plain
+version's time and `scaled_dot_product_attention`'s. A BASE that refuses a
+case (an older source without D 256) is reported so and left out of that
+case's timing. Exits 1 if the tree's side fails the gate or differs
+between launches.
 """
 
 from __future__ import annotations
@@ -51,6 +54,9 @@ CASES = [
     ((1, 512, 12, 128), "float32", "contiguous", 1.0, 2),
     ((1, 256, 12, 128), "float32", "contiguous", 1.0, 1),
     ((1, 128, 12, 128), "float32", "contiguous", 1.0, 0),
+    ((16, 1024, 6, 256), "bfloat16", "qkv", 1.0, 7),
+    ((4, 1024, 6, 256), "bfloat16", "qkv", 4.0, 112),
+    ((1, 1024, 6, 256), "float32", "qkv", 1.0, 3),
 ]
 
 
@@ -126,10 +132,17 @@ def main() -> int:
             return (torch.empty((b, s, h, d), dtype=q.dtype, device="cuda"),
                     torch.empty((b, h, s), device="cuda"))
 
-        first = {}
+        first, sides = {}, dict(libs)
         for side, lib in libs.items():
             o, lse = outputs()
-            launch(lib, q, k, v, o, lse)
+            try:
+                launch(lib, q, k, v, o, lse)
+            except RuntimeError as e:
+                if side == "tree":
+                    raise
+                print(f"{tag} {side}: refuses the case ({e})", flush=True)
+                del sides[side]
+                continue
             torch.cuda.synchronize()
             _, worst, _, lse_err = cs.fwd_errors(q, k, v, o, lse)
             o2, lse2 = outputs()
@@ -144,28 +157,31 @@ def main() -> int:
             print(f"{tag} {side}: worst diff/tol {worst:.3f}, lse_err "
                   f"{lse_err:.3e}; {differ} of {args.launches} launches "
                   f"differ", flush=True)
-        same = all(torch.equal(x, y)
-                   for x, y in zip(first["base"], first["tree"]))
-        times = {side: [] for side in libs}
+        if "base" in first:
+            same = all(torch.equal(x, y)
+                       for x, y in zip(first["base"], first["tree"]))
+            print(f"   base and tree bitwise-equal: {same}", flush=True)
+        times = {side: [] for side in sides}
         o, lse = outputs()
         for i in range(2 * args.repeats):
             order = ("base", "tree") if i % 2 == 0 else ("tree", "base")
-            for side in order:
-                lib = libs[side]
+            for side in (x for x in order if x in sides):
+                lib = sides[side]
                 times[side].append(cs.cuda_ms(
                     lambda: launch(lib, q, k, v, o, lse), 20))
+        plain = cs.cuda_ms(lambda: flash_attn.flash_attn_fwd_plain(q, k, v),
+                           5, warmup=1)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         sdpa = cs.cuda_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True), 20)
         bound, _, bound_by = cs.attention_bound(shape, dtype, 0.0)
         flops = cs.attention_flops(shape)
-        print(f"   base and tree bitwise-equal: {same}", flush=True)
         print("   ms: " + "; ".join(
             f"{side} " + " ".join(f"{t:.4f}" for t in ts) + " (best "
             f"{flops / min(ts) / 1e9:.1f} TFLOP/s)"
             for side, ts in times.items())
-            + f"; bound {bound:.4f} ({bound_by}); SDPA {sdpa:.4f}",
-            flush=True)
+            + f"; bound {bound:.4f} ({bound_by}); plain {plain:.4f}; "
+            f"SDPA {sdpa:.4f}", flush=True)
         del q, k, v, o, lse, first
         torch.cuda.empty_cache()
     print("tree OK" if ok else "tree FAILED", flush=True)

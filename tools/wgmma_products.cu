@@ -48,7 +48,7 @@ __global__ void product_abt(const __grid_constant__ CUtensorMap ta,
     c[acc_row(i, row0) * 64 + acc_col(i, lane)] = acc[i];
 }
 
-// c[64 x D] = round(P) X (gemm_ax, or gemm_ax_n128 when N128; P [64 x 64]
+// c[64 x D] = round(P) X (gemm_ax, or gemm_ax_wide when N128; P [64 x 64]
 // float32 read into the accumulator layout and packed as register A
 // fragments, X [64 x D] read transposed), stored row-major.
 template <int D, bool N128 = false>
@@ -67,7 +67,7 @@ __global__ void product_ax(const float* p, const __grid_constant__ CUtensorMap t
   zero<D>(acc);
   wgmma_fence();
   if constexpr (N128) {
-    gemm_ax_n128(acc, frag, sm, 64, 0);
+    gemm_ax_wide<D>(acc, frag, sm, 64, 0);
   } else {
     gemm_ax<D>(acc, frag, sm, 64, 0);
   }
@@ -135,18 +135,22 @@ int wgmma_abt(const void* a, const void* b, float* c, int D) {
       (e = make_map(&tb, b, 1, 64, 1, D, st, 64)) != cudaSuccess)
     return e;
   const int smem = 1024 + 2 * 64 * D * 2 + 16;
-  return D == 64 ? run(product_abt<64>, 1, smem, ta, tb, c)
-                 : run(product_abt<128>, 1, smem, ta, tb, c);
+  if (D == 64) return run(product_abt<64>, 1, smem, ta, tb, c);
+  if (D == 128) return run(product_abt<128>, 1, smem, ta, tb, c);
+  if (D == 256) return run(product_abt<256>, 1, smem, ta, tb, c);
+  return cudaErrorInvalidValue;
 }
 
-// gemm_ax_n128: D 128 only.
-int wgmma_ax_n128(const float* p, const void* x, float* c) {
+// gemm_ax_wide (m64n128k16 over pairs of slabs): D 128 and 256.
+int wgmma_ax_wide(const float* p, const void* x, float* c, int D) {
   CUtensorMap tx;
-  const int64_t st[3] = {64LL * 128, 128, 128};
-  cudaError_t e = make_map(&tx, x, 1, 64, 1, 128, st, 64);
+  const int64_t st[3] = {64LL * D, D, D};
+  cudaError_t e = make_map(&tx, x, 1, 64, 1, D, st, 64);
   if (e != cudaSuccess) return e;
-  const int smem = 1024 + 64 * 128 * 2 + 16;
-  return run(product_ax<128, true>, 1, smem, p, tx, c);
+  const int smem = 1024 + 64 * D * 2 + 16;
+  if (D == 128) return run(product_ax<128, true>, 1, smem, p, tx, c);
+  if (D == 256) return run(product_ax<256, true>, 1, smem, p, tx, c);
+  return cudaErrorInvalidValue;
 }
 
 int wgmma_ax(const float* p, const void* x, float* c, int D) {
@@ -155,8 +159,10 @@ int wgmma_ax(const float* p, const void* x, float* c, int D) {
   cudaError_t e = make_map(&tx, x, 1, 64, 1, D, st, 64);
   if (e != cudaSuccess) return e;
   const int smem = 1024 + 64 * D * 2 + 16;
-  return D == 64 ? run(product_ax<64>, 1, smem, p, tx, c)
-                 : run(product_ax<128>, 1, smem, p, tx, c);
+  if (D == 64) return run(product_ax<64>, 1, smem, p, tx, c);
+  if (D == 128) return run(product_ax<128>, 1, smem, p, tx, c);
+  if (D == 256) return run(product_ax<256>, 1, smem, p, tx, c);
+  return cudaErrorInvalidValue;
 }
 
 int wgmma_chains(const void* a, const void* b, float* c, int D, int P) {
@@ -168,6 +174,9 @@ int wgmma_chains(const void* a, const void* b, float* c, int D, int P) {
     return e;
   const int smem = 1024 + 2 * 64 * D * 2 + 16;
   const dim3 grid(16, 16);
+  if (D == 256 && P == 16) return run(chains_abt<256, 16>, grid, smem, ta, tb, c);
+  if (D == 256 && P == 8) return run(chains_abt<256, 8>, grid, smem, ta, tb, c);
+  if (D == 256 && P == 4) return run(chains_abt<256, 4>, grid, smem, ta, tb, c);
   if (D == 128 && P == 8) return run(chains_abt<128, 8>, grid, smem, ta, tb, c);
   if (D == 128 && P == 4) return run(chains_abt<128, 4>, grid, smem, ta, tb, c);
   if (D == 128 && P == 1) return run(chains_abt<128, 1>, grid, smem, ta, tb, c);

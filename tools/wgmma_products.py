@@ -5,13 +5,14 @@ CUDA card (`tools/wgmma_products.cu` over the helpers of
 
     python3 tools/wgmma_products.py        # from the repository root
 
-1. Each product alone on one 64-row tile, D 64 and 128, against a float32
-   matmul of the same bf16 inputs: A B^T with both operands K-major from
-   TMA-loaded, 128-byte swizzled shared memory (S = Q K^T, dP = dO V^T);
-   round(P) X with P as register A fragments in the accumulator layout
-   and X read transposed (O += P V, dV += P^T dO, dK += dS^T Q, dQ += dS
-   K), at D 128 also as one m64n128k16 per k-step (the forward's O += P
-   V). Fails (exit 1) if one errs by more than 1e-3.
+1. Each product alone on one 64-row tile, D 64, 128 and 256, against a
+   float32 matmul of the same bf16 inputs: A B^T with both operands
+   K-major from TMA-loaded, 128-byte swizzled shared memory (S = Q K^T,
+   dP = dO V^T); round(P) X with P as register A fragments in the
+   accumulator layout and X read transposed (O += P V, dV += P^T dO, dK
+   += dS^T Q, dQ += dS K), at D 128 and 256 also as one m64n128k16 per
+   k-step and pair of slabs (`gemm_ax_wide`: the forward's O += P V, the
+   D 256 backward's sums). Fails (exit 1) if one errs by more than 1e-3.
 2. The float32 accumulation error of A B^T over [1024, D] bf16 inputs
    when each 64 x 64 tile sums its D / 16 k-steps as chains of P k-steps
    added in float32, against float64, beside torch's float32 matmul and
@@ -47,9 +48,9 @@ def load() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.wgmma_abt.argtypes = [ptr, ptr, ptr, i32]
     lib.wgmma_ax.argtypes = [ptr, ptr, ptr, i32]
-    lib.wgmma_ax_n128.argtypes = [ptr, ptr, ptr]
+    lib.wgmma_ax_wide.argtypes = [ptr, ptr, ptr, i32]
     lib.wgmma_chains.argtypes = [ptr, ptr, ptr, i32, i32]
-    for fn in (lib.wgmma_abt, lib.wgmma_ax, lib.wgmma_ax_n128,
+    for fn in (lib.wgmma_abt, lib.wgmma_ax, lib.wgmma_ax_wide,
                lib.wgmma_chains):
         fn.restype = i32
     return lib
@@ -70,7 +71,7 @@ def main() -> int:
     lib = load()
     gen = torch.Generator(device="cuda").manual_seed(0)
     ok = True
-    for d in (64, 128):
+    for d in (64, 128, 256):
         a, b, x = (torch.randn(64, d, generator=gen, device="cuda")
                    .bfloat16() for _ in range(3))
         p = torch.randn(64, 64, generator=gen, device="cuda")
@@ -85,14 +86,15 @@ def main() -> int:
         print(f"round(P) X, D {d}: rc {rc}, max abs error {err:.3e}",
               flush=True)
         ok = ok and rc == 0 and err <= 1e-3
-        if d == 128:
+        if d >= 128:
             c = torch.zeros(64, d, device="cuda")
-            rc = lib.wgmma_ax_n128(p.data_ptr(), x.data_ptr(), c.data_ptr())
+            rc = lib.wgmma_ax_wide(p.data_ptr(), x.data_ptr(), c.data_ptr(),
+                                   d)
             err = (c - p.bfloat16().float() @ x.float()).abs().max().item()
             print(f"round(P) X at N 128, D {d}: rc {rc}, max abs error "
                   f"{err:.3e}", flush=True)
             ok = ok and rc == 0 and err <= 1e-3
-    for d, chains in ((128, (8, 4, 1)), (64, (4, 2, 1))):
+    for d, chains in ((256, (16, 8, 4)), (128, (8, 4, 1)), (64, (4, 2, 1))):
         a, b = (torch.randn(1024, d, generator=gen, device="cuda")
                 .bfloat16() for _ in range(2))
         exact = a.double() @ b.double().T

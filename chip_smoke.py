@@ -83,6 +83,37 @@ result line:
    Serve's share per path, the replica's build seconds by step, the
    update's, replacement's, recovery's and scale-up's seconds. Gated as
    the serve phase, with K1 counted in the replica process;
+5c1. multiplex: `MuxLLM` on the cluster runtime, two replica processes
+   leasing 0.5 of the card each, `serve.multiplexed` holding at most two
+   float32 flagship engines a replica, each model id's weights made from
+   a seed of its own (three ids). A cold wave of 4 streams an id (all
+   three ids at once), two warm passes of the engine phase's 8 prompts
+   an id (two waves of 4; the second timed), then one replica sent a fixed order of requests
+   directly, and an engine evicted under a 512-token stream of its own.
+   Gated: every stream's tokens its id's no-cache forward's argmax or a
+   tie and each prompt's prefill logits within 1e-3 of it (a), the fixed
+   order's loads the LRU rule's (b), each eviction with no loan freeing
+   at least 2,617,923,584 B of the replica's `memory_allocated` and the
+   loaned one freeing its bytes only after its stream ended (c), one load
+   for an id's 4 concurrent cold requests (d), each id's routed requests
+   on one replica (e), K1 launched 12 times a no-prefix prefill in the
+   replicas (f). Prints cold load s, warm tokens/s by id and resident
+   bytes by replica;
+5c2. grpc: `serve.start_grpc_ingress()` in front of that deployment;
+   each id's 16 tokens through `GrpcServeClient.call(..., model_id=)` in
+   the pickle and msgpack payload modes equal the handle's, and an
+   `allow_pickle=False` ingress refuses a pickled payload. Where grpcio
+   is missing, the ImportError naming it is the gate;
+5c3. trace: `util.tracing.enable_tracing(dir)` before `init()`, `MuxLLM`
+   on one replica process: an HTTP SSE request and a handle request are
+   each one trace id with their proxy (HTTP), router and replica spans,
+   the replica's read from the replica process's own span file; the
+   chrome trace loads; at sample rate 0 a request records no span; one
+   id's warm tokens/s traced and unsampled (alternating passes) beside
+   the multiplex phase's, tracing off. Then
+   `perf.run_timeline_capture` (its merged trace holding the driver and
+   workers), `wire_decode_bench` and the flight and metrics overhead
+   benches, printed without a gate;
 5d. microbench: `python -m ray_tpu_torch.perf --microbench`'s
    `run_microbench` on the cluster (tasks/s, actor calls/s, put/get
    10 MB, a 3-actor chain lazily and compiled, a 4 MB array over compiled
@@ -1196,8 +1227,9 @@ class LLM:
                                           "prefill_s", "decode_s")})
 
 
-def sse_request(port: int, payload: dict):
-    """POST /llm?method=generate with `Accept: text/event-stream`:
+def sse_request(port: int, payload: dict,
+                path: str = "/llm?method=generate"):
+    """POST `path` with `Accept: text/event-stream`:
     (tokens, seconds to the first event, seconds to the end, whether the
     first event came in a read before the stream's last chunk)."""
     import socket
@@ -1209,7 +1241,7 @@ def sse_request(port: int, payload: dict):
     buf = b""
     with socket.create_connection(("127.0.0.1", port),
                                   timeout=SERVE_TIMEOUT_S) as sock:
-        sock.sendall(b"POST /llm?method=generate HTTP/1.1\r\n"
+        sock.sendall(b"POST " + path.encode() + b" HTTP/1.1\r\n"
                      b"Host: localhost\r\nAccept: text/event-stream\r\n"
                      b"Content-Type: application/json\r\nContent-Length: "
                      + str(len(body)).encode() + b"\r\n\r\n" + body)
@@ -2041,6 +2073,753 @@ def phase_cluster_serve(params, cfg, card: str, engine_tps: float,
           f"through the cluster's Serve differ from the forward's argmax "
           f"beyond a tie")
     return launches
+
+
+# Model multiplexing on the cluster runtime: `MuxLLM` holds up to
+# MUX_MAX_MODELS float32 flagship engines a replica behind
+# `serve.multiplexed`'s LRU, each model id's weights made from a seed of its
+# own (MUX_SEEDS); MUX_REPLICAS replica processes lease MUX_GPU_SHARE of the
+# card each. An engine holds CLUSTER_FREED_MIN_B of the card (weights and
+# KV pool), which its eviction must give back. A model id's wave is
+# MUX_WAVE streams at once (the router keeps an id on its replica up to 4
+# requests in flight there beyond the other's). MUX_ORDER is the fixed
+# order of requests one replica is sent directly; MUX_HOLD_NEW the new
+# tokens of the stream that its model's eviction must wait for.
+MUX_IDS = ("tenant-a", "tenant-b", "tenant-c")
+MUX_SEEDS = {"tenant-a": 101, "tenant-b": 202, "tenant-c": 303}
+MUX_MAX_MODELS = 2
+MUX_REPLICAS = 2
+MUX_GPU_SHARE = 0.5
+MUX_WAVE = 4
+MUX_ORDER = ("tenant-a", "tenant-b", "tenant-a", "tenant-c", "tenant-b",
+             "tenant-c", "tenant-a")
+MUX_ORDER_NEW = 4
+MUX_HOLD_NEW = 512
+_MUX_PREFILLS = [0]     # a replica's no-prefix prefills, every engine's
+
+
+def mux_params(model_id: str):
+    """`model_id`'s float32 flagship parameters, from its own seed, on this
+    process's card."""
+    import torch
+
+    from ray_tpu_torch.models import TransformerConfig, init_params
+
+    cfg = TransformerConfig(dtype=torch.float32, **FLAGSHIP)
+    gen = torch.Generator(device="cuda").manual_seed(MUX_SEEDS[model_id])
+    return init_params(cfg, gen), cfg
+
+
+def allocated() -> int:
+    import torch
+
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def lru(requests, cap: int, resident=()):
+    """(the loads, what it holds after, least recent first) of an LRU of
+    `cap` models holding `resident` for `requests` in this order (the
+    rule of `ray_tpu/serve/multiplex.py`: a hit moves the id to the back,
+    a miss loads it and evicts from the front)."""
+    resident, loads = list(resident), []
+    for mid in requests:
+        if mid in resident:
+            resident.remove(mid)
+        else:
+            loads.append(mid)
+            if len(resident) >= cap:
+                resident.pop(0)
+        resident.append(mid)
+    return loads, resident
+
+
+class MuxEngine:
+    """One model id's flagship engine in a replica process. Its scheduler
+    thread holds the engine, so dropping this object (the multiplex LRU's
+    eviction, or the release of its last loan) stops that thread: then
+    nothing holds the weights and the KV pool. It counts its no-prefix
+    prefills into the replica's `_MUX_PREFILLS` and keeps each prompt's
+    first prefill logits in `first_logits` (the replica's dict)."""
+
+    def __init__(self, model_id: str, first_logits: dict):
+        import torch
+
+        from ray_tpu_torch.serve.engine import (EngineConfig,
+                                                InferenceEngine,
+                                                TransformerEngineModel)
+
+        class Recording(TransformerEngineModel):
+            def prefill(self, tokens, prefix_kv=None):
+                logits, kv = super().prefill(tokens, prefix_kv)
+                _MUX_PREFILLS[0] += prefix_kv is None
+                first_logits.setdefault((model_id, tuple(tokens)), logits)
+                return logits, kv
+
+            def prefill_paged(self, tokens, *a, **k):
+                logits, kv = super().prefill_paged(tokens, *a, **k)
+                first_logits.setdefault((model_id, tuple(tokens)), logits)
+                return logits, kv
+
+        t0 = time.perf_counter()
+        params, cfg = mux_params(model_id)
+        self.engine = InferenceEngine(
+            Recording(params, cfg, params["embed"].device),
+            EngineConfig(**ENGINE_CONFIG))
+        self.engine.start()
+        torch.cuda.synchronize()
+        self.load_s = time.perf_counter() - t0
+
+    def __del__(self):
+        self.engine.stop()
+
+
+class MuxLLM:
+    """The multiplexed deployment: `generate` streams a request's tokens
+    from the engine of its `multiplexed_model_id` (or, over HTTP, of the
+    body's "model_id"), `__call__` returns them at once (the gRPC
+    ingress's unary call). It logs, in this replica process, every
+    request's model id, every load with its seconds, and for each load
+    the card bytes allocated before and after its evictions."""
+
+    def __init__(self):
+        from ray_tpu_torch import serve
+
+        self.pid = os.getpid()
+        self.requests = []     # model id of each request, in order
+        self.loads = []        # (model id, seconds)
+        # Loads into a full LRU: (loaded id, bytes with it and the evicted
+        # one, bytes after the eviction, ids parked by loans then).
+        self.evictions = []
+        self.first_logits = {}
+        self._bytes_loaded = 0
+        # serve.multiplexed, applied here so that this module imports
+        # without the port (chip_smoke refuses to run away from it).
+        loader = serve.multiplexed(
+            max_num_models_per_replica=MUX_MAX_MODELS)(MuxLLM._load)
+        self.get_model = loader.__get__(self)
+
+    async def _load(self, model_id: str):
+        eng = MuxEngine(model_id, self.first_logits)
+        self.loads.append((model_id, round(eng.load_s, 3)))
+        self._bytes_loaded = allocated()
+        return eng
+
+    async def _model(self, req):
+        from ray_tpu_torch import serve
+
+        mid = req.get("model_id") or serve.get_multiplexed_model_id()
+        self.requests.append(mid)
+        wrapper = getattr(self, "__serve_multiplex__load", None)
+        full = (wrapper is not None and mid not in wrapper.model_ids
+                and len(wrapper.model_ids) >= MUX_MAX_MODELS)
+        n = len(self.loads)
+        eng = await self.get_model(mid)
+        if full and len(self.loads) > n:
+            wrapper = getattr(self, "__serve_multiplex__load")
+            self.evictions.append((mid, self._bytes_loaded, allocated(),
+                                   sorted(wrapper._pending_evict)))
+        return eng
+
+    async def generate(self, req):
+        eng = await self._model(req)
+        async for tok in eng.engine.submit(req["prompt"],
+                                           req["max_new_tokens"]):
+            yield tok
+
+    async def __call__(self, req):
+        eng = await self._model(req)
+        return [tok async for tok in eng.engine.submit(
+            req["prompt"], req["max_new_tokens"])]
+
+    def reset_counts(self):
+        _zero_counts()
+        _MUX_PREFILLS[0] = 0
+        return True
+
+    def stats(self):
+        wrapper = getattr(self, "__serve_multiplex__load", None)
+        return dict(pid=self.pid, requests=list(self.requests),
+                    loads=list(self.loads), evictions=list(self.evictions),
+                    resident=wrapper.model_ids if wrapper else [],
+                    parked=sorted(wrapper._pending_evict) if wrapper else [],
+                    allocated=allocated(), k1=_counts()[0],
+                    full_prefills=_MUX_PREFILLS[0])
+
+    def logits(self):
+        return dict(self.first_logits)
+
+
+def replica_actors(name: str):
+    """[(replica id, actor handle)] of a deployment's running replicas, in
+    the controller's order."""
+    import ray_tpu_torch
+    from ray_tpu_torch.serve._private.controller import CONTROLLER_NAME
+
+    controller = ray_tpu_torch.get_actor(CONTROLLER_NAME)
+    return ray_tpu_torch.get(controller.get_routing_table.remote(name),
+                             timeout=60)["replicas"]
+
+
+def replica_call(actor, method: str, *args):
+    """A method of one replica through its data plane (the router's call,
+    made to that replica)."""
+    import ray_tpu_torch
+
+    return ray_tpu_torch.get(actor.handle_request.remote(method, args, {}),
+                             timeout=SERVE_TIMEOUT_S)
+
+
+def replica_stream(actor, model_id: str, req, out: list) -> list:
+    """`generate` of one replica, for `model_id`, its tokens appended to
+    `out` as they come."""
+    import ray_tpu_torch
+
+    gen = actor.handle_request_streaming.options(
+        num_returns="streaming").remote(
+            "generate", (req,), {}, {"multiplexed_model_id": model_id})
+    for ref in gen:
+        out.append(ray_tpu_torch.get(ref, timeout=SERVE_TIMEOUT_S))
+    return out
+
+
+def phase_multiplex(cfg, card: str, engine_launches: int):
+    """`@serve.multiplexed` flagship engines on the cluster runtime, then
+    the gRPC ingress (`phase_grpc`) on the same deployment. Returns the K1
+    launches of the handle traffic, counted in the replicas, and each
+    model id's tokens/s."""
+    import threading
+
+    import numpy as np
+
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+
+    prompts = engine_prompts(cfg)
+    new = ENGINE_NEW
+    held = []      # (model id, prompt, tokens)
+
+    def complete(toks, n):
+        return len(toks) == n or (toks and toks[-1] == 1)
+
+    def handle_wave(handle, mid, rs):
+        """Streams of `rs` for `mid` over the handle, assigned at once
+        (here) and read on threads."""
+        h = handle.options(multiplexed_model_id=mid, stream=True,
+                           method_name="generate")
+        gens = [h.remote(r) for r in rs]
+        outs = [[] for _ in rs]
+
+        def read(gen, out):
+            for tok in gen:
+                out.append(tok)
+
+        threads = [threading.Thread(target=read, args=(g, o), daemon=True)
+                   for g, o in zip(gens, outs)]
+        return threads, outs
+
+    def finish(waves):
+        for threads, _, _, _ in waves:
+            for t in threads:
+                t.start()
+        for threads, outs, mid, rs in waves:
+            join_all(threads, SERVE_TIMEOUT_S)
+            check(all(complete(o, r["max_new_tokens"])
+                      for o, r in zip(outs, rs)),
+                  f"a multiplexed stream of {mid} ended short")
+            for o, r in zip(outs, rs):
+                held.append((mid, r["prompt"], list(o)))
+
+    def stats():
+        return {rid: replica_call(actor, "stats") for rid, actor in actors}
+
+    os.environ[RUN_MARKER] = f"{os.getpid()}-{time.time_ns()}"
+    ray_tpu_torch.init(num_cpus=CLUSTER_CPUS)
+    driver_pid = os.getpid()
+    try:
+        serve.start(serve.HTTPOptions(host="127.0.0.1", port=0))
+        app = serve.deployment(
+            MuxLLM, name="MuxLLM", num_replicas=MUX_REPLICAS,
+            ray_actor_options={"num_gpus": MUX_GPU_SHARE})
+        t0 = time.perf_counter()
+        handle = serve.run(app.bind(), route_prefix="/mux",
+                           _blocking_timeout_s=SERVE_READY_S)
+        deadline = time.monotonic() + SERVE_READY_S
+        while (len(replica_actors("MuxLLM")) < MUX_REPLICAS
+               and time.monotonic() < deadline):
+            time.sleep(0.1)
+        actors = replica_actors("MuxLLM")
+        deploy_s = time.perf_counter() - t0
+        check(len(actors) == MUX_REPLICAS,
+              f"{len(actors)} MuxLLM replicas running, not {MUX_REPLICAS}")
+        for _, actor in actors:
+            replica_call(actor, "reset_counts")
+
+        # Cold: a wave of MUX_WAVE streams for each id, all assigned at
+        # once (the second id goes to the idle replica), read together.
+        cold = [dict(prompt=p, max_new_tokens=new) for p in prompts[:4]]
+        t0 = time.perf_counter()
+        waves = [handle_wave(handle, mid, cold) + (mid, cold)
+                 for mid in MUX_IDS]
+        finish(waves)
+        cold_s = time.perf_counter() - t0
+        after_cold = stats()
+
+        # Warm: each id in turn, the engine phase's 8 prompts as two
+        # waves, twice; the second pass is timed (the first runs the
+        # longer prompts' shapes in the replica for the first time).
+        def id_pass(mid):
+            t0 = time.perf_counter()
+            n_tok = 0
+            for lo in (0, MUX_WAVE):
+                rs = [dict(prompt=p, max_new_tokens=new)
+                      for p in prompts[lo:lo + MUX_WAVE]]
+                wave = handle_wave(handle, mid, rs) + (mid, rs)
+                finish([wave])
+                n_tok += sum(len(o) for o in wave[1])
+            return n_tok / (time.perf_counter() - t0)
+
+        first_tps, tps = {}, {}
+        for mid in MUX_IDS:
+            first_tps[mid] = id_pass(mid)
+            tps[mid] = id_pass(mid)
+        routed = stats()
+
+        # One replica, sent MUX_ORDER directly: loads by the LRU's rule,
+        # and each unloaned eviction frees an engine's bytes at once.
+        rid, actor = actors[0]
+        rng = np.random.default_rng(13)
+        short = rng.integers(2, cfg.vocab_size, 64).tolist()
+        for mid in MUX_ORDER:
+            toks = replica_stream(actor, mid, dict(
+                prompt=short, max_new_tokens=MUX_ORDER_NEW), [])
+            check(complete(toks, MUX_ORDER_NEW), f"a direct stream of {mid} "
+                  f"ended short")
+            held.append((mid, short, toks))
+        ordered = replica_call(actor, "stats")
+
+        # Drain-deferred: X streams MUX_HOLD_NEW tokens; Y is touched and
+        # Z loaded under it, which evicts X while its loan is out.
+        x = ordered["resident"][-1]
+        y = ordered["resident"][0]
+        z = next(m for m in MUX_IDS if m not in ordered["resident"])
+        long_prompt = prompts[0]
+        x_out: list = []
+        x_thread = threading.Thread(target=replica_stream, args=(
+            actor, x, dict(prompt=long_prompt, max_new_tokens=MUX_HOLD_NEW),
+            x_out), daemon=True)
+        x_thread.start()
+        deadline = time.monotonic() + SERVE_TIMEOUT_S
+        while not x_out and time.monotonic() < deadline:
+            time.sleep(0.005)
+        for mid in (y, z):
+            toks = replica_stream(actor, mid, dict(
+                prompt=short, max_new_tokens=MUX_ORDER_NEW), [])
+            held.append((mid, short, toks))
+        under = replica_call(actor, "stats")
+        x_was_streaming = x_thread.is_alive()
+        x_thread.join(SERVE_TIMEOUT_S)
+        check(complete(x_out, MUX_HOLD_NEW),
+              f"the stream of evicted {x} ended short ({len(x_out)} tokens)")
+        held.append((x, long_prompt, list(x_out)))
+        deadline = time.monotonic() + SERVE_TIMEOUT_S
+        after = replica_call(actor, "stats")
+        while after["parked"] and time.monotonic() < deadline:
+            time.sleep(0.05)
+            after = replica_call(actor, "stats")
+        logits = {}
+        for _, a in actors:
+            logits.update(replica_call(a, "logits"))
+        phase_grpc(handle, cfg, card, held)
+    finally:
+        try:
+            serve.shutdown()
+        finally:
+            ray_tpu_torch.shutdown()
+        deadline = time.monotonic() + CLUSTER_DOWN_S
+        left = port_processes()
+        while left and time.monotonic() < deadline:
+            time.sleep(0.05)
+            left = port_processes()
+    check(not left, f"port processes outlived shutdown by {CLUSTER_DOWN_S} "
+          f"s: {left}")
+
+    # (d) and (e): each id's cold wave made one load, and every request of
+    # the routed traffic for an id went to one replica.
+    cold_loads = [m for s in after_cold.values() for m, _ in s["loads"]]
+    check(sorted(cold_loads) == sorted(MUX_IDS),
+          f"{MUX_WAVE} concurrent cold requests a model id did not make one "
+          f"load each: {cold_loads}")
+    homes = {mid: [r for r, s in routed.items() if mid in s["requests"]]
+             for mid in MUX_IDS}
+    check(all(len(h) == 1 for h in homes.values()),
+          f"a model id's requests went to more than one replica: {homes}")
+    check(all(s["pid"] != driver_pid for s in routed.values())
+          and len({s["pid"] for s in routed.values()}) == MUX_REPLICAS,
+          "the replicas are not processes of their own")
+    # (b): the fixed order's loads are the LRU rule's from the state the
+    # routed traffic left.
+    want_loads, want_resident = lru(MUX_ORDER, MUX_MAX_MODELS,
+                                    routed[rid]["resident"])
+    got_loads = [m for m, _ in ordered["loads"][len(routed[rid]["loads"]):]]
+    check(got_loads == want_loads and ordered["resident"] == want_resident,
+          f"replica {rid} holding {routed[rid]['resident']} loaded "
+          f"{got_loads} for {MUX_ORDER} and holds {ordered['resident']}; "
+          f"the LRU rule loads {want_loads} and holds {want_resident}")
+    # (c): unloaned evictions free an engine at once; the loaned one's
+    # bytes stay while its stream runs and go after.
+    direct = ordered["evictions"][len(routed[rid]["evictions"]):]
+    freed = [before - after_ for _, before, after_, _ in direct]
+    check(direct and all(not parked for *_, parked in direct)
+          and all(f >= CLUSTER_FREED_MIN_B for f in freed),
+          f"an eviction with no loans freed {freed} B, under "
+          f"{CLUSTER_FREED_MIN_B} B: {direct}")
+    z_event = under["evictions"][-1]
+    check(z_event[0] == z and z_event[3] == [x] and x_was_streaming,
+          f"loading {z} under {x}'s stream did not park {x}: {z_event}, "
+          f"stream in flight {x_was_streaming}")
+    parked_held = z_event[1] - z_event[2]
+    released = under["allocated"] - after["allocated"]
+    check(parked_held < CLUSTER_FREED_MIN_B and under["parked"] == [x],
+          f"{x}'s bytes left while its stream ran: {parked_held} B freed at "
+          f"its eviction")
+    check(released >= CLUSTER_FREED_MIN_B and not after["parked"],
+          f"{x}'s bytes were not freed after its stream ended: {released} B")
+    # (f): K1 in the replicas, once a layer a no-prefix prefill.
+    k1 = sum(s["k1"] for s in routed.values())
+    prefills = sum(s["full_prefills"] for s in routed.values())
+    check(k1 > 0 and k1 == cfg.n_layers * prefills,
+          f"the replicas launched K1 {k1} times for {prefills} no-prefix "
+          f"prefills of {cfg.n_layers} layers")
+    # (a): every stream against its id's no-cache forward.
+    worst = 0.0
+    is_max = ties = total = 0
+    for mid in MUX_IDS:
+        mparams, mcfg = mux_params(mid)
+        streams = {tuple(p): g for m, p, g in held if m == mid}
+        for (lid, toks), got in logits.items():
+            if lid == mid:
+                first, _, _, _ = hold_to_forward(mparams, mcfg, list(toks),
+                                                 streams[toks])
+                worst = max(worst, float(np.abs(got - first).max()))
+        for m, prompt, toks in held:
+            if m == mid:
+                a, t = stream_vs_forward(mparams, mcfg, prompt, toks)
+                is_max += a
+                ties += t
+                total += len(toks)
+        del mparams
+
+    per = {r: dict(pid=s["pid"], resident=s["resident"],
+                   allocated=s["allocated"], loads=s["loads"])
+           for r, s in routed.items()}
+    load_s = [s for st in dict(routed, **{rid: after}).values()
+              for _, s in st["loads"]]
+    print(f"multiplex flagship f32 paged, {MUX_REPLICAS} replica processes "
+          f"({MUX_GPU_SHARE} GPU each), {len(MUX_IDS)} model ids, at most "
+          f"{MUX_MAX_MODELS} engines a replica: serve.run to ready "
+          f"{deploy_s:.3f} s; cold waves ({MUX_WAVE} streams an id, all "
+          f"ids at once) {cold_s:.3f} s; cold load s (weights from the "
+          f"id's seed on the card, engine started) {load_s} [{card}]",
+          flush=True)
+    print(f"multiplex warm tokens_per_s by id "
+          f"{json.dumps({m: round(v, 2) for m, v in tps.items()})} (8 "
+          f"prompts as 2 waves of {MUX_WAVE}, the second pass; the first "
+          f"{json.dumps({m: round(v, 2) for m, v in first_tps.items()})}); "
+          f"K1 launches {k1} in the "
+          f"replicas for {prefills} no-prefix prefills x {cfg.n_layers} "
+          f"layers (the engine phase's pass: {engine_launches}); resident "
+          f"by replica {json.dumps(per)} [{card}]", flush=True)
+    print(f"multiplex LRU: replica {rid} holding "
+          f"{routed[rid]['resident']} sent {list(MUX_ORDER)} directly, "
+          f"loads {got_loads} (the LRU rule's), evictions with no loan "
+          f"freed {freed} B (gate {CLUSTER_FREED_MIN_B}); {z} loaded under "
+          f"{x}'s {MUX_HOLD_NEW}-token stream parked {x} ({parked_held} B "
+          f"freed then), {released} B freed after that stream ended; cold "
+          f"loads {cold_loads} for {MUX_WAVE} concurrent requests an id; "
+          f"homes {json.dumps(homes)} [{card}]", flush=True)
+    print(f"multiplex vs no-cache forward: {len(held)} streams, "
+          f"{is_max}/{total} tokens the forward's argmax, {ties} more tie "
+          f"it within {ENGINE_LOGIT_ATOL:g}; prefill logits max_abs_err "
+          f"{worst:.3e} (tol {ENGINE_LOGIT_ATOL:g}) over {len(logits)} "
+          f"prompts [{card}]", flush=True)
+    check(worst <= ENGINE_LOGIT_ATOL,
+          f"multiplexed prefill logits differ from the forward by "
+          f"{worst:.3e}")
+    check(is_max + ties == total, f"{total - is_max - ties} multiplexed "
+          f"tokens differ from their id's forward beyond a tie")
+    return k1, tps
+
+
+def phase_grpc(handle, cfg, card: str, held: list):
+    """The gRPC ingress (`serve.start_grpc_ingress`) in front of the
+    multiplexed deployment: each model id's tokens through
+    `GrpcServeClient.call(..., model_id=...)` in both payload modes equal
+    the handle's for the same request, and an `allow_pickle=False` ingress
+    refuses a pickled payload. Without grpcio, both refuse with an
+    ImportError naming it."""
+    import numpy as np
+
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+
+    if not importable("grpc"):
+        for start in (serve.start_grpc_ingress,
+                      lambda: serve.GrpcServeClient("127.0.0.1:1")):
+            try:
+                start()
+            except ImportError as e:
+                check("grpcio" in str(e), f"the refusal does not name "
+                      f"grpcio: {e}")
+            else:
+                raise PhaseError("the gRPC ingress started without grpc")
+        print(f"grpc: absent on this machine; start_grpc_ingress and "
+              f"GrpcServeClient raise ImportError naming grpcio [{card}]",
+              flush=True)
+        return
+    rng = np.random.default_rng(17)
+    req = dict(prompt=rng.integers(2, cfg.vocab_size, 96).tolist(),
+               max_new_tokens=16)
+    port = serve.start_grpc_ingress()
+    times, wants = {}, {}
+    for mid in MUX_IDS:
+        t0 = time.perf_counter()
+        want = handle.options(multiplexed_model_id=mid).remote(req).result(
+            timeout_s=SERVE_TIMEOUT_S)
+        times[mid] = [round((time.perf_counter() - t0) * 1e3, 3)]
+        for fmt in ("pickle", "msgpack"):
+            client = serve.GrpcServeClient(f"127.0.0.1:{port}",
+                                           payload_format=fmt)
+            try:
+                t0 = time.perf_counter()
+                got = client.call("MuxLLM", req, model_id=mid,
+                                  timeout=SERVE_TIMEOUT_S)
+                times[mid].append(round((time.perf_counter() - t0) * 1e3, 3))
+            finally:
+                client.close()
+            check(got == want, f"{mid} through gRPC ({fmt}) gave {got}, "
+                  f"the handle {want}")
+        wants[mid] = want
+        held.append((mid, req["prompt"], want))
+    # The pickling ingress goes; one with allow_pickle=False refuses a
+    # pickled payload and answers a msgpack one.
+    proxy = ray_tpu_torch.get_actor(serve._GRPC_PROXY_NAME)
+    ray_tpu_torch.get(proxy.stop.remote(), timeout=60)
+    ray_tpu_torch.kill(proxy)
+    serve._grpc_port = None
+    port = serve.start_grpc_ingress(allow_pickle=False)
+    pickled = serve.GrpcServeClient(f"127.0.0.1:{port}")
+    plain = serve.GrpcServeClient(f"127.0.0.1:{port}",
+                                  payload_format="msgpack")
+    try:
+        try:
+            pickled.call("MuxLLM", req, model_id=MUX_IDS[0])
+        except serve.RayServeException as e:
+            refusal = str(e)
+        else:
+            raise PhaseError("an allow_pickle=False ingress took a pickled "
+                             "payload")
+        check("allow_pickle=False" in refusal, f"unexpected refusal: "
+              f"{refusal}")
+        check(plain.call("MuxLLM", req, model_id=MUX_IDS[0])
+              == wants[MUX_IDS[0]],
+              "the no-pickle ingress's msgpack answer differs")
+    finally:
+        pickled.close()
+        plain.close()
+    print(f"grpc ingress on 127.0.0.1: {len(MUX_IDS)} model ids, tokens "
+          f"equal the handle's in both payload modes (pickle, msgpack); "
+          f"ms by id [handle, grpc pickle, grpc msgpack] "
+          f"{json.dumps(times)} ({req['max_new_tokens']} new tokens, 96-token "
+          f"prompt); allow_pickle=False refused a pickled payload "
+          f"({refusal[:80]!r}) [{card}]", flush=True)
+
+
+def phase_trace(cfg, card: str, mux_tps: dict):
+    """Tracing across processes: `enable_tracing(out_dir)` before `init()`,
+    the multiplexed deployment on one replica process, one HTTP (SSE) and
+    one handle request: each one trace id, the replica's span from the
+    replica process's own file; with sample rate 0 a request records no
+    span; the warm tokens/s of one model id with tracing on beside the
+    multiplex phase's (off). Then `run_timeline_capture`,
+    `wire_decode_bench` and the two overhead benches, printed."""
+    import tempfile
+
+    import numpy as np
+
+    import ray_tpu_torch
+    from ray_tpu_torch import perf, serve
+    from ray_tpu_torch.util import tracing
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    mid = MUX_IDS[0]
+    rng = np.random.default_rng(19)
+    short = rng.integers(2, cfg.vocab_size, 64).tolist()
+    prompts = engine_prompts(cfg)
+    tracing.enable_tracing(out_dir)
+    os.environ[RUN_MARKER] = f"{os.getpid()}-{time.time_ns()}"
+    ray_tpu_torch.init(num_cpus=CLUSTER_CPUS)
+    try:
+        port = serve.start(serve.HTTPOptions(host="127.0.0.1", port=0))
+        app = serve.deployment(
+            MuxLLM, name="MuxLLM", num_replicas=1,
+            ray_actor_options={"num_gpus": MUX_GPU_SHARE})
+        handle = serve.run(app.bind(), route_prefix="/mux",
+                           _blocking_timeout_s=SERVE_READY_S)
+        (_, actor), = replica_actors("MuxLLM")
+        replica_pid = replica_call(actor, "stats")["pid"]
+        http_toks, _, _, _ = sse_request(
+            port, dict(prompt=short, max_new_tokens=8, model_id=mid),
+            path="/mux?method=generate")
+        handle_toks = list(handle.options(
+            multiplexed_model_id=mid, stream=True,
+            method_name="generate").remote(dict(prompt=short,
+                                                max_new_tokens=8)))
+        check(http_toks == handle_toks and len(http_toks) == 8,
+              f"HTTP and handle tokens differ: {http_toks} {handle_toks}")
+
+        def complete(spans):
+            proxies = [s for s in spans if s["name"] == "serve.proxy"]
+            routers = [s for s in spans if s["name"] == "serve.router"
+                       and s["pid"] == os.getpid()]
+            return proxies and routers and all(
+                "serve.replica" in {x["name"] for x in spans
+                                    if x["trace_id"] == s["trace_id"]}
+                for s in proxies + routers)
+
+        deadline = time.monotonic() + 30
+        spans = tracing.collect(out_dir)
+        while not complete(spans) and time.monotonic() < deadline:
+            time.sleep(0.25)
+            spans = tracing.collect(out_dir)
+        check(complete(spans), f"no whole trace of the two requests: "
+              f"{[(s['name'], s['pid']) for s in spans]}")
+        proxy = next(s for s in spans if s["name"] == "serve.proxy")
+        router = min((s for s in spans if s["name"] == "serve.router"
+                      and s["pid"] == os.getpid()),
+                     key=lambda s: s["start_us"])
+        with open(os.path.join(out_dir, f"{replica_pid}.jsonl")) as f:
+            replica_file = [json.loads(line) for line in f if line.strip()]
+        traces = {}
+        for what, root in (("http", proxy), ("handle", router)):
+            same = [s for s in spans if s["trace_id"] == root["trace_id"]]
+            names = {s["name"] for s in same}
+            want = {"serve.router", "serve.replica"} | (
+                {"serve.proxy"} if what == "http" else set())
+            check(want <= names, f"the {what} request's trace lacks "
+                  f"{want - names}")
+            rep = next(s for s in same if s["name"] == "serve.replica")
+            check(rep["pid"] == replica_pid != os.getpid()
+                  and rep in replica_file,
+                  f"the {what} request's replica span is not from the "
+                  f"replica process's file")
+            traces[what] = sorted({(s["name"], s["pid"]) for s in same})
+        chrome = os.path.join(out_dir, "trace.json")
+        tracing.to_chrome_trace(spans, chrome)
+        with open(chrome) as f:
+            events = json.load(f)
+        check({proxy["trace_id"], router["trace_id"]}
+              <= {e["args"]["trace_id"] for e in events},
+              "the chrome trace lacks the requests' traces")
+
+        # The multiplex phase's warm pass of one id, with tracing on; a
+        # pass first, untimed, as the multiplex phase's cold waves ran
+        # those prompt lengths before its timed pass.
+        def warm_pass():
+            t0 = time.perf_counter()
+            n_tok = 0
+            for lo in (0, MUX_WAVE):
+                gens = [handle.options(
+                    multiplexed_model_id=mid, stream=True,
+                    method_name="generate").remote(
+                        dict(prompt=p, max_new_tokens=ENGINE_NEW))
+                    for p in prompts[lo:lo + MUX_WAVE]]
+                threads, outs = run_threads([((lambda g, o: o.update(
+                    tokens=list(g))), (g,)) for g in gens])
+                join_all(threads, SERVE_TIMEOUT_S)
+                check(all("tokens" in o for o in outs),
+                      f"a traced stream failed: {outs}")
+                n_tok += sum(len(o["tokens"]) for o in outs)
+            return n_tok / (time.perf_counter() - t0)
+
+        # Then two passes traced (sample rate 1 at the driver, the
+        # handle requests' root) alternating with two unsampled (rate 0:
+        # the same spans' code runs, nothing records): what recording
+        # costs, on one replica.
+        first_tps = warm_pass()
+        rates = {1.0: [], 0.0: []}
+        for rate in (1.0, 0.0, 1.0, 0.0):
+            tracing.enable_tracing(out_dir, sample_rate=rate)
+            rates[rate].append(warm_pass())
+        tracing.enable_tracing(out_dir, sample_rate=1.0)
+        traced_tps = float(np.mean(rates[1.0]))
+        unsampled_tps = float(np.mean(rates[0.0]))
+
+        def request_spans():
+            def of_requests():
+                return [s for s in tracing.collect(out_dir)
+                        if s["name"].startswith("serve.")
+                        or "handle_request" in s["name"]]
+
+            got, n = of_requests(), -1
+            while len(got) != n:
+                n = len(got)
+                time.sleep(1.0)
+                got = of_requests()
+            return got
+
+        before = request_spans()
+        tracing.enable_tracing(out_dir, sample_rate=0.0)
+        list(handle.options(multiplexed_model_id=mid, stream=True,
+                            method_name="generate").remote(
+            dict(prompt=short, max_new_tokens=8)))
+        unsampled = len(request_spans()) - len(before)
+        check(unsampled == 0, f"an unsampled request recorded {unsampled} "
+              f"spans")
+        n_spans = len(tracing.collect(out_dir))
+        files = sorted(f for f in os.listdir(out_dir)
+                       if f.endswith(".jsonl"))
+    finally:
+        try:
+            serve.shutdown()
+        finally:
+            ray_tpu_torch.shutdown()
+            tracing.disable_tracing()
+        deadline = time.monotonic() + CLUSTER_DOWN_S
+        left = port_processes()
+        while left and time.monotonic() < deadline:
+            time.sleep(0.05)
+            left = port_processes()
+    check(not left, f"port processes outlived shutdown by {CLUSTER_DOWN_S} "
+          f"s: {left}")
+    print(f"trace: enable_tracing before init, {len(files)} span files "
+          f"({n_spans} spans); the HTTP request's trace "
+          f"{json.dumps(traces['http'])}, the handle request's "
+          f"{json.dumps(traces['handle'])} (driver pid {os.getpid()}, "
+          f"replica pid {replica_pid}, its span read from {replica_pid}"
+          f".jsonl); chrome trace {len(events)} events; sample rate 0: a "
+          f"request recorded {unsampled} spans; {mid} warm tokens_per_s "
+          f"traced {traced_tps:.2f} {[round(v, 2) for v in rates[1.0]]}, "
+          f"unsampled {unsampled_tps:.2f} "
+          f"{[round(v, 2) for v in rates[0.0]]} (alternating, after an "
+          f"untimed pass at {first_tps:.2f}), beside {mux_tps[mid]:.2f} "
+          f"with tracing off (multiplex phase) [{card}]", flush=True)
+
+    path = os.path.join(out_dir, "timeline.json")
+    timeline = perf.run_timeline_capture(path, scale=0.25)
+    with open(path) as f:
+        n_events = len(json.load(f)["traceEvents"])
+    print(f"perf timeline {json.dumps(timeline)}; {n_events} chrome events "
+          f"[{card}]", flush=True)
+    check({"driver", "worker"} <= set(timeline["timeline_roles"])
+          and timeline["timeline_events"] > 0,
+          f"the merged timeline lacks the driver or a worker: {timeline}")
+    wire = perf.wire_decode_bench()
+    flight_out = perf.run_flight_overhead_bench(scale=0.25, bursts=2)
+    metrics_out = perf.run_metrics_overhead_bench(scale=0.25, bursts=2)
+    print(f"perf wire_decode_bench {json.dumps(wire)}; flight overhead "
+          f"{json.dumps(flight_out)}; metrics overhead "
+          f"{json.dumps(metrics_out)} (host, no gate) [{card}]", flush=True)
 
 
 def phase_microbench(card: str):
@@ -4650,6 +5429,9 @@ def main() -> int:
         cluster_launches = phase_cluster_serve(
             params, replace(cfg, dtype=torch.float32), card, engine_tps,
             serve_tps)
+        mux_launches, mux_tps = phase_multiplex(
+            replace(cfg, dtype=torch.float32), card, launches)
+        phase_trace(replace(cfg, dtype=torch.float32), card, mux_tps)
         phase_microbench(card)
         phase_perf_twins(card)
         bwd_rows = phase_bwd_kernels(card, power_w)
@@ -4740,6 +5522,9 @@ def main() -> int:
         serve_launches=serve_launches,
         cluster_serve_launches=cluster_launches,
         cluster_serve_launches_in="the replica process",
+        multiplex_launches=mux_launches,
+        multiplex_launches_in=("the multiplexed deployment's two replica "
+                               "processes, three model ids"),
         train_launches=train_launches[0],
         moe_train_launches=moe_launches[0],
         moe_f32_grad_launches=moe_f32_launches[0],

@@ -2,9 +2,12 @@
 port of `ray_tpu/core/cluster_runtime.py`.
 
 Left for later slices, each refusing with a message that names it:
-worker-direct dispatch rings (`submit_ring`), sharded puts of device
-arrays, and compiled-graph channels. A lease's GPU ids
-become the worker's CUDA_VISIBLE_DEVICES (`_apply_visible_chips`).
+worker-direct dispatch rings (`submit_ring`) and sharded puts of device
+arrays. Compiled-graph channels ride `cgraph_push` (`cgraph/`). A
+lease's GPU ids become the worker's CUDA_VISIBLE_DEVICES
+(`_apply_visible_chips`). A task spec's `trace_ctx` parents the worker's
+`task.run`/`actor.run` span to its caller's; a worker whose environment
+names a trace directory (`util/tracing.py`) writes its spans there.
 
 Reference equivalent: `src/ray/core_worker/` — one library linked into every
 process (`core_worker.h`): task submission over leased workers

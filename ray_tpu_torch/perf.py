@@ -1,7 +1,10 @@
-"""Benchmarks, the twins of `ray_tpu/perf.py`'s runtime microbenchmark and
-serving half:
+"""Benchmarks, the twins of `ray_tpu/perf.py`'s runtime microbenchmark,
+its observability benches and its serving half:
 
-    python -m ray_tpu_torch.perf --microbench [--local] [--scale S]
+    python -m ray_tpu_torch.perf --microbench [--local] [--attribute]
+    python -m ray_tpu_torch.perf --timeline [FILE]
+    python -m ray_tpu_torch.perf --flight-overhead
+    python -m ray_tpu_torch.perf --metrics-overhead
     python -m ray_tpu_torch.perf --llm-serve [--scale S] [--device D]
     python -m ray_tpu_torch.perf --fleet [--scale S]
 
@@ -11,7 +14,20 @@ calls/s, put/get of 10 MB, a 3-actor chain through the lazy DAG
 (`experimental_compile`, persistent loops and channels), and a 4 MB
 array over a 2-stage compiled chain's `"array"` edges, on the cluster
 runtime (worker processes) or, with `--local`, the in-process one. Its
-keys are the reference's.
+keys are the reference's. `--attribute` turns on the per-call
+attribution profiler (`core/attribution.py`) in the driver and every
+worker it spawns and adds its breakdown (where each task's time went,
+the inline/remote split, lease batch sizes) and `wire_decode_bench`
+under "attribution"; `format_attribution` prints it as a table on
+stderr.
+
+`run_timeline_capture` brackets a remote task burst with the flight
+recorder and writes the merged Chrome trace of the driver, the raylet
+and every worker. `run_flight_overhead_bench` and
+`run_metrics_overhead_bench` measure remote tasks/s with the flight
+recorder, and with the metrics pipeline, on and off (two clusters each:
+workers read the flag at spawn); the second also reads each raylet's
+push counters.
 
 `run_llm_serve_bench` drives one `InferenceEngine`: continuous vs static
 batching, 2x overload behind the ingress's admission gate, prefix
@@ -48,6 +64,28 @@ def _p95(samples: List[float]) -> float:
     return s[min(len(s) - 1, int(len(s) * 0.95))]
 
 
+def wire_decode_bench(n: int = 3000) -> Dict[str, float]:
+    """Validated vs fast-path decode of a representative TaskSpec, in
+    microseconds per message (the worker pays exactly one of these per
+    pushed task, fast after the schema handshake)."""
+    from ray_tpu_torch.core import codec
+    from ray_tpu_torch.core.wire import (TaskSpec, from_wire,
+                                         from_wire_fast, to_wire)
+
+    payload = codec.unpackb(codec.packb(to_wire(TaskSpec(
+        task_id="ab" * 16, job_id="cd" * 8, name="bench", fn_key="k" * 40,
+        args=b"x" * 200, resources={"CPU": 1.0}, owner="127.0.0.1:1"))))
+    t0 = time.perf_counter()
+    for _ in range(n):
+        from_wire(payload)
+    t1 = time.perf_counter()
+    for _ in range(n):
+        from_wire_fast(payload)
+    t2 = time.perf_counter()
+    return {"validated_us": round((t1 - t0) / n * 1e6, 2),
+            "fast_us": round((t2 - t1) / n * 1e6, 2)}
+
+
 class _Counter:
     def __init__(self):
         self.n = 0
@@ -66,16 +104,27 @@ class _ChainStage:
 
 
 def run_microbench(local_mode: bool = False,
-                   scale: float = 1.0) -> Dict[str, Any]:
+                   scale: float = 1.0,
+                   attribute: bool = False) -> Dict[str, Any]:
     """{metric: value}: throughputs in ops/s, latencies in ms, the
     reference's keys (`ray_tpu/perf.py` run_microbench). Starts its own
-    runtime (and shuts it down), on the cluster with up to 4 CPUs."""
+    runtime (and shuts it down), on the cluster with up to 4 CPUs. With
+    `attribute`, the attribution profiler runs in the driver and in the
+    workers (they inherit its flag at spawn) and its snapshot, with
+    `wire_decode_bench`, comes back under "attribution"."""
     import os
 
     import numpy as np
 
     import ray_tpu_torch
 
+    from ray_tpu_torch.core import attribution
+
+    prev_attr = attribution.enabled
+    if attribute:
+        # Before init so spawned workers inherit the env flag.
+        attribution.enable()
+        attribution.reset()
     ncpu = min(4, max(2, os.cpu_count() or 1))
     ray_tpu_torch.init(local_mode=local_mode,
                        **({} if local_mode else {"num_cpus": ncpu}))
@@ -141,9 +190,197 @@ def run_microbench(local_mode: bool = False,
         out["get_bw_MBps"] = round(mb / max(_p50(gets), 1e-9), 1)
         out.update(_dag_chain_bench(scale))
         ray_tpu_torch.kill(counter)
+        if attribute:
+            out["attribution"] = attribution.snapshot()
+            out["attribution"]["wire_decode_bench"] = wire_decode_bench()
+    finally:
+        ray_tpu_torch.shutdown()
+        if attribute and not prev_attr:
+            attribution.disable()
+    return out
+
+
+def _raylet_calls(rt, method: str, **kwargs) -> List[Dict[str, Any]]:
+    """`method`'s reply from the raylet of every live node (a dead or
+    wedged one is skipped)."""
+
+    async def _collect():
+        out = []
+        for node in await rt._gcs.get_nodes():
+            if not node.get("alive", True):
+                continue
+            try:
+                client = await rt._raylet_client(node["address"])
+                out.append(await client.call(method, timeout=10.0,
+                                             **kwargs))
+            except Exception:  # noqa: BLE001 — skip a dead node
+                pass
+        return out
+
+    return [r for r in rt._loop.run(_collect(), timeout=30)
+            if isinstance(r, dict)]
+
+
+def run_timeline_capture(path: str = "ray_tpu_timeline.json",
+                         scale: float = 1.0) -> Dict[str, Any]:
+    """`python -m ray_tpu_torch.perf --timeline`: bracket a remote task
+    burst with the (always-on) flight recorder and write the MERGED
+    Chrome trace — the driver's ring, the raylet's and every worker's,
+    clock-skew aligned — to `path` (open in Perfetto or
+    chrome://tracing). Boots its own cluster; the burst's tasks do not
+    dispatch inline, so the trace shows the driver's pushes and the
+    workers' executions, the lease churn, and a forced `gc.collect()`
+    on the same timeline. (The reference also turns its worker-direct
+    rings on here; the port has none yet.)"""
+    import gc
+    import os
+
+    import ray_tpu_torch
+    from ray_tpu_torch.core import flight
+    from ray_tpu_torch.core.worker import current_runtime
+
+    ray_tpu_torch.shutdown()
+    ncpu = min(4, max(2, os.cpu_count() or 1))
+    ray_tpu_torch.init(num_cpus=ncpu)
+    out: Dict[str, Any] = {}
+    try:
+        noop = ray_tpu_torch.remote(_metadata={"inline": False})(_noop)
+        ray_tpu_torch.get([noop.remote() for _ in range(10)], timeout=120)
+        n = max(1, int(400 * scale))
+        t0 = time.perf_counter()
+        ray_tpu_torch.get([noop.remote() for _ in range(n)], timeout=300)
+        out["tasks_per_s"] = round(n / (time.perf_counter() - t0), 1)
+        gc.collect()  # at least one gc event inside the window
+
+        records = [flight.dump(window_s=120.0)]
+        for res in _raylet_calls(current_runtime(), "dump_flight_record",
+                                 window_s=120.0):
+            records.extend(res.get("records", []))
+        flight.write_chrome_trace(records, path)
+        cats: set = set()
+        roles: set = set()
+        total = 0
+        for rec in records:
+            roles.add(rec.get("role"))
+            for ev in rec.get("events", ()):
+                cats.add(ev[2])
+                total += 1
+        out.update({
+            "timeline_path": os.path.abspath(path),
+            "timeline_events": total,
+            "timeline_processes": len(records),
+            "timeline_roles": sorted(r for r in roles if r),
+            "timeline_categories": sorted(cats),
+        })
     finally:
         ray_tpu_torch.shutdown()
     return out
+
+
+def _on_off_bench(module, key: str, scale: float, bursts: int,
+                  on_cluster=None) -> Dict[str, Any]:
+    """Remote tasks/s on a cluster with `module`'s flag on, then on one
+    with it off (workers read the flag from their environment at spawn,
+    so it cannot be flipped on a live cluster), fold-best of `bursts`
+    bursts on each; `on_cluster(out)` runs before the ON cluster goes.
+    The flag and its environment variable are restored afterwards."""
+    import os
+
+    import ray_tpu_torch
+
+    out: Dict[str, Any] = {}
+    prev_env = os.environ.get(module.ENV_FLAG)
+    prev_enabled = module.enabled
+    ncpu = min(4, max(2, os.cpu_count() or 1))
+    n = max(1, int(800 * scale))
+
+    def measure() -> float:
+        noop = ray_tpu_torch.remote(_metadata={"inline": False})(_noop)
+        ray_tpu_torch.get([noop.remote() for _ in range(10)], timeout=120)
+        best = 0.0
+        for _ in range(max(1, bursts)):
+            t0 = time.perf_counter()
+            ray_tpu_torch.get([noop.remote() for _ in range(n)],
+                              timeout=300)
+            best = max(best, n / (time.perf_counter() - t0))
+        return round(best, 1)
+
+    try:
+        ray_tpu_torch.shutdown()
+        module.enable()
+        ray_tpu_torch.init(num_cpus=ncpu)
+        out[f"tasks_per_s_{key}_on"] = measure()
+        if on_cluster is not None:
+            on_cluster(out)
+        ray_tpu_torch.shutdown()
+        module.disable()
+        ray_tpu_torch.init(num_cpus=ncpu)
+        out[f"tasks_per_s_{key}_off"] = measure()
+    finally:
+        ray_tpu_torch.shutdown()
+        if prev_env is None:
+            os.environ.pop(module.ENV_FLAG, None)
+        else:
+            os.environ[module.ENV_FLAG] = prev_env
+        module.enabled = prev_enabled
+    out[f"{key}_ratio"] = round(
+        out[f"tasks_per_s_{key}_on"]
+        / max(out[f"tasks_per_s_{key}_off"], 1e-9), 3)
+    return out
+
+
+def run_flight_overhead_bench(scale: float = 1.0,
+                              bursts: int = 4) -> Dict[str, Any]:
+    """Recorder-on vs recorder-off remote tasks/s: what the always-on
+    flight recorder costs the task plane."""
+    from ray_tpu_torch.core import flight
+
+    return _on_off_bench(flight, "flight", scale, bursts)
+
+
+def run_metrics_overhead_bench(scale: float = 1.0,
+                               bursts: int = 4) -> Dict[str, Any]:
+    """Metrics-pipeline-on vs -off remote tasks/s, and, from the ON
+    cluster's raylets (`metrics_push_stats`), the structural invariant:
+    one heartbeat interval carries at most one metrics push RPC per node
+    (pushes <= intervals)."""
+    from ray_tpu_torch.core import metrics_ts
+    from ray_tpu_torch.core.worker import current_runtime
+
+    def push_stats(out: Dict[str, Any]) -> None:
+        stats = _raylet_calls(current_runtime(), "metrics_push_stats")
+        out["push_pushes"] = sum(s.get("pushes", 0) for s in stats)
+        out["push_intervals"] = sum(s.get("intervals", 0) for s in stats)
+        out["push_nodes"] = len(stats)
+        out["push_recorder_dropped"] = sum(
+            s.get("recorder_dropped", 0) for s in stats)
+
+    return _on_off_bench(metrics_ts, "metrics", scale, bursts, push_stats)
+
+
+def format_attribution(attr: Dict[str, Any]) -> str:
+    """Human table for `python -m ray_tpu_torch.perf --attribute`."""
+    lines = [f"{'stage':28s} {'count':>8s} {'mean_us':>10s} "
+             f"{'total_ms':>10s} {'max_us':>10s}"]
+    for label, s in attr.items():
+        if label == "wire_decode_bench":
+            continue
+        if "mean_us" not in s:
+            # Dimensionless distribution (attribution.value — e.g.
+            # lease.batch_size): mean/max in the sample's own units.
+            lines.append(f"{label:28s} {s['count']:>8d} "
+                         f"{s['mean']:>10.1f} {s['total']:>10.1f} "
+                         f"{s['max']:>10.1f}")
+            continue
+        lines.append(f"{label:28s} {s['count']:>8d} {s['mean_us']:>10.1f} "
+                     f"{s['total_ms']:>10.1f} {s['max_us']:>10.1f}")
+    bench = attr.get("wire_decode_bench")
+    if bench:
+        lines.append(f"{'wire decode (validated)':28s} {'-':>8s} "
+                     f"{bench['validated_us']:>10.2f}")
+        lines.append(f"{'wire decode (fast path)':28s} {'-':>8s} "
+                     f"{bench['fast_us']:>10.2f}")
+    return "\n".join(lines)
 
 def _dag_chain_bench(scale: float) -> Dict[str, Any]:
     """Compiled graphs vs the lazy DAG: the same 3-actor chain through
@@ -624,6 +861,10 @@ def main() -> None:
                         "the first CUDA card)")
     p.add_argument("--local", action="store_true",
                    help="--microbench on the in-process runtime")
+    p.add_argument("--attribute", action="store_true",
+                   help="--microbench with the submit path profiled per "
+                        "stage: the breakdown goes into the output JSON "
+                        "and, as a table, to stderr")
     mode = p.add_mutually_exclusive_group(required=True)
     mode.add_argument("--microbench", action="store_true",
                       help="the runtime microbenchmark (tasks/s, actor "
@@ -638,10 +879,35 @@ def main() -> None:
                            "(KV-aware routing, cross-replica prefix "
                            "shipping warm-vs-cold, seeded replica kill -> "
                            "conversation recovery)")
+    mode.add_argument("--timeline", nargs="?",
+                      const="ray_tpu_timeline.json", default=None,
+                      metavar="FILE",
+                      help="bracket a task burst with the flight recorder "
+                           "and write the merged driver+raylet+worker "
+                           "Chrome-trace JSON to FILE (default "
+                           "ray_tpu_timeline.json); open in Perfetto")
+    mode.add_argument("--flight-overhead", action="store_true",
+                      help="recorder-on vs recorder-off remote tasks/s")
+    mode.add_argument("--metrics-overhead", action="store_true",
+                      help="metrics-pipeline-on vs -off remote tasks/s "
+                           "plus each node's push and interval counters")
     args = p.parse_args()
     if args.microbench:
-        print(json.dumps(run_microbench(local_mode=args.local,
-                                        scale=args.scale)))
+        result = run_microbench(local_mode=args.local, scale=args.scale,
+                                attribute=args.attribute)
+        print(json.dumps(result))
+        if args.attribute:
+            import sys
+
+            print(format_attribution(result["attribution"]),
+                  file=sys.stderr)
+    elif args.timeline is not None:
+        print(json.dumps(run_timeline_capture(path=args.timeline,
+                                              scale=args.scale)))
+    elif args.flight_overhead:
+        print(json.dumps(run_flight_overhead_bench(scale=args.scale)))
+    elif args.metrics_overhead:
+        print(json.dumps(run_metrics_overhead_bench(scale=args.scale)))
     elif args.llm_serve:
         print(json.dumps(run_llm_serve_bench(scale=args.scale,
                                              device=args.device)))

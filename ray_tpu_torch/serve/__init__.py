@@ -15,9 +15,11 @@ it (`serve.fleet`) are subpackages.
 
 `compile_deployment_chain` (`serve/cgraph.py`) compiles a chain of
 deployments into a compiled graph over one pinned replica of each.
-
-Left out until later slices: `start_grpc_ingress` and `GrpcServeClient`
-(the gRPC ingress), `multiplexed` and `get_multiplexed_model_id`.
+`@serve.multiplexed` (`serve/multiplex.py`) keeps several models a
+replica behind an LRU, keyed by the request's `multiplexed_model_id`.
+`start_grpc_ingress` and `GrpcServeClient` (`serve/_private/
+grpc_proxy.py`) are the gRPC ingress and its client; they need the
+grpcio package, which is imported only there.
 """
 
 from __future__ import annotations
@@ -36,20 +38,29 @@ from ray_tpu_torch.serve.exceptions import (DeploymentUnavailableError,
 from ray_tpu_torch.serve.handle import (DeploymentHandle,
                                         DeploymentResponse,
                                         DeploymentResponseGenerator)
+from ray_tpu_torch.serve.multiplex import (get_multiplexed_model_id,
+                                           multiplexed)
 
 __all__ = [
     "deployment", "run", "start", "delete", "shutdown", "status",
     "get_app_handle", "get_deployment_handle", "batch",
     "configure_proxy_admission", "proxy_admission_stats",
+    "multiplexed", "get_multiplexed_model_id", "start_grpc_ingress",
+    "GrpcServeClient", "compile_deployment_chain",
     "Deployment", "Application", "DeploymentHandle",
     "DeploymentResponse", "DeploymentResponseGenerator",
     "AutoscalingConfig", "DeploymentConfig",
     "HTTPOptions", "RayServeException", "ReplicaDrainingError",
-    "DeploymentUnavailableError", "compile_deployment_chain",
+    "DeploymentUnavailableError",
 ]
 
 
 def __getattr__(name):
+    # Lazy: grpc imports only when the ingress is actually used.
+    if name == "GrpcServeClient":
+        from ray_tpu_torch.serve._private.grpc_proxy import GrpcServeClient
+
+        return GrpcServeClient
     if name == "compile_deployment_chain":
         from ray_tpu_torch.serve.cgraph import compile_deployment_chain
 
@@ -58,6 +69,8 @@ def __getattr__(name):
 
 _PROXY_NAME = "SERVE_PROXY"
 _http_port: Optional[int] = None
+_GRPC_PROXY_NAME = "SERVE_GRPC_PROXY"
+_grpc_port: Optional[int] = None
 
 
 class Deployment:
@@ -225,6 +238,50 @@ def start(http_options: Optional[HTTPOptions] = None) -> int:
     return _http_port
 
 
+def start_grpc_ingress(port: int = 0, host: str = "127.0.0.1",
+                       allow_pickle: bool = True) -> int:
+    """Start (or find) the gRPC ingress (reference: serve.start's
+    grpc_options / gRPCProxy): a detached actor serving
+    /ray_tpu.serve.ServeAPIService/Call. Returns the bound port; reach it
+    with `serve.GrpcServeClient(f"127.0.0.1:{port}")`.
+
+    The ingress unpickles request payloads by default, so it is
+    TRUSTED-NETWORK-ONLY (see grpc_proxy.py's module docstring);
+    `allow_pickle=False` restricts it to msgpack-native payloads for
+    exposure to non-Python clients. Asking for allow_pickle=False while
+    a pickle-enabled ingress is already running raises (the guarantee
+    cannot be retrofitted); the reverse — a default caller finding a
+    msgpack-only ingress — attaches to it, and pickle payloads are then
+    rejected per request. Without grpcio this raises ImportError."""
+    global _grpc_port
+    from ray_tpu_torch.core.remote_function import remote
+    from ray_tpu_torch.core.worker import get, get_actor
+    from ray_tpu_torch.serve._private.grpc_proxy import (GrpcIngress,
+                                                         _import_grpc)
+
+    _import_grpc()
+    start()
+    try:
+        proxy = get_actor(_GRPC_PROXY_NAME)
+    except Exception:
+        actor_cls = remote(num_cpus=0, name=_GRPC_PROXY_NAME,
+                           max_concurrency=64)(GrpcIngress)
+        proxy = actor_cls.remote(host, port, allow_pickle)
+        _grpc_port = get(proxy.start.remote(), timeout=60)
+        return _grpc_port
+    # Existing ingress: the no-pickle guarantee cannot be retrofitted —
+    # silently returning a pickle-enabled port would void what the
+    # caller explicitly asked for.
+    if not allow_pickle and get(proxy.allows_pickle.remote(), timeout=30):
+        raise RayServeException(
+            "gRPC ingress is already running WITH pickle payloads "
+            "enabled; serve.shutdown() it before starting an "
+            "allow_pickle=False ingress")
+    if _grpc_port is None:
+        _grpc_port = get(proxy.start.remote(), timeout=60)
+    return _grpc_port
+
+
 def configure_proxy_admission(max_inflight: Optional[int] = None,
                               rate: Optional[float] = None,
                               burst: int = 16) -> bool:
@@ -362,13 +419,14 @@ def delete(deployment_name: str) -> None:
 
 def shutdown() -> None:
     """Delete every deployment (each replica drained, then killed), then
-    stop and kill the proxy and the controller. Without a runtime there
-    is nothing to shut down."""
-    global _http_port
+    stop and kill the proxies and the controller. Without a runtime
+    there is nothing to shut down."""
+    global _http_port, _grpc_port
     from ray_tpu_torch.core.worker import current_runtime, kill
     from ray_tpu_torch.serve._private.controller import CONTROLLER_NAME
 
     _http_port = None
+    _grpc_port = None
     rt = current_runtime(or_none=True)
     if rt is None:
         return
@@ -378,12 +436,13 @@ def shutdown() -> None:
         kill(controller)
     except Exception:
         pass
-    try:
-        proxy = rt.get_actor(_PROXY_NAME)
-        rt.get(proxy.stop.remote(), timeout=10)
-        kill(proxy)
-    except Exception:
-        pass
+    for name in (_PROXY_NAME, _GRPC_PROXY_NAME):
+        try:
+            proxy = rt.get_actor(name)
+            rt.get(proxy.stop.remote(), timeout=15)
+            kill(proxy)
+        except Exception:
+            pass
 
 
 # ---------------------------------------------------------------------------

@@ -29,6 +29,7 @@ the proxy outlives Serve.
 from __future__ import annotations
 
 import asyncio
+import contextvars
 import json
 import time
 from typing import Any, Dict, Optional
@@ -420,9 +421,13 @@ class HTTPProxy:
                 loop = asyncio.get_running_loop()
                 payload, method_name = self._request_payload(request)
                 # Routing blocks (table refresh RPCs): keep the proxy
-                # loop free, same as the non-streaming path.
+                # loop free, same as the non-streaming path. The router's
+                # span must nest under this one: run_in_executor (unlike
+                # to_thread) does not carry the context over, so it goes
+                # explicitly (the reference's proxy loses it here, and
+                # its streamed requests' traces split in two).
                 gen = await loop.run_in_executor(
-                    self._stream_pool,
+                    self._stream_pool, contextvars.copy_context().run,
                     lambda: handle.options(
                         stream=True,
                         method_name=method_name or "__call__",

@@ -3,8 +3,11 @@
 Reference equivalent: `python/ray/serve/_private/replica.py` — tracks
 ongoing requests (the router's and autoscaler's signal), runs sync user
 code off the event loop, and drains gracefully before shutdown so rolling
-updates drop nothing. Ported from `ray_tpu/serve/_private/replica.py`
-without the model-multiplex hooks, which come with the gRPC ingress.
+updates drop nothing. Ported from `ray_tpu/serve/_private/replica.py`,
+with its model-multiplex hooks: each request runs with its
+`multiplexed_model_id` set (`serve.get_multiplexed_model_id()`) inside a
+loan scope of `serve/multiplex.py`, which a model evicted under it waits
+for before it is dropped.
 """
 
 from __future__ import annotations
@@ -66,8 +69,8 @@ class Replica:
                        metadata: Optional[Dict],
                        streaming: bool = False):
         """Shared per-request bookkeeping for BOTH data-plane entry
-        points: drain gate, ongoing/total counters, replica metrics, and
-        the `serve.replica` span (explicit parent: async methods run on
+        points: drain gate, ongoing/total counters, the multiplex model
+        id and loan scope, replica metrics, and the `serve.replica` span (explicit parent: async methods run on
         the actor's loop, outside the router's span context, so the
         proxy/router trace rides the request metadata)."""
         if self._draining:
@@ -76,10 +79,17 @@ class Replica:
             raise ReplicaDrainingError(
                 f"replica {self.replica_id} is draining")
         from ray_tpu_torch.serve._private.metrics import replica_metrics
+        from ray_tpu_torch.serve.multiplex import (_begin_request_loans,
+                                                   _end_request_loans,
+                                                   _request_model_id)
         from ray_tpu_torch.util.tracing import span
 
         self._ongoing += 1
         self._total += 1
+        token = None
+        if metadata and metadata.get("multiplexed_model_id"):
+            token = _request_model_id.set(metadata["multiplexed_model_id"])
+        loan_scope = _begin_request_loans()
         try:
             metrics = replica_metrics()
             metrics["ongoing"].set(self._ongoing,
@@ -104,6 +114,7 @@ class Replica:
             raise
         finally:
             self._ongoing -= 1
+            _end_request_loans(loan_scope)
             if metrics is not None:
                 try:
                     metrics["processed"].inc(
@@ -115,6 +126,11 @@ class Replica:
                                            tags=self._metric_tags())
                 except Exception:
                     pass
+            if token is not None:
+                try:
+                    _request_model_id.reset(token)
+                except ValueError:
+                    pass   # a generator resumed in another context
 
     def _resolve_method(self, method_name: str):
         return (self._resolve_call() if method_name == "__call__"

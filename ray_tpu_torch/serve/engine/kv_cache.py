@@ -56,6 +56,7 @@ from __future__ import annotations
 
 import math
 import threading
+import weakref
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -84,6 +85,20 @@ def host_array(values) -> np.ndarray:
             values = values.float()
         return values.numpy()
     return np.asarray(values)
+
+
+def _weakly(fn: Optional[Callable]) -> Optional[Callable]:
+    """`fn`, through a weak reference when it is a bound method; called
+    after its object is gone, it returns 0."""
+    if fn is None or not hasattr(fn, "__self__"):
+        return fn
+    ref = weakref.WeakMethod(fn)
+
+    def call(*args):
+        method = ref()
+        return 0 if method is None else method(*args)
+
+    return call
 
 
 class KVCacheManager:
@@ -138,9 +153,15 @@ class KVCacheManager:
         """Install the block-pressure callbacks. `reclaim(n)` must free
         up to n blocks (via `release`) and return how many it freed; it
         is called WITHOUT the cache lock held. `evictable()` returns how
-        many blocks a full reclaim could free right now."""
-        self._reclaimer = reclaim
-        self._evictable = evictable
+        many blocks a full reclaim could free right now.
+
+        Bound methods are held weakly (a dead one frees nothing): their
+        object, the prefix index, holds this cache, and a strong
+        reference back would make the two a cycle, whose pool — on the
+        card, the engine's KV memory — only the cycle collector would
+        free after the engine is dropped."""
+        self._reclaimer = _weakly(reclaim)
+        self._evictable = _weakly(evictable)
 
     # -- accounting ----------------------------------------------------
     @property

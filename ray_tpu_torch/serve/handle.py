@@ -232,9 +232,9 @@ class DeploymentHandle:
                 session_id: Optional[str] = None) -> "DeploymentHandle":
         """Per-request options (reference: handle.options): method_name
         routes to a named method; multiplexed_model_id tags the request
-        for model-multiplexed replicas and makes the router prefer the
-        replica that served that model last (the multiplex hooks on the
-        replica come with the gRPC ingress slice);
+        for model-multiplexed replicas (`serve.get_multiplexed_model_id()`
+        there) and makes the router prefer the replica that served that
+        model last;
         stream=True makes `.remote()` return a
         DeploymentResponseGenerator that yields items as the replica's
         generator produces them (token streaming); session_id pins a

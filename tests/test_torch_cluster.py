@@ -466,13 +466,17 @@ def test_what_waits_names_its_slice(port_cluster):
 
 
 def test_port_imports_no_third_party_codec():
-    """msgpack, cloudpickle and psutil are absent on the card machine."""
+    """msgpack, cloudpickle and psutil are absent on the card machine, and
+    grpcio may be: the gRPC ingress imports grpc only when it starts."""
     code = ("import sys; import ray_tpu_torch.core.cluster_runtime, "
             "ray_tpu_torch.core.raylet, ray_tpu_torch.core.gcs.server, "
             "ray_tpu_torch.core.pg_scheduler, ray_tpu_torch.util, "
             "ray_tpu_torch.air, ray_tpu_torch.train, ray_tpu_torch.tune, "
-            "ray_tpu_torch.serve; print(json.dumps(sorted(m for m in "
-            "('msgpack', 'cloudpickle', 'psutil', 'jax', 'ray_tpu') "
+            "ray_tpu_torch.serve, ray_tpu_torch.serve.multiplex, "
+            "ray_tpu_torch.serve._private.grpc_proxy, "
+            "ray_tpu_torch.util.tracing, ray_tpu_torch.perf; "
+            "print(json.dumps(sorted(m for m in "
+            "('msgpack', 'cloudpickle', 'psutil', 'jax', 'ray_tpu', 'grpc') "
             "if m in sys.modules)))")
     out = subprocess.run([sys.executable, "-c", "import json; " + code],
                          capture_output=True, text=True, timeout=60,

@@ -693,3 +693,83 @@ def test_array_edge_between_gpu_leased_workers_lands_a_cuda_tensor(card):
     for seed, (seen, out) in zip((1, 2), lazy):
         assert seen == ("Tensor", "cuda", "torch.float32")
         assert out.is_cuda and torch.equal(out, _CardStage().make(seed))
+
+
+class _CardEngine:
+    """A model id's engine on the card; dropping it stops the engine's
+    scheduler thread (which holds the engine), so its tensors go."""
+
+    def __init__(self, seed: int, cfg):
+        from ray_tpu_torch.serve.engine import EngineConfig, InferenceEngine
+
+        params = init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(seed))
+        self.param_bytes = sum(t.numel() * t.element_size()
+                               for t in _tensor_leaves(params))
+        self.engine = InferenceEngine(
+            TransformerEngineModel(params, cfg),
+            EngineConfig(max_batch_size=4, block_size=16, num_blocks=64))
+        self.engine.start()
+
+    def __del__(self):
+        self.engine.stop()
+
+
+def _tensor_leaves(tree):
+    if torch.is_tensor(tree):
+        return [tree]
+    items = tree.values() if isinstance(tree, dict) else tree
+    return [t for v in items for t in _tensor_leaves(v)]
+
+
+def test_multiplex_eviction_frees_card_memory(card):
+    """Multiplexed engines on the card behind an LRU of one: loading a
+    second id evicts the first, whose bytes go at once when no request
+    holds it; an evicted engine a request holds keeps its bytes until
+    the request's loan ends, and its stream finishes."""
+    import asyncio
+
+    from ray_tpu_torch.serve import multiplex
+
+    cfg = TransformerConfig(vocab_size=4096, d_model=512, n_layers=2,
+                            n_heads=4, d_ff=2048, max_seq_len=256,
+                            dtype=torch.float32)
+    wrapper = multiplex._ModelMultiplexWrapper(
+        lambda owner, mid: _CardEngine(int(mid[1:]), cfg), None, 1)
+
+    def allocated():
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    async def main():
+        out = {"base": allocated()}
+        eng = await wrapper.load("m1")
+        out["param_bytes"] = eng.param_bytes
+        assert len(list(eng.engine.submit([5, 6, 7], 4))) == 4
+        del eng
+        out["one"] = allocated()
+        await wrapper.load("m2")               # evicts m1: nothing holds it
+        out["swapped"] = allocated()
+        assert wrapper.model_ids == ["m2"] and not wrapper._pending_evict
+        scope = multiplex._begin_request_loans()
+        held = await wrapper.load("m2")
+        stream = held.engine.submit([1, 2, 3], 4)
+        del held
+        await wrapper.load("m3")               # evicts m2, which is loaned
+        out["parked"] = allocated()
+        assert set(wrapper._pending_evict) == {"m2"}
+        out["tokens"] = list(stream)
+        multiplex._end_request_loans(scope)
+        out["released"] = allocated()
+        return out
+
+    out = asyncio.run(main())
+    one_engine = out["one"] - out["base"]
+    assert one_engine >= out["param_bytes"]
+    # m2 came in and m1 went: m1's bytes were freed at the eviction.
+    assert out["one"] + one_engine - out["swapped"] >= out["param_bytes"]
+    # While parked, m2 and m3 both hold their bytes; m2's go at the
+    # loan's end, after its stream finished.
+    assert out["parked"] - out["swapped"] >= out["param_bytes"]
+    assert out["parked"] - out["released"] >= out["param_bytes"]
+    assert len(out["tokens"]) == 4

@@ -130,3 +130,100 @@ def test_cli_prints_one_json_object(monkeypatch):
     monkeypatch.setattr(sys, "argv", ["perf"])      # no bench named
     with pytest.raises(SystemExit):
         perf.main()
+
+
+# ---------------------------------------------------------------------------
+# The observability benches: wire decode, attribution, timeline, overheads
+# ---------------------------------------------------------------------------
+OVERHEAD = dict(scale=0.02, bursts=1)
+REF_OBSERVABILITY = """
+import json, sys
+import ray_tpu.perf as p
+out = dict(wire=p.wire_decode_bench(200),
+           flight=p.run_flight_overhead_bench(**OVERHEAD),
+           metrics=p.run_metrics_overhead_bench(**OVERHEAD),
+           timeline=p.run_timeline_capture(sys.argv[1], scale=0.05))
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def ref_observability(tmp_path_factory):
+    """The reference's benches, in a child interpreter (its clusters, like
+    the port's, are the child's own) while the port's run here."""
+    path = str(tmp_path_factory.mktemp("ref_timeline") / "trace.json")
+    proc = subprocess.Popen(
+        [sys.executable, "-c",
+         f"OVERHEAD = {OVERHEAD!r}\n" + REF_OBSERVABILITY, path],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, JAX_PLATFORMS="cpu"))
+    yield proc
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def ref_result(proc):
+    out, err = proc.communicate(timeout=240)
+    assert proc.returncode == 0, err[-3000:]
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def test_observability_benches_equal_reference(ref_observability, tmp_path):
+    flags = ("RAY_TPU_FLIGHT_RECORDER", "RAY_TPU_METRICS_PIPELINE")
+    before = {flag: os.environ.get(flag) for flag in flags}
+    timeline = perf.run_timeline_capture(str(tmp_path / "trace.json"),
+                                         scale=0.05)
+    flight = perf.run_flight_overhead_bench(**OVERHEAD)
+    metrics = perf.run_metrics_overhead_bench(**OVERHEAD)
+    ref = ref_result(ref_observability)
+    wire = perf.wire_decode_bench(200)
+    assert list(wire) == list(ref["wire"]) == ["validated_us", "fast_us"]
+    assert all(v > 0 for v in wire.values())
+    assert list(flight) == list(ref["flight"])
+    assert list(metrics) == list(ref["metrics"])
+    assert flight["tasks_per_s_flight_on"] > 0 < flight["flight_ratio"]
+    # One node; at most one metrics push per heartbeat interval.
+    assert metrics["push_nodes"] == ref["metrics"]["push_nodes"] == 1
+    assert metrics["push_pushes"] <= metrics["push_intervals"]
+    assert list(timeline) == list(ref["timeline"])
+    assert timeline["timeline_roles"] == ref["timeline"]["timeline_roles"] \
+        == ["driver", "raylet", "worker"]
+    assert {"task", "lease"} <= set(timeline["timeline_categories"])
+    with open(timeline["timeline_path"]) as f:
+        trace = json.load(f)
+    assert len(trace["traceEvents"]) >= timeline["timeline_events"] > 0
+    # The benches leave the flags as they found them.
+    assert {flag: os.environ.get(flag) for flag in flags} == before
+
+
+ATTRIBUTION = {
+    "submit.encode": {"count": 183, "mean_us": 64.04, "total_ms": 11.72,
+                      "max_us": 6213.4},
+    "lease.batch_size": {"count": 5, "mean": 1.0, "total": 5.0, "max": 1.0},
+    "worker.exec": {"count": 1234567, "mean_us": 0.04, "total_ms": 49.4,
+                    "max_us": 1e6},
+    "wire_decode_bench": {"validated_us": 11.25, "fast_us": 3.46},
+}
+
+
+@pytest.mark.parametrize("drop_bench", [False, True])
+def test_format_attribution_equals_reference(drop_bench):
+    attr = dict(ATTRIBUTION)
+    if drop_bench:
+        attr.pop("wire_decode_bench")
+    assert perf.format_attribution(attr) == jax_perf.format_attribution(attr)
+
+
+def test_microbench_attribute_folds_driver_and_workers():
+    out = perf.run_microbench(scale=0.05, attribute=True)
+    attr = out["attribution"]
+    assert list(attr["wire_decode_bench"]) == ["validated_us", "fast_us"]
+    for label in ("submit.remote", "submit.encode", "submit.push_rtt",
+                  "worker.exec", "worker.decode"):
+        assert attr[label]["count"] > 0, label
+    table = perf.format_attribution(attr)
+    assert table.splitlines()[0].split() == ["stage", "count", "mean_us",
+                                             "total_ms", "max_us"]
+    assert "wire decode (fast path)" in table
+    assert "RAY_TPU_ATTRIBUTION" not in os.environ

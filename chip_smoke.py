@@ -216,6 +216,25 @@ result line:
    bitwise), and a durable three-step workflow on the host whose middle
    step fails once: FAILED, then `workflow.resume` loads the first step's
    checkpoint and reads SUCCEEDED. No port process is left after shutdown;
+9c1. rllib: RLlib with its learners on the card and its env runners as
+   CPU actors of `init(num_cpus=4)`. (a) IMPALA at `IMPALAConfig`'s
+   defaults (2 runners of 4 envs, fragments of 32, 2 fragments an update:
+   256 frames and 8 bootstrap frames) on `SyntheticAtariEnv` with
+   `model="auto"`: the Nature-CNN module at full width (84x84x4 ->
+   512, 1,686,180 parameters) learning on cuda:0; a warm-up iteration and
+   a measured one (20 updates each): env steps/s, updates/s, the
+   learner's ms an update (CUDA events); then one `APPOConfig` iteration.
+   (b) PPO at `rllib/bench.py main()`'s configuration (2 runners x 8 envs
+   x 64 steps, 4 epochs, minibatch 256) on `CartPoleFixture` (CartPole's
+   dynamics in numpy: the card's machine has no gymnasium): one
+   iteration and its keys. (c) `LearnerGroup(num_learners=1)`: a learner
+   process leasing the card (NCCL, world 1) takes PPO's first batch,
+   against the local learner on the card from the same seed. Gated: the
+   first IMPALA and PPO updates on the card against the same updates on
+   the CPU from the same weights and batch, and the remote learner's
+   against the local one's, each within `RLLIB_UPDATE_REL_L2` (relative
+   L2 of the update) and `RLLIB_STATS_RTOL`; finite losses; the remote
+   learner's device, backend and lease; no port process left;
 9d. d256: heads of 256. The flagship's widths with 6 heads of 256 in place
    of 12 of 128 (the same 503,354,880 parameters, from the same seed)
    through the engine phase (float32, its 8 prompts and 32 new tokens, its
@@ -4615,6 +4634,395 @@ def cgraph_live_loops(instance):
     return _live_loop_count()
 
 
+# ---------------------------------------------------------------------------
+# RLlib: PPO and IMPALA/APPO with their learners on the card
+# ---------------------------------------------------------------------------
+# The RLlib phase's cluster: two env-runner actors (one CPU each), the
+# remote learner's one, and a spare.
+RLLIB_CPUS = 4
+RLLIB_TIMEOUT_S = 300.0
+# A learner update on the card against the same update on the CPU, from
+# the same weights and batch (float32 both, TF32 off). The forward's
+# statistics differ by summation order only. The weights move by Adam
+# steps, lr * m / (sqrt(v) + eps): at the first step about +-lr for every
+# element, so an element whose gradient lies within the two devices'
+# rounding of zero may step the other way. Such elements are a share of
+# the order of the gradients' relative error (some 1e-6), so the update's
+# relative L2 distance (after - before on each side) stays far below
+# this bound, where a wrong gradient moves it to O(1). PPO's statistics
+# are its last minibatch's, after 15 such steps on each side.
+RLLIB_STATS_RTOL = 1e-3
+RLLIB_UPDATE_REL_L2 = 1e-2
+
+
+class CartPoleFixture:
+    """CartPole's dynamics and shapes in numpy (4 floats observed, 2
+    actions; the classic Barto, Sutton and Anderson cart-pole, as
+    gymnasium's CartPole-v1 steps it, with its 500-step time limit): a
+    fixture of this script, since the card's machine has no gymnasium."""
+
+    class _Box:
+        shape = (4,)
+        dtype = "float32"
+
+    class _Discrete:
+        n = 2
+
+    observation_space = _Box()
+    action_space = _Discrete()
+    MAX_STEPS = 500
+
+    def __init__(self):
+        import numpy as np
+
+        self._rng = np.random.default_rng()
+        self._state = None
+        self._steps = 0
+
+    def reset(self, *, seed=None, options=None):
+        import numpy as np
+
+        if seed is not None:
+            self._rng = np.random.default_rng(seed)
+        self._state = self._rng.uniform(-0.05, 0.05, 4)
+        self._steps = 0
+        return self._state.astype(np.float32), {}
+
+    def step(self, action: int):
+        import math
+
+        import numpy as np
+
+        x, x_dot, theta, theta_dot = self._state
+        force = 10.0 if action == 1 else -10.0
+        cos, sin = math.cos(theta), math.sin(theta)
+        total_mass, pole_mass_length, length = 1.1, 0.05, 0.5
+        temp = (force + pole_mass_length * theta_dot ** 2 * sin) / total_mass
+        theta_acc = (9.8 * sin - cos * temp) / (
+            length * (4.0 / 3.0 - 0.1 * cos ** 2 / total_mass))
+        x_acc = temp - pole_mass_length * theta_acc * cos / total_mass
+        tau = 0.02
+        x, x_dot = x + tau * x_dot, x_dot + tau * x_acc
+        theta, theta_dot = theta + tau * theta_dot, theta_dot + tau * theta_acc
+        self._state = np.array([x, x_dot, theta, theta_dot])
+        self._steps += 1
+        terminated = bool(abs(x) > 2.4 or abs(theta) > 12 * 2 * math.pi / 360)
+        truncated = self._steps >= self.MAX_STEPS and not terminated
+        return (self._state.astype(np.float32), 1.0, terminated, truncated,
+                {})
+
+    def close(self) -> None:
+        pass
+
+
+def remote_learner_lease() -> dict:
+    """Run in the remote learner's worker: where its learner lives."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.rllib.core import learner_group
+
+    device = learner_group._LEARNER.device
+    return dict(device=str(device), pid=os.getpid(),
+                visible=os.environ.get("CUDA_VISIBLE_DEVICES"),
+                backend=dist.get_backend(), world=dist.get_world_size(),
+                name=(torch.cuda.get_device_name(device)
+                      if device.type == "cuda" else None),
+                params_on=sorted({str(p.device) for p in
+                                  learner_group._LEARNER.module.parameters()}))
+
+
+def update_distance(before: dict, after: dict, ref_after: dict) -> float:
+    """The largest relative L2 distance, over the parameters, between two
+    updates of the same weights: (after - before) against
+    (ref_after - before)."""
+    import numpy as np
+
+    worst = 0.0
+    for k in before:
+        want = ref_after[k].astype(np.float64) - before[k]
+        got = after[k].astype(np.float64) - before[k]
+        worst = max(worst, float(np.linalg.norm(got - want)
+                                 / max(np.linalg.norm(want), 1e-30)))
+    return worst
+
+
+def hold_update(label: str, card: str, before, batch, after, stats,
+                cpu_learner) -> None:
+    """The card's update against `cpu_learner`'s of the same weights and
+    batch; prints and gates both."""
+    import numpy as np
+
+    cpu_learner.set_weights(before)
+    t0 = time.perf_counter()
+    cpu_stats = cpu_learner.update(batch)
+    cpu_s = time.perf_counter() - t0
+    ref = cpu_learner.get_weights()
+    dist = update_distance(before, after, ref)
+    stat_err = max(abs(stats[k] - cpu_stats[k]) / max(abs(cpu_stats[k]),
+                                                      1e-6)
+                   for k in cpu_stats)
+    diff = max(float(np.abs(after[k] - ref[k]).max()) for k in ref)
+    print(f"rllib {label} card vs cpu: update rel L2 {dist:.3e} (bound "
+          f"{RLLIB_UPDATE_REL_L2}), stats rel err {stat_err:.3e} (bound "
+          f"{RLLIB_STATS_RTOL}), weights max abs diff {diff:.3e}, cpu update "
+          f"{cpu_s * 1e3:.1f} ms [{card}]", flush=True)
+    check(all(np.isfinite(v) for v in stats.values()),
+          f"rllib {label}: a non-finite statistic on the card: {stats}")
+    check(dist <= RLLIB_UPDATE_REL_L2,
+          f"rllib {label}: the card's update is {dist:.3e} (rel L2) from "
+          f"the CPU's")
+    check(stat_err <= RLLIB_STATS_RTOL,
+          f"rllib {label}: the card's statistics {stats} differ from the "
+          f"CPU's {cpu_stats}")
+
+
+class UpdateRecorder:
+    """Wraps a learner's `update`: times each call with CUDA events and
+    keeps the first call's weights before, batch, weights after and
+    statistics."""
+
+    def __init__(self, learner):
+        self.learner = learner
+        self.update = learner.update
+        self.ms = []
+        self.first = None
+        learner.update = self
+
+    def __call__(self, batch):
+        import torch
+
+        first = None
+        if self.first is None:
+            first = dict(before=self.learner.get_weights(),
+                         batch={k: v.copy() for k, v in batch.items()})
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        stats = self.update(batch)
+        end.record()
+        end.synchronize()
+        self.ms.append(start.elapsed_time(end))
+        if first is not None:
+            first.update(after=self.learner.get_weights(), stats=stats)
+            self.first = first
+        return stats
+
+
+def build_together(*builds):
+    """Runs each zero-argument `build` in a thread of its own and returns
+    their results in order: algorithms whose actors start together wait
+    on their processes' imports once."""
+    import concurrent.futures
+
+    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
+        futures = [pool.submit(b) for b in builds]
+        return [f.result(timeout=RLLIB_TIMEOUT_S) for f in futures]
+
+
+def phase_rllib(card: str) -> dict:
+    """RLlib on the card: IMPALA and APPO on 84x84x4 frames with the
+    Nature-CNN learner on cuda:0, PPO at `rllib/bench.py`'s configuration,
+    and a GPU-leased remote learner; the env runners are CPU actors of
+    `init(num_cpus=4)`. Each card update is held against its CPU twin.
+    IMPALA and APPO (two runners each) are built together, then PPO and
+    the remote learner (two runners and one learner process)."""
+    import functools
+    import statistics
+
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch.rllib import (APPOConfig, IMPALAConfig, LearnerGroup,
+                                     PPOConfig)
+    from ray_tpu_torch.rllib.core.impala_learner import ImpalaLearner
+    from ray_tpu_torch.rllib.core.learner import PPOLearner
+    from ray_tpu_torch.rllib.core.rl_module import (DiscreteMLPModule,
+                                                    make_discrete_module)
+    from ray_tpu_torch.rllib.env.synthetic_atari import SyntheticAtariEnv
+
+    phase_t0 = time.perf_counter()
+    os.environ[RUN_MARKER] = f"{os.getpid()}-{time.time_ns()}"
+    ray_tpu_torch.init(num_cpus=RLLIB_CPUS)
+    out = {}
+    try:
+        res = ray_tpu_torch.cluster_resources()
+        check(res.get("GPU") == 1.0, f"the node did not detect one GPU: {res}")
+        # 1. IMPALA on images, the Nature-CNN learner on the card, and
+        # APPO's pipeline beside it.
+        config = IMPALAConfig(env_creator=SyntheticAtariEnv)
+        appo_config = APPOConfig(env_creator=SyntheticAtariEnv)
+        t0 = time.perf_counter()
+        algo, appo = build_together(config.build, appo_config.build)
+        build_s = time.perf_counter() - t0
+        try:
+            learner = algo.learner
+            n_params = sum(p.numel() for p in learner.module.parameters())
+            check(learner.device == torch.device("cuda", 0)
+                  and type(learner.module).__name__ == "DiscreteConvModule"
+                  and n_params == 1_686_180,
+                  f"the IMPALA learner is {type(learner.module).__name__} "
+                  f"({n_params} params) on {learner.device}")
+            rec = UpdateRecorder(learner)
+            t0 = time.perf_counter()
+            warm = algo.train()
+            warm_s = time.perf_counter() - t0
+            rec.ms.clear()
+            t0 = time.perf_counter()
+            m = algo.train()
+            wall = time.perf_counter() - t0
+            algo.stop()   # its runners would sample on beside APPO's
+            # APPO: one iteration of the same pipeline, clipped surrogate.
+            check(appo.learner.config["use_clip_loss"]
+                  and appo.learner.device.type == "cuda",
+                  "the APPO learner is not the clipped surrogate on the card")
+            appo_rec = UpdateRecorder(appo.learner)
+            t0 = time.perf_counter()
+            appo_m = appo.train()
+            appo_s = time.perf_counter() - t0
+        finally:
+            algo.stop()
+            appo.stop()
+        frames = rec.first["batch"]["obs"].shape
+        check(frames == (config.rollout_fragment_length,
+                         config.train_batch_fragments
+                         * config.num_envs_per_runner, 84, 84, 4),
+              f"IMPALA's batch frames are {frames}")
+        learner_ms = statistics.median(rec.ms)
+        out["impala"] = dict(
+            env_steps_per_s=m["env_steps_per_sec"],
+            updates_per_s=config.updates_per_iteration / wall,
+            learner_ms=learner_ms, total_loss=m["learner/total_loss"])
+        print(f"rllib impala: Nature-CNN learner ({n_params} params) on "
+              f"{learner.device}, batch {list(frames)} + "
+              f"{rec.first['batch']['final_obs'].shape[0]} bootstrap frames; "
+              f"IMPALA and APPO built together in {build_s:.1f} s, warm-up "
+              f"iteration {warm_s:.1f} s; measured iteration: "
+              f"{m['env_steps_per_sec']:.1f} env steps/s, "
+              f"{config.updates_per_iteration / wall:.2f} updates/s, learner "
+              f"{learner_ms:.2f} ms an update (median of "
+              f"{len(rec.ms)}, CUDA events; min {min(rec.ms):.2f}, max "
+              f"{max(rec.ms):.2f}), loss {m['learner/total_loss']:.4f}, "
+              f"return {m['episode_return_mean']:.3f} [{card}]", flush=True)
+        check(np.isfinite(warm["learner/total_loss"])
+              and np.isfinite(m["learner/total_loss"]),
+              f"IMPALA's loss is not finite: {m}")
+        first = rec.first
+        hold_update("impala", card, first["before"], first["batch"],
+                    first["after"], first["stats"],
+                    ImpalaLearner(make_discrete_module((84, 84, 4), 3),
+                                  dict(config.learner_config(),
+                                       device="cpu")))
+        out["appo"] = dict(env_steps_per_s=appo_m["env_steps_per_sec"],
+                           learner_ms=statistics.median(appo_rec.ms))
+        print(f"rllib appo: one iteration "
+              f"({appo_config.updates_per_iteration} updates) in "
+              f"{appo_s:.1f} s, {appo_m['env_steps_per_sec']:.1f} env "
+              f"steps/s, learner {statistics.median(appo_rec.ms):.2f} ms an "
+              f"update (median), loss {appo_m['learner/total_loss']:.4f}, "
+              f"mean rho {appo_m['learner/mean_rho']:.4f} [{card}]",
+              flush=True)
+        check(np.isfinite(appo_m["learner/total_loss"]),
+              f"APPO's loss is not finite: {appo_m}")
+        first = appo_rec.first
+        hold_update("appo", card, first["before"], first["batch"],
+                    first["after"], first["stats"],
+                    ImpalaLearner(make_discrete_module((84, 84, 4), 3),
+                                  dict(appo_config.learner_config(),
+                                       device="cpu")))
+
+        # 2. PPO end to end at rllib/bench.py main()'s configuration, and
+        # 3. the remote learner: one learner process leasing the card
+        # (NCCL, world 1), started beside PPO's runners.
+        config = PPOConfig(env_creator=CartPoleFixture, num_env_runners=2,
+                           num_envs_per_runner=8, rollout_fragment_length=64,
+                           num_epochs=4, minibatch_size=256)
+        factory = functools.partial(DiscreteMLPModule, obs_dim=4,
+                                    num_actions=2,
+                                    hiddens=tuple(config.hiddens))
+        t0 = time.perf_counter()
+        algo, group = build_together(
+            config.build, lambda: LearnerGroup(
+                factory, config.learner_config(), num_learners=1))
+        start_s = time.perf_counter() - t0
+        try:
+            local = algo.learner_group._local
+            check(local.device == torch.device("cuda", 0),
+                  f"the PPO learner is on {local.device}")
+            rec = UpdateRecorder(local)
+            t0 = time.perf_counter()
+            m = algo.train()
+            ppo_s = time.perf_counter() - t0
+            algo.stop()
+            first = rec.first
+            lease = ray_tpu_torch.get(group._workers[0].execute.remote(
+                remote_learner_lease), timeout=RLLIB_TIMEOUT_S)
+            before = group.get_weights()
+            t0 = time.perf_counter()
+            stats = group.update(first["batch"])
+            remote_ms = (time.perf_counter() - t0) * 1e3
+            after = group.get_weights()
+        finally:
+            algo.stop()
+            group.shutdown()
+        out["ppo"] = dict(env_steps_per_s=m["env_steps_per_sec"],
+                          learner_ms=rec.ms[0])
+        print(f"rllib ppo: PPO and the remote learner built together in "
+              f"{start_s:.1f} s; one iteration in {ppo_s:.1f} s: "
+              f"{m['num_env_steps_sampled_lifetime']} env steps, "
+              f"{m['env_steps_per_sec']:.1f} env steps/s, sample "
+              f"{m['time_sample_s']:.3f} s, learn {m['time_learn_s']:.3f} s "
+              f"(learner update {rec.ms[0]:.1f} ms, CUDA events, "
+              f"{config.num_epochs} epochs of minibatch "
+              f"{config.minibatch_size}) [{card}]", flush=True)
+        print(f"rllib ppo keys: {sorted(m)}", flush=True)
+        check(m["num_env_steps_sampled_lifetime"] == 2 * 8 * 64
+              and np.isfinite(m["learner/total_loss"]),
+              f"PPO's iteration is off: {m}")
+        hold_update("ppo", card, first["before"], first["batch"],
+                    first["after"], first["stats"],
+                    PPOLearner(factory(), dict(config.learner_config(),
+                                               device="cpu")))
+
+        print(f"rllib remote learner: {lease}; its first update "
+              f"{remote_ms:.1f} ms round trip (the batch shipped, the "
+              f"worker's first CUDA work) [{card}]", flush=True)
+        check(lease["device"] == "cuda:0" and lease["backend"] == "nccl"
+              and lease["world"] == 1 and lease["visible"]
+              and lease["params_on"] == ["cuda:0"],
+              f"the remote learner is not on a leased card: {lease}")
+        local = PPOLearner(factory(), config.learner_config())
+        start = local.get_weights()
+        check(all(np.array_equal(start[k], before[k]) for k in start),
+              "the remote learner did not start from the seed's weights")
+        local_stats = local.update(first["batch"])
+        ref = local.get_weights()
+        dist = update_distance(before, after, ref)
+        bitwise = all(np.array_equal(after[k], ref[k]) for k in ref)
+        print(f"rllib remote learner vs local on the card: update rel L2 "
+              f"{dist:.3e} (bound {RLLIB_UPDATE_REL_L2}), bitwise {bitwise}, "
+              f"loss {stats['total_loss']:.6f} vs "
+              f"{local_stats['total_loss']:.6f} [{card}]", flush=True)
+        check(dist <= RLLIB_UPDATE_REL_L2 and all(
+            abs(stats[k] - local_stats[k])
+            <= RLLIB_STATS_RTOL * max(abs(local_stats[k]), 1e-6)
+            for k in local_stats),
+              "the remote learner's update is not the local learner's")
+    finally:
+        ray_tpu_torch.shutdown()
+    t0 = time.perf_counter()
+    left = port_processes()
+    while left and time.perf_counter() - t0 < CLUSTER_DOWN_S:
+        time.sleep(0.1)
+        left = port_processes()
+    check(not left, f"port processes outlived shutdown by "
+          f"{CLUSTER_DOWN_S} s: {left}")
+    out["phase_s"] = time.perf_counter() - phase_t0
+    print(f"rllib phase: {out['phase_s']:.1f} s [{card}]", flush=True)
+    return out
+
+
 def importable(name: str) -> bool:
     import importlib.util
 
@@ -5448,6 +5856,7 @@ def main() -> int:
         cluster_train_launches = phase_cluster_train(card, train_stats)
         data_pool_launches, data_train_launches = phase_data(card)
         cgraph_launches = phase_cgraph(card)
+        phase_rllib(card)
         d256 = phase_d256(card, power_w)
         gc.collect()
         torch.cuda.empty_cache()

@@ -773,3 +773,72 @@ def test_multiplex_eviction_frees_card_memory(card):
     assert out["parked"] - out["swapped"] >= out["param_bytes"]
     assert out["parked"] - out["released"] >= out["param_bytes"]
     assert len(out["tokens"]) == 4
+
+
+# RLlib learners: an update on the card against the same update on the
+# CPU, from the same weights and batch (float32, TF32 off). Adam's first
+# step is about +-lr an element, so an element whose gradient lies within
+# the two devices' rounding of zero may step the other way: the update is
+# held as a whole (relative L2 of after - before), the forward's
+# statistics to summation order.
+RL_UPDATE_REL_L2 = 1e-2
+RL_STATS_RTOL = 1e-4
+
+
+def _hold_rl_update(make_learner, config, batch):
+    card_learner = make_learner(dict(config, device=None))
+    assert card_learner.device == torch.device("cuda", 0)
+    cpu_learner = make_learner(dict(config, device="cpu"))
+    before = card_learner.get_weights()
+    cpu_learner.set_weights(before)
+    stats, cpu_stats = card_learner.update(batch), cpu_learner.update(batch)
+    after, ref = card_learner.get_weights(), cpu_learner.get_weights()
+    for k in before:
+        want = ref[k].astype(np.float64) - before[k]
+        got = after[k].astype(np.float64) - before[k]
+        assert np.linalg.norm(got - want) <= RL_UPDATE_REL_L2 * max(
+            np.linalg.norm(want), 1e-30), k
+    for k in cpu_stats:
+        assert abs(stats[k] - cpu_stats[k]) <= RL_STATS_RTOL * max(
+            abs(cpu_stats[k]), 1e-6), (k, stats[k], cpu_stats[k])
+
+
+def test_ppo_learner_update_on_card_matches_cpu(card):
+    from ray_tpu_torch.rllib.core.learner import PPOLearner
+    from ray_tpu_torch.rllib.core.rl_module import DiscreteMLPModule
+
+    rng = np.random.default_rng(0)
+    n = 256
+    batch = {
+        "obs": rng.normal(size=(n, 4)).astype(np.float32),
+        "actions": rng.integers(0, 2, n).astype(np.int32),
+        "logp_old": np.log(rng.uniform(0.2, 0.8, n)).astype(np.float32),
+        "advantages": rng.normal(size=n).astype(np.float32),
+        "value_targets": rng.normal(size=n).astype(np.float32),
+    }
+    _hold_rl_update(
+        lambda config: PPOLearner(DiscreteMLPModule(4, 2, (64, 64)), config),
+        {"lr": 3e-4, "num_epochs": 1, "minibatch_size": n, "seed": 0},
+        batch)
+
+
+def test_impala_learner_update_on_card_matches_cpu(card):
+    """The Nature-CNN module at full width on 84x84x4 frames."""
+    from ray_tpu_torch.rllib.core.impala_learner import ImpalaLearner
+    from ray_tpu_torch.rllib.core.rl_module import DiscreteConvModule
+
+    rng = np.random.default_rng(1)
+    T, B = 8, 4
+    batch = {
+        "obs": rng.integers(0, 256, (T, B, 84, 84, 4)).astype(np.float32),
+        "actions": rng.integers(0, 3, (T, B)).astype(np.int32),
+        "rewards": rng.normal(size=(T, B)).astype(np.float32),
+        "dones": (rng.random((T, B)) < 0.1).astype(np.float32),
+        "logp_old": np.log(rng.uniform(0.2, 0.5, (T, B))).astype(np.float32),
+        "final_obs": rng.integers(0, 256, (B, 84, 84, 4)).astype(np.float32),
+    }
+    for use_clip_loss in (False, True):
+        _hold_rl_update(
+            lambda config: ImpalaLearner(DiscreteConvModule((84, 84, 4), 3),
+                                         config),
+            {"lr": 5e-4, "seed": 0, "use_clip_loss": use_clip_loss}, batch)

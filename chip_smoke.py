@@ -234,7 +234,25 @@ result line:
    the CPU from the same weights and batch, and the remote learner's
    against the local one's, each within `RLLIB_UPDATE_REL_L2` (relative
    L2 of the update) and `RLLIB_STATS_RTOL`; finite losses; the remote
-   learner's device, backend and lease; no port process left;
+   learner's device, backend and lease. (d) DQN at `DQNConfig`'s defaults
+   (2 runners x 4 envs x 16 steps, batch 64, 50 updates an iteration,
+   hiddens (64, 64), double-Q) with prioritized replay and
+   `learning_starts=256` on `CartPoleFixture`, three iterations (the third
+   measured: learner ms an update by CUDA events, updates/s, env
+   steps/s), built together with multi-agent PPO (`TargetMatchFixture`,
+   the reference test's env: 2 agents, one-hot targets of 4, 8-step
+   episodes; independent policies p0 and p1 of hiddens (32,), 2 runners,
+   fragments of 64), one iteration (per-policy update ms). Gated: every
+   learner on cuda:0; DQN's updates 1 and 51 against the CPU from the
+   same online and target weights, Adam state and prioritized batch
+   (|td| per sample where double-Q's argmax agrees; the disagreements
+   printed), importance weights other than 1 in the batches; each
+   policy's first update against its CPU twin; finite losses,
+   `learner/p0/total_loss` and `learner/p1/total_loss`. (e) The state API
+   lists the four runners ALIVE and counts their `sample` calls, and none
+   ALIVE after `stop()`; a `Queue` (0.25 GPU) carries 1 MiB of float32
+   from a 0.25-GPU actor's card to the driver's `cuda:0`, bitwise;
+   `Pool(2).map` equals `map`. No port process left;
 9d. d256: heads of 256. The flagship's widths with 6 heads of 256 in place
    of 12 of 128 (the same 503,354,880 parameters, from the same seed)
    through the engine phase (float32, its 8 prompts and 32 new tokens, its
@@ -4638,7 +4656,8 @@ def cgraph_live_loops(instance):
 # RLlib: PPO and IMPALA/APPO with their learners on the card
 # ---------------------------------------------------------------------------
 # The RLlib phase's cluster: two env-runner actors (one CPU each), the
-# remote learner's one, and a spare.
+# remote learner's one, and a spare; or DQN's and multi-agent PPO's four
+# runners.
 RLLIB_CPUS = 4
 RLLIB_TIMEOUT_S = 300.0
 # A learner update on the card against the same update on the CPU, from
@@ -4804,8 +4823,40 @@ class UpdateRecorder:
         end.synchronize()
         self.ms.append(start.elapsed_time(end))
         if first is not None:
-            first.update(after=self.learner.get_weights(), stats=stats)
+            first.update(after=self.learner.get_weights(), stats=dict(stats))
             self.first = first
+        return stats
+
+
+class DQNUpdateRecorder(UpdateRecorder):
+    """`UpdateRecorder` for a `DQNLearner`: keeps, for the updates whose
+    0-based index is in `at`, the whole state the update starts from (the
+    online and target weights, Adam's state, the update count) besides
+    the batch, the weights after and the statistics; and the importance
+    weights of every batch."""
+
+    def __init__(self, learner, at):
+        super().__init__(learner)
+        self.at = set(at)
+        self.records = {}
+        self.batch_weights = []
+
+    def __call__(self, batch):
+        import copy
+
+        learner = self.learner
+        index = learner._updates
+        self.batch_weights.append(batch["weights"].copy())
+        if index not in self.at:
+            return super().__call__(batch)
+        rec = dict(before=learner.get_weights(),
+                   target=learner.get_target_weights(),
+                   opt=copy.deepcopy(learner.optimizer.state_dict()),
+                   updates=index,
+                   batch={k: v.copy() for k, v in batch.items()})
+        stats = super().__call__(batch)
+        rec.update(after=learner.get_weights(), stats=dict(stats))
+        self.records[index] = rec
         return stats
 
 
@@ -4820,13 +4871,162 @@ def build_together(*builds):
         return [f.result(timeout=RLLIB_TIMEOUT_S) for f in futures]
 
 
+class TargetMatchFixture:
+    """The reference's multi-agent test env (`tests/test_rllib_multiagent.py
+    TargetMatch`) in numpy: two agents each observe a one-hot target of
+    4 and earn +1 for choosing it (agent_1's target is shifted by 1), in
+    episodes of 8 steps."""
+
+    possible_agents = ["agent_0", "agent_1"]
+    N = 4
+
+    def __init__(self):
+        import numpy as np
+
+        self._rng = np.random.default_rng(0)
+        self._t = 0
+        self._targets = {}
+
+    def _obs(self):
+        import numpy as np
+
+        out = {}
+        for aid in self.possible_agents:
+            onehot = np.zeros(self.N, np.float32)
+            onehot[self._targets[aid]] = 1.0
+            out[aid] = onehot
+        return out
+
+    def _resample(self):
+        base = int(self._rng.integers(0, self.N))
+        self._targets = {"agent_0": base, "agent_1": (base + 1) % self.N}
+
+    def reset(self, *, seed=None):
+        import numpy as np
+
+        if seed is not None:
+            self._rng = np.random.default_rng(seed)
+        self._t = 0
+        self._resample()
+        return self._obs(), {}
+
+    def step(self, action_dict):
+        rewards = {aid: 1.0 if action_dict.get(aid) == self._targets[aid]
+                   else 0.0 for aid in self.possible_agents}
+        self._t += 1
+        self._resample()
+        done = self._t >= 8
+        return self._obs(), rewards, {"__all__": done}, {"__all__": False}, {}
+
+
+def target_match_policy(agent_id) -> str:
+    """Independent policies: agent_0 -> p0, agent_1 -> p1."""
+    return "p0" if agent_id == "agent_0" else "p1"
+
+
+class TensorMaker:
+    """A GPU-leased actor that makes float32 data from a seed on its card
+    and puts it on a queue."""
+
+    def put_tensor(self, queue, n: int, seed: int) -> str:
+        import torch
+
+        t = torch.randn(n, generator=torch.Generator().manual_seed(seed))
+        t = t.to("cuda:0")
+        queue.put(t, timeout=RLLIB_TIMEOUT_S)
+        return str(t.device)
+
+
+def pool_square(x: int) -> int:
+    return x * x
+
+
+def q_argmax(weights: dict, obs, device: str, hiddens):
+    """The online net's greedy action on `obs` (double-Q's choice of a'),
+    computed on `device`."""
+    import torch
+
+    from ray_tpu_torch.rllib.core.rl_module import DiscreteMLPModule
+
+    module = DiscreteMLPModule(obs.shape[1], 2, hiddens).to(device)
+    module.set_weights(weights)
+    with torch.no_grad():
+        q, _ = module(torch.from_numpy(obs).to(device))
+    return q.argmax(dim=1).cpu().numpy()
+
+
+def hold_dqn_update(label: str, card: str, rec: dict, config) -> None:
+    """A DQN update on the card against the same update on the CPU: the
+    same online and target weights, Adam state, update count and
+    prioritized batch (importance weights included). The update and the
+    statistics are gated as `hold_update`'s; |td| per sample within
+    RLLIB_STATS_RTOL of max(|td|, 1e-2) where the online net's argmax
+    (double-Q's choice of a') agrees on the two devices. The count of
+    argmax disagreements is printed: where two Q-values differ by less
+    than the devices' rounding, the two may pick different a'."""
+    import numpy as np
+
+    from ray_tpu_torch.rllib.algorithms.dqn import DQNLearner
+    from ray_tpu_torch.rllib.core.rl_module import DiscreteMLPModule
+
+    hiddens = tuple(config.hiddens)
+    cpu = DQNLearner(DiscreteMLPModule(4, 2, hiddens),
+                     dict(config.learner_config(), device="cpu"))
+    cpu.set_weights(rec["before"], target=rec["target"])
+    cpu.optimizer.load_state_dict(rec["opt"])
+    cpu._updates = rec["updates"]
+    t0 = time.perf_counter()
+    cpu_stats = cpu.update(rec["batch"])
+    cpu_s = time.perf_counter() - t0
+    ref = cpu.get_weights()
+    dist = update_distance(rec["before"], rec["after"], ref)
+    stats = dict(rec["stats"])
+    td, cpu_td = stats.pop("td_abs"), cpu_stats.pop("td_abs")
+    stat_err = max(abs(stats[k] - cpu_stats[k]) / max(abs(cpu_stats[k]),
+                                                      1e-6)
+                   for k in cpu_stats)
+    next_obs = rec["batch"]["next_obs"]
+    agree = (q_argmax(rec["before"], next_obs, "cuda:0", hiddens)
+             == q_argmax(rec["before"], next_obs, "cpu", hiddens))
+    td_err = float(np.max(np.abs(td - cpu_td)[agree]
+                          / np.maximum(np.abs(cpu_td[agree]), 1e-2)))
+    w = rec["batch"]["weights"]
+    print(f"rllib {label} card vs cpu (update {rec['updates'] + 1}, "
+          f"importance weights {w.min():.4f}..{w.max():.4f}): update rel L2 "
+          f"{dist:.3e} (bound {RLLIB_UPDATE_REL_L2}), stats rel err "
+          f"{stat_err:.3e}, |td| rel err {td_err:.3e} over "
+          f"{int(agree.sum())} samples (bound {RLLIB_STATS_RTOL}), double-Q "
+          f"argmax disagreements {int((~agree).sum())} of {len(agree)}, cpu "
+          f"update {cpu_s * 1e3:.1f} ms [{card}]", flush=True)
+    check(all(np.isfinite(v) for v in stats.values())
+          and np.isfinite(td).all(),
+          f"rllib {label}: a non-finite statistic on the card: {stats}")
+    check(dist <= RLLIB_UPDATE_REL_L2,
+          f"rllib {label}: the card's update is {dist:.3e} (rel L2) from "
+          f"the CPU's")
+    check(stat_err <= RLLIB_STATS_RTOL and td_err <= RLLIB_STATS_RTOL,
+          f"rllib {label}: the card's statistics {stats} or |td| differ "
+          f"from the CPU's {cpu_stats}")
+
+
+def alive_actors(ids) -> dict:
+    """The state API's ALIVE entries among the actors `ids` (hex), by
+    actor id."""
+    from ray_tpu_torch.util.state import list_actors
+
+    return {x["actor_id"]: x for x in list_actors()
+            if x.get("actor_id") in ids and x.get("state") == "ALIVE"}
+
+
 def phase_rllib(card: str) -> dict:
     """RLlib on the card: IMPALA and APPO on 84x84x4 frames with the
     Nature-CNN learner on cuda:0, PPO at `rllib/bench.py`'s configuration,
-    and a GPU-leased remote learner; the env runners are CPU actors of
+    and a GPU-leased remote learner; then DQN and multi-agent PPO, and the
+    utilities (`phase_rllib_dqn_mappo`); the env runners are CPU actors of
     `init(num_cpus=4)`. Each card update is held against its CPU twin.
     IMPALA and APPO (two runners each) are built together, then PPO and
-    the remote learner (two runners and one learner process)."""
+    the remote learner (two runners and one learner process), then DQN
+    and multi-agent PPO (two runners each)."""
     import functools
     import statistics
 
@@ -5009,6 +5209,11 @@ def phase_rllib(card: str) -> dict:
             <= RLLIB_STATS_RTOL * max(abs(local_stats[k]), 1e-6)
             for k in local_stats),
               "the remote learner's update is not the local learner's")
+
+        # (d) DQN with prioritized replay and multi-agent PPO with two
+        # independent policies, built together: four runners on the four
+        # CPUs, both learners on the card.
+        out.update(phase_rllib_dqn_mappo(card))
     finally:
         ray_tpu_torch.shutdown()
     t0 = time.perf_counter()
@@ -5021,6 +5226,218 @@ def phase_rllib(card: str) -> dict:
     out["phase_s"] = time.perf_counter() - phase_t0
     print(f"rllib phase: {out['phase_s']:.1f} s [{card}]", flush=True)
     return out
+
+
+def phase_rllib_dqn_mappo(card: str) -> dict:
+    """Parts (d) and (e) of the RLlib phase, on its cluster: DQN and
+    multi-agent PPO with their learners on the card, then the state API
+    while their runners live and after, a `Queue` carrying a CUDA tensor
+    from a GPU-leased actor, and `Pool.map`."""
+    import ray_tpu_torch
+    from ray_tpu_torch.util.multiprocessing import Pool
+    from ray_tpu_torch.util.queue import Queue
+
+    part_t0 = time.perf_counter()
+    out = {}
+    # The queue's two GPU-leased actors (no CPU each) start beside (d)'s
+    # runners, so that their processes' imports overlap.
+    queue = Queue(maxsize=2, actor_options={"num_gpus": 0.25})
+    maker = ray_tpu_torch.remote(num_cpus=0, num_gpus=0.25)(
+        TensorMaker).remote()
+    try:
+        phase_rllib_algorithms(card, out)
+        phase_rllib_queue(card, queue, maker)
+    finally:
+        queue.shutdown()
+        ray_tpu_torch.kill(maker)
+
+    t0 = time.perf_counter()
+    with Pool(2) as pool:
+        pooled = pool.map(pool_square, range(32))
+    pool_s = time.perf_counter() - t0
+    check(pooled == list(map(pool_square, range(32))),
+          f"Pool(2).map gave {pooled}")
+    print(f"rllib pool: Pool(2).map of 32 items equals map, {pool_s:.2f} s "
+          f"[{card}]", flush=True)
+    out["dqn_mappo_s"] = time.perf_counter() - part_t0
+    print(f"rllib dqn, multi-agent ppo and utilities: "
+          f"{out['dqn_mappo_s']:.1f} s [{card}]", flush=True)
+    return out
+
+
+def phase_rllib_algorithms(card: str, out: dict) -> None:
+    """Part (d), and (e)'s state API while (d)'s runners live and after
+    they stop."""
+    import functools
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.rllib import DQNConfig, MultiAgentPPOConfig
+    from ray_tpu_torch.rllib.core.learner import PPOLearner
+    from ray_tpu_torch.rllib.core.rl_module import DiscreteMLPModule
+    from ray_tpu_torch.rllib.utils.replay_buffers import \
+        PrioritizedReplayBuffer
+
+    dqn_config = DQNConfig(env_creator=CartPoleFixture,
+                           prioritized_replay=True, learning_starts=256)
+    policy = functools.partial(DiscreteMLPModule, obs_dim=TargetMatchFixture.N,
+                               num_actions=TargetMatchFixture.N,
+                               hiddens=(32,))
+    ma_config = MultiAgentPPOConfig(
+        env_creator=TargetMatchFixture, policies={"p0": policy, "p1": policy},
+        policy_mapping_fn=target_match_policy, num_env_runners=2,
+        rollout_fragment_length=64)
+    t0 = time.perf_counter()
+    dqn, mappo = build_together(dqn_config.build, ma_config.build)
+    build_s = time.perf_counter() - t0
+    runner_ids = {r._actor_id.hex() for a in (dqn, mappo) for r in a._runners}
+    # Earlier parts' runners of the same classes finished their calls
+    # long since: the count from here on is (d)'s.
+    calls_before = sample_calls()
+    try:
+        learners = dict(mappo.learners, dqn=dqn.learner)
+        check(all(l.device == torch.device("cuda", 0)
+                  and {str(p.device) for p in l.module.parameters()}
+                  == {"cuda:0"} for l in learners.values())
+              and {str(p.device) for p in dqn.learner.target.parameters()}
+              == {"cuda:0"},
+              f"the learners are not on cuda:0: "
+              f"{ {k: str(l.device) for k, l in learners.items()} }")
+        check(isinstance(dqn.buffer, PrioritizedReplayBuffer),
+              f"DQN's buffer is {type(dqn.buffer).__name__}")
+        per_iter = dqn_config.updates_per_iteration
+        rec = DQNUpdateRecorder(dqn.learner, at=(0, per_iter))
+        first_m = [dqn.train(), dqn.train()]
+        rec.ms.clear()
+        t0 = time.perf_counter()
+        m = dqn.train()
+        dqn_s = time.perf_counter() - t0
+        check([x["num_updates"] for x in first_m + [m]] == [0, per_iter,
+                                                          per_iter],
+              f"DQN's updates an iteration: "
+              f"{[x['num_updates'] for x in first_m + [m]]}")
+        check(sorted(rec.records) == [0, per_iter],
+              f"DQN recorded updates {sorted(rec.records)}")
+        varied = sum(not np.all(w == 1.0) for w in rec.batch_weights)
+        check(varied >= per_iter,
+              f"only {varied} of DQN's {len(rec.batch_weights)} prioritized "
+              f"batches have importance weights other than 1")
+        dqn_ms = statistics.median(rec.ms)
+        out["dqn"] = dict(learner_ms=dqn_ms, updates_per_s=per_iter / dqn_s,
+                          env_steps_per_s=m["env_steps_per_sec"])
+        print(f"rllib dqn: DQN (double-Q, prioritized replay, "
+              f"{dqn_config.num_env_runners} runners x "
+              f"{dqn_config.num_envs_per_runner} envs x "
+              f"{dqn_config.rollout_fragment_length} steps, batch "
+              f"{dqn_config.train_batch_size}, hiddens "
+              f"{tuple(dqn_config.hiddens)}) and multi-agent PPO built "
+              f"together in {build_s:.1f} s; measured iteration 3: "
+              f"{per_iter} updates in {dqn_s:.3f} s, {per_iter / dqn_s:.1f} "
+              f"updates/s, {m['env_steps_per_sec']:.1f} env steps/s, learner "
+              f"{dqn_ms:.3f} ms an update (median of {len(rec.ms)}, CUDA "
+              f"events; min {min(rec.ms):.3f}, max {max(rec.ms):.3f}), loss "
+              f"{m['learner/total_loss']:.4f}, epsilon {m['epsilon']:.4f}, "
+              f"buffer {m['buffer_size']}, {varied} of "
+              f"{len(rec.batch_weights)} batches with importance weights "
+              f"other than 1 [{card}]", flush=True)
+        check(all(np.isfinite(x["learner/total_loss"])
+                  for x in (first_m[1], m)),
+              f"DQN's loss is not finite: {m}")
+        for index in sorted(rec.records):
+            hold_dqn_update("dqn", card, rec.records[index], dqn_config)
+
+        recs = {pid: UpdateRecorder(l) for pid, l in mappo.learners.items()}
+        t0 = time.perf_counter()
+        ma = mappo.train()
+        mappo_s = time.perf_counter() - t0
+        check(all(f"learner/{pid}/total_loss" in ma
+                  and np.isfinite(ma[f"learner/{pid}/total_loss"])
+                  for pid in ("p0", "p1")),
+              f"multi-agent PPO's per-policy losses: {ma}")
+        out["mappo"] = {pid: dict(update_ms=r.ms[0])
+                        for pid, r in recs.items()}
+        print(f"rllib multi-agent ppo: one iteration in {mappo_s:.3f} s, "
+              f"{ma['num_env_steps_sampled_lifetime']} agent steps, "
+              f"{ma['env_steps_per_sec']:.1f} agent steps/s; per-policy "
+              f"update "
+              + ", ".join(f"{pid} {r.ms[0]:.1f} ms ({ma_config.num_epochs} "
+                          f"epochs of {len(r.first['batch']['obs'])} rows, "
+                          f"loss {ma[f'learner/{pid}/total_loss']:.4f})"
+                          for pid, r in recs.items())
+              + f" (CUDA events) [{card}]", flush=True)
+        for pid, r in recs.items():
+            hold_update(f"multi-agent ppo {pid}", card, r.first["before"],
+                        r.first["batch"], r.first["after"], r.first["stats"],
+                        PPOLearner(policy(), dict(ma_config.learner_config(),
+                                                  device="cpu")))
+
+        # (e) The state API while the runners live: 3 DQN iterations of
+        # 2 runners, 1 multi-agent iteration of 2.
+        alive = alive_actors(runner_ids)
+        want = {"SingleAgentEnvRunner": 3 * dqn_config.num_env_runners,
+                "MultiAgentEnvRunner": ma_config.num_env_runners}
+        t0 = time.perf_counter()
+        while True:   # the workers flush their task events each second
+            after = sample_calls()
+            calls = {k: after[k] - calls_before[k] for k in after}
+            if calls == want or time.perf_counter() - t0 > 10:
+                break
+            time.sleep(0.25)
+        print(f"rllib state: {len(alive)} of {len(runner_ids)} runners ALIVE "
+              f"({sorted(x['class_name'] for x in alive.values())}); "
+              f"finished sample calls {calls} [{card}]", flush=True)
+        check(len(runner_ids) == 4 and set(alive) == runner_ids,
+              f"the state API lists {len(alive)} of the runners ALIVE")
+        check(calls == want,
+              f"summarize_tasks counts {calls} sample calls, not {want}")
+    finally:
+        dqn.stop()
+        mappo.stop()
+    t0 = time.perf_counter()
+    while alive_actors(runner_ids) and time.perf_counter() - t0 < 30:
+        time.sleep(0.1)
+    left = alive_actors(runner_ids)
+    print(f"rllib state after stop(): {len(left)} runners ALIVE [{card}]",
+          flush=True)
+    check(not left, f"runners still ALIVE after stop(): {left}")
+
+
+def sample_calls() -> dict:
+    """`summarize_tasks()`'s finished `sample` calls of each runner
+    class."""
+    from ray_tpu_torch.util.state import summarize_tasks
+
+    summary = summarize_tasks()
+    return {name: summary.get(f"{name}.sample", {}).get("FINISHED", 0)
+            for name in ("SingleAgentEnvRunner", "MultiAgentEnvRunner")}
+
+
+def phase_rllib_queue(card: str, queue, maker) -> None:
+    """A CUDA tensor through a Queue: from a GPU-leased actor's card to
+    the driver's, through the queue actor's (a CUDA tensor lands on the
+    card of each process that reads it)."""
+    import torch
+
+    import ray_tpu_torch
+
+    n = (1 << 20) // 4
+    t0 = time.perf_counter()
+    maker_device = ray_tpu_torch.get(maker.put_tensor.remote(queue, n, 18),
+                                     timeout=RLLIB_TIMEOUT_S)
+    got = queue.get(timeout=RLLIB_TIMEOUT_S)
+    queue_ms = (time.perf_counter() - t0) * 1e3
+    want = torch.randn(n, generator=torch.Generator().manual_seed(18))
+    check(isinstance(got, torch.Tensor)
+          and got.device == torch.device("cuda", 0)
+          and got.dtype == torch.float32 and torch.equal(got.cpu(), want),
+          f"the queue's tensor is not the maker's: "
+          f"{getattr(got, 'device', type(got))}")
+    print(f"rllib queue: {n * 4} B of float32 from a 0.25-GPU actor "
+          f"({maker_device}) through a 0.25-GPU queue to the driver's "
+          f"{got.device}, bitwise equal, {queue_ms:.1f} ms put and get (the "
+          f"actors started during part d) [{card}]", flush=True)
 
 
 def importable(name: str) -> bool:

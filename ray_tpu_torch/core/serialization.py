@@ -65,7 +65,7 @@ from ray_tpu_torch.core.codec import packb, unpackb
 
 __all__ = ["SerializedObject", "serialize", "serialize_error", "deserialize",
            "serialize_fast", "serialize_fast_into", "pack_array_chunks",
-           "deserialize_fast"]
+           "deserialize_fast", "check_sendable"]
 
 _HEADER = struct.Struct("<I")
 
@@ -333,6 +333,20 @@ class _Unpickler(pickle.Unpickler):
             if MAIN_ALIAS in sys.modules:
                 module = MAIN_ALIAS
         return super().find_class(module, name)
+
+
+def check_sendable(what: str, value: Any) -> None:
+    """Raises, before any worker starts, the `TypeError` that sending
+    `value` to one would raise: `what` names the argument, and the message
+    says the rule (a module-level function or class, or a
+    `functools.partial` of one)."""
+    try:
+        dumps(value)
+    except TypeError as e:
+        raise TypeError(
+            f"{what} cannot be sent to a worker: the port sends functions "
+            f"and classes by reference, so pass a module-level function or "
+            f"class, or a functools.partial of one ({e})") from None
 
 
 def dumps(value: Any, buffer_callback=None) -> bytes:

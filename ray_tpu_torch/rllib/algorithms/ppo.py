@@ -90,6 +90,12 @@ def _probe_env(env_creator) -> tuple:
     return shape, num_actions
 
 
+def _probe_spaces(env_creator) -> tuple:
+    """(flat observation size, num_actions)."""
+    shape, num_actions = _probe_env(env_creator)
+    return int(np.prod(shape)), num_actions
+
+
 def _runner_actors(env_creator, module_factory, config) -> list:
     import ray_tpu_torch
     from ray_tpu_torch.rllib.env.env_runner import SingleAgentEnvRunner

@@ -842,3 +842,82 @@ def test_impala_learner_update_on_card_matches_cpu(card):
             lambda config: ImpalaLearner(DiscreteConvModule((84, 84, 4), 3),
                                          config),
             {"lr": 5e-4, "seed": 0, "use_clip_loss": use_clip_loss}, batch)
+
+
+def test_dqn_learner_update_on_card_matches_cpu(card):
+    """A double-Q update on a prioritized batch (importance weights not all
+    ones), from the same online and target weights. |td| is held per
+    sample where the online net's argmax (double-Q's choice of a') agrees
+    on the two devices."""
+    from ray_tpu_torch.rllib.algorithms.dqn import DQNLearner
+    from ray_tpu_torch.rllib.core.rl_module import DiscreteMLPModule
+
+    rng = np.random.default_rng(2)
+    n = 64
+    batch = {
+        "obs": rng.normal(size=(n, 4)).astype(np.float32),
+        "actions": rng.integers(0, 2, n).astype(np.int32),
+        "rewards": rng.normal(size=n).astype(np.float32),
+        "next_obs": rng.normal(size=(n, 4)).astype(np.float32),
+        "dones": (rng.random(n) < 0.2).astype(np.float32),
+        "weights": rng.uniform(0.3, 1.0, n).astype(np.float32),
+        "idx": np.arange(n),
+    }
+    config = {"lr": 5e-4, "seed": 0, "double_q": True}
+    card_learner = DQNLearner(DiscreteMLPModule(4, 2, (64, 64)),
+                              dict(config, device=None))
+    assert card_learner.device == torch.device("cuda", 0)
+    assert {p.device for p in card_learner.target.parameters()} == {card}
+    cpu_learner = DQNLearner(DiscreteMLPModule(4, 2, (64, 64)),
+                             dict(config, device="cpu"))
+    before = card_learner.get_weights()
+    target = {k: v * 0.9 for k, v in before.items()}
+    card_learner.set_weights(before, target=target)
+    cpu_learner.set_weights(before, target=target)
+    with torch.no_grad():
+        agree = (card_learner.module(torch.from_numpy(batch["next_obs"])
+                                     .to(card))[0].argmax(1).cpu()
+                 == cpu_learner.module(torch.from_numpy(batch["next_obs"])
+                                       )[0].argmax(1)).numpy()
+    stats, cpu_stats = card_learner.update(batch), cpu_learner.update(batch)
+    after, ref = card_learner.get_weights(), cpu_learner.get_weights()
+    for k in before:
+        want = ref[k].astype(np.float64) - before[k]
+        got = after[k].astype(np.float64) - before[k]
+        assert np.linalg.norm(got - want) <= RL_UPDATE_REL_L2 * max(
+            np.linalg.norm(want), 1e-30), k
+    td, cpu_td = stats.pop("td_abs"), cpu_stats.pop("td_abs")
+    assert agree.sum() >= n - 2
+    np.testing.assert_allclose(td[agree], cpu_td[agree], rtol=RL_STATS_RTOL,
+                               atol=RL_STATS_RTOL * 1e-2)
+    for k in cpu_stats:
+        assert abs(stats[k] - cpu_stats[k]) <= RL_STATS_RTOL * max(
+            abs(cpu_stats[k]), 1e-6), (k, stats[k], cpu_stats[k])
+
+
+def test_multi_agent_ppo_policy_update_on_card_matches_cpu(card):
+    """One policy's update on a batch from the multi-agent runner (the
+    reference test's env, two independent policies)."""
+    import functools
+    import os
+    import sys
+
+    from ray_tpu_torch.rllib.core.learner import PPOLearner
+    from ray_tpu_torch.rllib.core.rl_module import DiscreteMLPModule
+    from ray_tpu_torch.rllib.env.multi_agent_env import MultiAgentEnvRunner
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_rllib_helpers as helpers
+
+    policy = functools.partial(DiscreteMLPModule, obs_dim=4, num_actions=4,
+                               hiddens=(32,))
+    runner = MultiAgentEnvRunner(helpers.TargetMatch,
+                                 {"p0": policy, "p1": policy},
+                                 helpers.by_agent, {}, seed=3)
+    runner.set_weights({pid: policy().get_weights() for pid in ("p0", "p1")})
+    batch = runner.sample(64)["batches"]["p0"]
+    assert len(batch["obs"]) == 64
+    _hold_rl_update(
+        lambda config: PPOLearner(policy(), config),
+        {"lr": 3e-4, "num_epochs": 4, "minibatch_size": 128, "seed": 0},
+        batch)

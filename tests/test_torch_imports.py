@@ -31,6 +31,11 @@ def test_no_module_of_the_port_imports_jax_optax_or_ray_tpu():
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert {"ray_tpu_torch.rllib.algorithms.impala",
             "ray_tpu_torch.rllib.bench", "ray_tpu_torch.models.cnn",
-            "ray_tpu_torch.models.mlp"} <= set(result["modules"])
+            "ray_tpu_torch.models.mlp", "ray_tpu_torch.rllib.algorithms.dqn",
+            "ray_tpu_torch.rllib.algorithms.multi_agent_ppo",
+            "ray_tpu_torch.rllib.env.multi_agent_env",
+            "ray_tpu_torch.rllib.utils.replay_buffers",
+            "ray_tpu_torch.util.queue", "ray_tpu_torch.util.multiprocessing",
+            "ray_tpu_torch.util.state"} <= set(result["modules"])
     assert len(result["modules"]) > 100
     assert result["bad"] == []

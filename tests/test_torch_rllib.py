@@ -247,21 +247,38 @@ def test_env_runner_matches_the_references():
             assert got[k].dtype == np.asarray(want[k]).dtype
 
 
-@pytest.mark.parametrize("name", rllib.LATER)
-def test_item_8b_names_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8b"):
-        getattr(rllib, name)
+# The names of DQN, the replay buffers, the multi-agent env and multi-agent
+# PPO.
+ITEM_8B = ("DQN", "DQNConfig", "DQNLearner", "ReplayBuffer",
+           "PrioritizedReplayBuffer", "ReservoirReplayBuffer",
+           "MultiAgentEnv", "MultiAgentEnvRunner", "MultiAgentPPO",
+           "MultiAgentPPOConfig")
+
+
+@pytest.mark.parametrize("name", ITEM_8B)
+def test_item_8b_names_are_the_ports_classes(name):
+    """Each name resolves to the port's class in the module that mirrors
+    the one where the reference defines it."""
+    import importlib
+
     import ray_tpu.rllib
 
-    assert hasattr(ray_tpu.rllib, name)
+    want = getattr(ray_tpu.rllib, name)
+    module = importlib.import_module(
+        "ray_tpu_torch" + want.__module__[len("ray_tpu"):])
+    got = getattr(rllib, name)
+    assert got is getattr(module, name)
+    assert got.__module__ == module.__name__
+    assert isinstance(got, type) and got is not want
 
 
-def test_exports_are_the_references_less_item_8b():
+def test_exports_are_the_references():
     import ray_tpu.rllib
 
-    assert set(rllib.__all__) | set(rllib.LATER) == set(ray_tpu.rllib.__all__)
+    assert rllib.__all__ == ray_tpu.rllib.__all__
     for name in rllib.__all__:
         assert getattr(rllib, name) is not None
+    assert not hasattr(rllib, "LATER")
 
 
 def test_cartpole_without_gymnasium_names_the_package(monkeypatch):

@@ -17,7 +17,11 @@ result line:
 3. kernels: K1 against its plain PyTorch version on the card at the shapes
    the serving and training paths give it and a few more (a ragged block
    count, D 64 at the train shape, a peaked softmax, and D 256: the
-   D-256 phase's train and serving shapes, ragged, peaked), with the error
+   D-256 phase's train and serving shapes, ragged, peaked; and the D-slice
+   kernels of heads wider than 256: the D-384 and D-512 phases' train and
+   serving shapes, a peaked float32 softmax at each, and D 1024 in both
+   types; each of those rows also names what SDPA ran, since its flash
+   backend stops at 256), with the error
    against the stated tolerance, the kernel's time (CUDA events) and
    achieved TFLOP/s, the plain version's time, one PyTorch library call's
    time as a yardstick, and the least time the card could take (bytes
@@ -258,12 +262,20 @@ result line:
    through the engine phase (float32, its 8 prompts and 32 new tokens, its
    gates: logits within 1e-3 of a no-cache forward, token agreement, K1 12
    a no-prefix prefill), the bf16 gradient gate at depth 2, float32
-   gradients at depth 2 (rel L2 1e-4 per part, K1-K3 once a layer) and 5
+   gradients at depth 2 (rel L2 1e-4 per part, K1-K3 once a layer) and 3
    steps of bench.py's train step (losses finite and falling, K1-K3 12 a
    step, one profiled step). Fails if `plain_attention` runs on the card
    other than as a reference (explicit positions). K1, K2 and K3 run their
    D-256 instantiations (`flash_bwd_*_tc_wide` in bf16), which the kernel
    phases hold to their plain versions on rows of their own;
+9e. d384, d512: heads wider than 256, which JAX sends to its TPU kernel.
+   The flagship's widths with 4 heads of 384, then with 3 of 512 (the same
+   503,354,880 parameters each), through `phase_wide`, the phase 9d runs:
+   the engine phase, the bf16 gradient gate at depth 2, float32 gradients
+   at depth 2 and 3 train steps, with the phase's seconds; K1, K2 and K3
+   run their D-slice kernels (`flash_*_dslice`). Then a `heads:` line puts
+   the engine's tokens/s and the train step's ms at 12 x 128, 6 x 256,
+   4 x 384 and 3 x 512 side by side;
 10. MoE float32 gradients: the same widths with 4 experts (top 2, capacity
     factor 1.25), depth 2, float32, 2 x 1024 tokens, remat
     "save_attn_qkv": `lm_loss` gradients through K1, K2 and K3's float32
@@ -318,6 +330,9 @@ import subprocess
 import sys
 import time
 
+# The head dims the attention kernels are instantiated for; every wider
+# multiple of 128 runs the D-slice kernels.
+INSTANTIATED_HEAD_DIMS = (64, 128, 256)
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 # float32 is the CUDA cores' rate, the route of every float32 kernel.
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
@@ -365,6 +380,23 @@ MIN_TOKEN_AGREEMENT = 0.98
 # pairs at D 128 split 64 + 32 there, as at no other row), and the float32
 # blocks `phase_data`'s actor pool scores (48 pairs), v a view of the fused
 # projection there as in the model.
+# Heads wider than 256 (`phase_wide`, the D-slice kernels), rows of both
+# the K1 and the K2/K3 tables: the D-384 and D-512 train steps' (bf16),
+# the float32 route at their serving width, a peaked float32 softmax (q
+# and k x4) at each, and D 1024 in both routes, which shows D to be a
+# runtime count of chunks.
+D384_SHAPE = ((16, 1024, 4, 384), "bfloat16", "qkv", 1.0)
+D512_SHAPE = ((16, 1024, 3, 512), "bfloat16", "qkv", 1.0)
+D384_F32_SHAPE = ((1, 1024, 4, 384), "float32", "qkv", 1.0)
+D512_F32_SHAPE = ((1, 1024, 3, 512), "float32", "qkv", 1.0)
+D1024_SHAPE = ((1, 256, 2, 1024), "bfloat16", "contiguous", 1.0)
+D1024_F32_SHAPE = ((1, 256, 2, 1024), "float32", "contiguous", 1.0)
+WIDE_SHAPES = [
+    D384_SHAPE, D512_SHAPE, D384_F32_SHAPE, D512_F32_SHAPE,
+    ((4, 1024, 4, 384), "float32", "qkv", 4.0),
+    ((4, 1024, 3, 512), "float32", "qkv", 4.0),
+    D1024_SHAPE, D1024_F32_SHAPE,
+]
 KERNEL_SHAPES = [
     ((1, 128, 12, 128), "float32", "contiguous", 1.0),
     ((1, 256, 12, 128), "float32", "contiguous", 1.0),
@@ -387,7 +419,7 @@ KERNEL_SHAPES = [
     ((2, 384, 3, 256), "bfloat16", "contiguous", 1.0),
     ((2, 384, 3, 256), "float32", "contiguous", 1.0),
     ((4, 1024, 6, 256), "bfloat16", "qkv", 4.0),
-]
+] + WIDE_SHAPES
 # The engine's largest bucket, the train step's shape and the MoE train
 # step's.
 MAIN_SHAPE = ((1, 1024, 12, 128), "float32", "contiguous", 1.0)
@@ -424,7 +456,7 @@ BWD_SHAPES = [
     ((2, 384, 3, 256), "bfloat16", "contiguous", 1.0),
     ((2, 384, 3, 256), "float32", "contiguous", 1.0),
     ((4, 1024, 6, 256), "bfloat16", "qkv", 4.0),
-]
+] + WIDE_SHAPES
 MAIN_BWD_SHAPE = ((16, 1024, 12, 128), "bfloat16", "qkv", 1.0)
 # The float32 route's row reported in the kernels line.
 F32_BWD_SHAPE = ((1, 1024, 12, 128), "float32", "contiguous", 1.0)
@@ -666,6 +698,11 @@ def phase_kernels(card: str, power_w: float):
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
             bound_ms_at_power_limit=derated, bound_by=bound_by,
             library_ms=library_ms)
+        if shape[3] > 256:   # SDPA's flash backend takes D <= 256
+            _, backend = device_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True), 1)
+            rows[(shape, dtype, layout, qk_scale)]["library"] = backend
+            note += f"; library: {backend}"
         print(f"kernel flash_attn_fwd {tag}: "
               f"max_abs_err {err:.3e} (tol {atol:g} + {rtol:g}|ref|"
               f"{note}; worst diff/tol {worst:.3f}; bitwise-equal over two "
@@ -2919,12 +2956,14 @@ def bwd_bounds(shape, dtype: str, power_w: float):
 
 
 def device_ms(fn, iters: int, attempts: int = 3):
-    """Device time per call of `fn`: the sum of its kernels' durations
-    over `iters` calls under `torch.profiler`, after one warm-up call, so
-    that gaps on the host between kernels do not count. A profiler session
-    that records no kernel is tried again; after `attempts` such sessions
-    this returns None (not measured): the figure is a yardstick, not a
-    gate."""
+    """(device time per call of `fn`, what ran): the sum of its kernels'
+    durations over `iters` calls under `torch.profiler`, after one warm-up
+    call, so that gaps on the host between kernels do not count; and the
+    `aten::_scaled_dot_product_*` (or `_efficient_`, `_flash_`,
+    `_cudnn_attention`) ops recorded, which name SDPA's backend, with the
+    two kernels that took the most time. A profiler session that records
+    no kernel is tried again; after `attempts` such sessions the time is
+    None (not measured): the figures are a yardstick, not a gate."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2937,13 +2976,24 @@ def device_ms(fn, iters: int, attempts: int = 3):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        events = [e for e in prof.events()
-                  if e.device_type == DeviceType.CUDA
-                  and not getattr(e, "is_user_annotation", False)]
-        if events:
-            return sum(e.time_range.end - e.time_range.start
-                       for e in events) / 1e3 / iters
-    return None
+        ops, kernels = set(), {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                if not getattr(e, "is_user_annotation", False):
+                    kernels[e.name] = (kernels.get(e.name, 0)
+                                       + e.time_range.end
+                                       - e.time_range.start)
+            elif e.name.startswith(("aten::_scaled_dot_product",
+                                    "aten::_efficient_attention",
+                                    "aten::_flash_attention",
+                                    "aten::_cudnn_attention")):
+                ops.add(e.name)
+        if kernels:
+            top = sorted(kernels, key=kernels.get, reverse=True)[:2]
+            return (sum(kernels.values()) / 1e3 / iters,
+                    f"{' + '.join(sorted(ops)) or 'no SDPA op recorded'}; "
+                    f"kernels {', '.join(n[:90] for n in top)}")
+    return None, "not measured"
 
 
 def fmt_ms(ms) -> str:
@@ -3067,7 +3117,9 @@ def phase_bwd_kernels(card: str, power_w: float):
         sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
             out, (qt, kt, vt), dot, retain_graph=True)
         library_ms = cuda_ms(sdpa_bwd, 10)
-        library_device_ms = device_ms(sdpa_bwd, 10)
+        library_device_ms, backend = device_ms(sdpa_bwd, 10)
+        if d <= 256:   # SDPA's flash backend: named for the wider rows
+            backend = None
         del out
         for kname, parts in (("dkv", ("dk", "dv")), ("dq", ("dq",))):
             err = max(errs[p][0] for p in parts)
@@ -3080,6 +3132,9 @@ def phase_bwd_kernels(card: str, power_w: float):
                 bound_by=bound_by, library_ms=library_ms,
                 library_device_ms=library_device_ms,
                 achieved_tflops=tflops, worst_diff_over_tol=worst)
+            if backend is not None:
+                rows[(kname, shape, dtype, layout, qk_scale)]["library"] = \
+                    backend
             note = route = ""
             if dtype == "bfloat16":
                 note = (f" + {BWD_FLIPS_PER_ROW} x bwd_flip_bound; without "
@@ -3096,7 +3151,8 @@ def phase_bwd_kernels(card: str, power_w: float):
                   f"{tflops:.1f} plain_ms "
                   f"{plain[kname]:.4f} library_ms (SDPA backward, K2+K3 "
                   f"pair) {library_ms:.4f} (device "
-                  f"{fmt_ms(library_device_ms)}) "
+                  f"{fmt_ms(library_device_ms)}"
+                  + (f"; {backend}" if backend else "") + ") "
                   f"bound_us {bound * 1e3:.2f} ({bound_by}; "
                   f"{derated * 1e3:.2f} at the power limit{route}) "
                   f"[{card}]", flush=True)
@@ -3375,7 +3431,14 @@ def train_batch(cfg):
 # float32 gradients at F32_GRAD_LAYERS and D256_TRAIN_STEPS of bench.py's
 # step.
 D256 = dict(FLAGSHIP, n_heads=6)
-D256_TRAIN_STEPS = 5
+D256_TRAIN_STEPS = 3
+# Heads wider than 256, which JAX sends to its TPU kernel and the port to
+# its D-slice kernels: the flagship's widths with 4 heads of 384 and with 3
+# of 512 (the same parameters). `phase_wide` drives each as `phase_d256`
+# does, with WIDE_TRAIN_STEPS of bench.py's step.
+D384 = dict(FLAGSHIP, n_heads=4)
+D512 = dict(FLAGSHIP, n_heads=3)
+WIDE_TRAIN_STEPS = 3
 
 
 @contextlib.contextmanager
@@ -3402,48 +3465,62 @@ def plain_attention_calls():
 
 
 def phase_d256(card: str, power_w: float):
-    """The D256 model from the flagship's seed: the engine phase (float32,
-    its 8 prompts, ENGINE_NEW new tokens, its gates), the bf16 gradient
-    gate at GRAD_GATE_LAYERS, float32 gradients at F32_GRAD_LAYERS, then
-    D256_TRAIN_STEPS of bench.py's train step (bf16, remat
-    "save_attn_qkv", 16 x 1024), gated as the train phase. Fails if
-    `plain_attention` ran on the card other than as a reference (explicit
-    positions). Returns the K1 launches of the engine pass, and the K1, K2,
-    K3 launches of the float32 gradient and of the train steps."""
+    """`phase_wide` of the D256 model for D256_TRAIN_STEPS train steps."""
+    return phase_wide(card, power_w, D256, "d256", D256_TRAIN_STEPS)
+
+
+def phase_wide(card: str, power_w: float, widths: dict, label: str,
+               train_steps: int):
+    """A model of the flagship's widths with other heads (`widths`), from
+    the flagship's seed: the engine phase (float32, its 8 prompts,
+    ENGINE_NEW new tokens, its gates), the bf16 gradient gate at
+    GRAD_GATE_LAYERS, float32 gradients at F32_GRAD_LAYERS, then
+    `train_steps` of bench.py's train step (bf16, remat "save_attn_qkv",
+    16 x 1024), gated as the train phase. Fails unless the model has the
+    flagship's parameter count, or if `plain_attention` ran on the card
+    other than as a reference (explicit positions). Returns the K1 launches
+    of the engine pass and its tokens/s, the K1, K2, K3 launches of the
+    float32 gradient and of the train steps, the train step's ms and the
+    phase's seconds."""
     from dataclasses import replace
 
     import torch
 
     from ray_tpu_torch.models import TransformerConfig, init_params
 
-    cfg = TransformerConfig(dtype=torch.bfloat16, **D256)
-    check(cfg.head_dim == 256, f"head_dim {cfg.head_dim}, expected 256")
+    cfg = TransformerConfig(dtype=torch.bfloat16, **widths)
+    d = cfg.head_dim
+    check(d * cfg.n_heads == FLAGSHIP["d_model"],
+          f"{cfg.n_heads} heads of {d} do not span d_model")
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
     n_params = sum(t.numel() for t in _leaves(params))
     check(n_params == 503_354_880,
-          f"the D256 model has {n_params} parameters, not the flagship's")
+          f"the {label} model has {n_params} parameters, not the "
+          f"flagship's")
     train_cfg = replace(cfg, remat=True, remat_policy="save_attn_qkv")
     t0 = time.perf_counter()
     with plain_attention_calls() as plain:
-        engine_launches, _ = phase_engine(
-            params, replace(cfg, dtype=torch.float32), card, label="d256")
+        engine_launches, engine_tps = phase_engine(
+            params, replace(cfg, dtype=torch.float32), card, label=label)
         grad_gate(dict(params, layers=params["layers"][:GRAD_GATE_LAYERS]),
                   replace(train_cfg, n_layers=GRAD_GATE_LAYERS), card,
-                  label="d256")
-        f32_launches = phase_grad_f32(params, train_cfg, card, label="d256")
-        train_launches, _ = phase_train(params, train_cfg, card, power_w,
-                                        steps=D256_TRAIN_STEPS,
-                                        label="d256")
-    print(f"d256 [6 heads of 256, {n_params} params]: plain_attention on "
-          f"the card {plain['dispatch']} times through the flash dispatch "
-          f"(must be 0), {plain['reference']} as the references "
-          f"(explicit positions); phase {time.perf_counter() - t0:.1f} s "
+                  label=label)
+        f32_launches = phase_grad_f32(params, train_cfg, card, label=label)
+        train_launches, train_stats = phase_train(
+            params, train_cfg, card, power_w, steps=train_steps,
+            label=label)
+    seconds = time.perf_counter() - t0
+    print(f"{label} [{cfg.n_heads} heads of {d}, {n_params} params]: "
+          f"plain_attention on the card {plain['dispatch']} times through "
+          f"the flash dispatch (must be 0), {plain['reference']} as the "
+          f"references (explicit positions); phase {seconds:.1f} s "
           f"[{card}]", flush=True)
     check(plain["dispatch"] == 0,
           f"plain_attention ran {plain['dispatch']} times on the card "
-          f"through the flash dispatch at head_dim 256")
+          f"through the flash dispatch at head_dim {d}")
     return dict(engine=engine_launches, f32=f32_launches,
-                train=train_launches)
+                train=train_launches, engine_tps=engine_tps,
+                step_ms=train_stats["step_ms"], seconds=seconds)
 
 
 def d256_kernel_entries(rows, bwd_rows, d256):
@@ -3483,6 +3560,59 @@ def d256_kernel_entries(rows, bwd_rows, d256):
                 pallas_call=f"{jax_site}:{line}", launches=n,
                 launches_in=where, shape=list(shape), dtype=dtype,
                 layout=layout, **bwd_rows[(kname,) + shape_row]))
+    return entries
+
+
+def dslice_kernel_entries(rows, bwd_rows, wide):
+    """The kernels line's entries of the D-slice kernels: K1, K2, K3 in
+    both routes at D 384 and 512, each row's numbers from the kernel phases
+    (K1's `rows`, K2/K3's `bwd_rows`), its launches from `phase_wide`
+    (`wide`: {"d384": ..., "d512": ...}); the D-512 entries carry the same
+    kernel's D-1024 row too."""
+    jax_site = "jax/experimental/pallas/ops/tpu/flash_attention.py"
+    srcs = {"fwd": "ray_tpu_torch/kernels/csrc/flash_attn_fwd.cu",
+            "bwd": "ray_tpu_torch/kernels/csrc/flash_attn_bwd.cu"}
+    entries = []
+    for label, bf16_row, f32_row in (("d384", D384_SHAPE, D384_F32_SHAPE),
+                                     ("d512", D512_SHAPE, D512_F32_SHAPE)):
+        run = wide[label]
+        train_in = (f"the {label[1:]}-wide phase's train steps "
+                    f"({WIDE_TRAIN_STEPS})")
+        for kname, line, i, table in (("fwd", 758, 0, rows),
+                                      ("dkv", 1121, 1, bwd_rows),
+                                      ("dq", 1456, 2, bwd_rows)):
+            key = (lambda r: r) if kname == "fwd" else \
+                (lambda r, k=kname: (k,) + r)
+            fn = "flash_fwd" if kname == "fwd" else f"flash_bwd_{kname}"
+            base = "flash_attn_fwd" if kname == "fwd" else \
+                f"flash_attn_bwd_{kname}"
+            for route, row, f32_only in ((("tc", bf16_row, False),
+                                          ("f32", f32_row, True))):
+                shape, dtype, layout, _ = row
+                if not f32_only:
+                    n, where = run["train"][i], train_in
+                elif kname == "fwd":
+                    n, where = run["engine"], (f"the {label[1:]}-wide "
+                                               f"phase's engine pass")
+                else:
+                    n, where = run["f32"][i], (f"the {label[1:]}-wide "
+                                               f"phase's float32 gradients")
+                entry = dict(
+                    name=f"{base}{'_f32' if f32_only else ''}_{label}",
+                    route="cuda", kernel=f"{fn}_{route}_dslice<128>",
+                    source=srcs["fwd" if kname == "fwd" else "bwd"],
+                    replaces="ray_tpu/ops/attention.py:28",
+                    pallas_call=f"{jax_site}:{line}", launches=n,
+                    launches_in=where, shape=list(shape), dtype=dtype,
+                    layout=layout, **table[key(row)])
+                if kname == "fwd" and f32_only:
+                    entry["f32_grad_launches"] = run["f32"][0]
+                if label == "d512":
+                    at = D1024_F32_SHAPE if f32_only else D1024_SHAPE
+                    entry["at_head_dim_1024"] = dict(
+                        shape=list(at[0]), dtype=at[1], layout=at[2],
+                        **table[key(at)])
+                entries.append(entry)
     return entries
 
 
@@ -6183,7 +6313,6 @@ def main() -> int:
     from dataclasses import replace
 
     from ray_tpu_torch.kernels import build
-    from ray_tpu_torch.kernels.flash_attn import HEAD_DIMS
     from ray_tpu_torch.models import init_params
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6223,14 +6352,17 @@ def main() -> int:
             for fn, (hgmma, hmma) in sorted(counts[kname].items()):
                 print(f"  sass {kname} {fn}: HGMMA {hgmma} HMMA {hmma}")
             # One instantiation per head dim of each kernel (at D 256 the
-            # backward's are the *_tc_wide kernels).
-            check(len(tc) == len(HEAD_DIMS) * len(tc_names)
+            # backward's are the *_tc_wide kernels), and one D-slice
+            # kernel each for every wider head dim.
+            check(len(tc) == (len(INSTANTIATED_HEAD_DIMS) + 1)
+                  * len(tc_names)
+                  and sum("dslice" in f for f in tc) == len(tc_names)
                   and all(c[0] > 0 for c in tc.values()),
                   f"the bf16 kernels of {kname} are not all on the tensor "
                   f"cores (wgmma): {tc}")
         f32 = {f: c for f, c in counts["flash_attn_bwd"].items()
                if "flash_bwd_dkv_f32" in f or "flash_bwd_dq_f32" in f}
-        check(len(f32) == 2 * len(HEAD_DIMS)
+        check(len(f32) == 2 * (len(INSTANTIATED_HEAD_DIMS) + 1)
               and all(c == (0, 0) for c in f32.values()),
               f"the float32 backward kernels are on the CUDA-core route "
               f"but run tensor-core instructions: {f32}")
@@ -6277,6 +6409,24 @@ def main() -> int:
         d256 = phase_d256(card, power_w)
         gc.collect()
         torch.cuda.empty_cache()
+        wide = {}
+        for label, widths in (("d384", D384), ("d512", D512)):
+            wide[label] = phase_wide(card, power_w, widths, label,
+                                     WIDE_TRAIN_STEPS)
+            gc.collect()
+            torch.cuda.empty_cache()
+        print("heads: engine f32 tokens_per_s "
+              + ", ".join(f"{d} {tps:.2f}" for d, tps in (
+                  ("12 x 128", engine_tps), ("6 x 256", d256["engine_tps"]),
+                  ("4 x 384", wide["d384"]["engine_tps"]),
+                  ("3 x 512", wide["d512"]["engine_tps"])))
+              + "; train bf16 step_ms "
+              + ", ".join(f"{d} {ms:.2f}" for d, ms in (
+                  ("12 x 128", train_stats["step_ms"]),
+                  ("6 x 256", d256["step_ms"]),
+                  ("4 x 384", wide["d384"]["step_ms"]),
+                  ("3 x 512", wide["d512"]["step_ms"])))
+              + f" [{card}]", flush=True)
         moe_cfg = replace(train_cfg, **MOE)
         params = init_params(moe_cfg,
                              torch.Generator(device="cuda").manual_seed(2))
@@ -6373,7 +6523,8 @@ def main() -> int:
                                 dtype=MOE_TRAIN_SHAPE[1],
                                 layout=MOE_TRAIN_SHAPE[2],
                                 **rows[MOE_TRAIN_SHAPE]))] + bwd
-        + d256_kernel_entries(rows, bwd_rows, d256)}))
+        + d256_kernel_entries(rows, bwd_rows, d256)
+        + dslice_kernel_entries(rows, bwd_rows, wide)}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,5 +1,6 @@
 // Causal flash-attention backward for Hopper (sm_90a): two kernels, dK/dV
-// and dQ, each in two designs, one per input type.
+// and dQ, each in two designs, one per input type, and in D-slice designs
+// for heads wider than 256.
 //
 // Replaces: the backward of ray_tpu/ops/attention.py:flash_attention_tpu,
 // which is the Pallas TPU MHA kernel shipped with JAX
@@ -128,6 +129,32 @@
 //   costs four wavefronts): designs with more loads per FMA (256-thread
 //   blocks; S and dP in the same thread) measured slower.
 // - Each block owns the rows it writes: no atomics, bitwise-equal launches.
+//
+// Heads wider than 256 (D 384, 512, 1024: any multiple of 128):
+// flash_bwd_{dkv,dq}_{tc,f32}_dslice. Neither design above fits: the wide
+// bf16 kernels need 322,600 and 420,904 B of shared memory at D 384 and
+// 512, the float32 ones (F32Smem) 307,840 and 406,144 B, against 232,448,
+// and their dK/dV sums 192 and 256 floats a thread; D also has to be a
+// template constant. So a block owns one 128-column slice of its rows'
+// outputs (D / 128 blocks a row tile) and D is a runtime count of
+// 128-column chunks: per streamed tile, S (S^T) and dP (dP^T) are formed
+// chunk by chunk from all four tensors' chunks (two stages, chunk t + 1's
+// copies under chunk t's products); after the last chunk p and ds as
+// above, and only the sums use the slice: dV_slice += P^T dO_slice, dK_slice
+// += dS^T Q_slice, dQ_slice += dS K_slice. Every slice's block recomputes
+// S and dP whole: D / 128 times their work (4x at D 512).
+// - bf16: 64-row blocks of two warpgroups that split the work as the D-256
+//   kernels do (warpgroup 0 S and p, warpgroup 1 dP and ds, handed over by
+//   named barriers); every tile is 64 rows in 64-column TMA boxes. S is
+//   one chain over D; dP is summed as chains of four k-steps (64 columns)
+//   added in float32 in order, as gemm_abt_chained does. dK/dV: 189,984 B
+//   of shared memory, 215 registers; dQ: the same layout, 190 registers
+//   (each warpgroup 64 of the slice's columns); no spills (ptxas -v,
+//   sm_90a).
+// - float32: the 32-row blocks of 128 threads above, S and dP by
+//   sequential FMAs over d = 0 .. D - 1 in order, chunk after chunk into
+//   the same sums; dV, dK and dQ over the queries (keys) in order. 178,432
+//   B of shared memory; dK/dV 238 registers, dQ 168; no spills.
 
 #include <math.h>
 
@@ -196,29 +223,31 @@ __device__ __forceinline__ void copy_tile(float* dst, const float* src,
 }
 
 // Block order: the (batch, head) pairs in groups of `group`, and within a
-// group the heaviest tile of every pair first. This block's pair, and its
-// tile's rank (0 = heaviest) among a pair's n_t.
-__device__ __forceinline__ void f32_block(int n_t, int group, int& bh,
-                                          int& rank) {
-  const int n_bh = gridDim.x / n_t;
-  const int g0 = blockIdx.x / (group * n_t) * group;   // its first pair
+// group the heaviest tile of every pair first. Block `blk` of `n_blk`: its
+// pair, and its tile's rank (0 = heaviest) among a pair's n_t.
+__device__ __forceinline__ void f32_block(int blk, int n_blk, int n_t,
+                                          int group, int& bh, int& rank) {
+  const int n_bh = n_blk / n_t;
+  const int g0 = blk / (group * n_t) * group;   // its first pair
   const int g_size = min(group, n_bh - g0);
-  const int r = blockIdx.x - g0 * n_t;
+  const int r = blk - g0 * n_t;
   bh = g0 + r % g_size;
   rank = r / g_size;
 }
 
 // out[i][j] = sum over d in order of A[ty + kPy i][d] B[tx + 8 j][d], two
-// 32-row tiles of row stride D + 4.
+// 32-row tiles of row stride D + 4 (out += that sum unless `zero`).
 template <int D>
 __device__ __forceinline__ void tile_dots(const float* A, const float* B,
-                                          int ty, int tx,
-                                          float out[kPi][4]) {
+                                          int ty, int tx, float out[kPi][4],
+                                          bool zero = true) {
   constexpr int kLd = F32Smem<D>::kLd;
+  if (zero) {
 #pragma unroll
-  for (int i = 0; i < kPi; ++i)
+    for (int i = 0; i < kPi; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) out[i][j] = 0.f;
+      for (int j = 0; j < 4; ++j) out[i][j] = 0.f;
+  }
 #pragma unroll 4
   for (int d = 0; d < D; d += 4) {
     float4 a[kPi], b[4];
@@ -311,15 +340,16 @@ __device__ __forceinline__ void p_and_ds(float* P, float* dS,
   }
 }
 
-// Rows row0 + step i of a contiguous [B, S, H, D] float32 output, columns
+// Rows row0 + step i of a contiguous [B, S, H, ld] float32 output, columns
 // jj*64 + cx*4 .. +3.
 template <int D, int RT>
 __device__ __forceinline__ void store_rows(float* out, int b, int h, int S,
                                            int H, int row0, int step, int cx,
-                                           const float acc[RT][D / 16]) {
+                                           const float acc[RT][D / 16],
+                                           int64_t ld = D) {
 #pragma unroll
   for (int i = 0; i < RT; ++i) {
-    float* row = out + ((int64_t(b) * S + row0 + step * i) * H + h) * D;
+    float* row = out + ((int64_t(b) * S + row0 + step * i) * H + h) * ld;
 #pragma unroll
     for (int jj = 0; jj < D / 64; ++jj)
       *reinterpret_cast<float4*>(row + jj * 64 + cx * 4) =
@@ -344,7 +374,7 @@ flash_bwd_dkv_f32(const Args a, int group) {
 
   const int S = a.S, H = a.H;
   int bh, rank;
-  f32_block(S / kF32Rows, group, bh, rank);
+  f32_block(blockIdx.x, gridDim.x, S / kF32Rows, group, bh, rank);
   const int h = bh % H, b = bh / H;
   const int k0 = kF32Rows * rank;
   const int nq = S / kF32Rows - rank;   // q tiles q0 = k0 + 32 i
@@ -443,7 +473,7 @@ flash_bwd_dq_f32(const Args a, int group) {
 
   const int S = a.S, H = a.H, n_t = S / kF32Rows;
   int bh, rank;
-  f32_block(n_t, group, bh, rank);
+  f32_block(blockIdx.x, gridDim.x, n_t, group, bh, rank);
   const int h = bh % H, b = bh / H;
   const int qt = n_t - 1 - rank;
   const int q0 = kF32Rows * qt;
@@ -602,6 +632,7 @@ struct TcArgs {
   bf16* out0;  // dk (dkv kernel) or dq (dq kernel)
   bf16* out1;  // dv (dkv kernel)
   int S, H;
+  int nc;      // D / kChunk (the D-slice kernels)
   float scale;
 };
 
@@ -1265,6 +1296,640 @@ cudaError_t launch_tc(bool dkv, const Args& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Head dims above 256 (any multiple of 128: 384, 512, 1024): the D-slice
+// kernels (see the header). D is a runtime count of C-column chunks, nc =
+// D / C >= 3; a block owns output columns C sl .. C sl + C - 1 of its rows.
+
+constexpr int kChunk = 128;   // columns of a chunk of D and of a slice
+
+// Shared memory of the float32 D-slice kernels, in floats: two stages of
+// four 32-row chunks (dK/dV: K, V, Q, dO; dQ: Q, dO, K, V), rows C + 4
+// floats apart as in F32Smem<C>; the slice tiles (dK/dV: Q and dO; dQ: K);
+// 32 floats each of lse and di (dK/dV: per q tile) or the block's di (dQ);
+// the 32 x 32 p and ds tiles.
+template <int C>
+struct F32SliceSmem {
+  static constexpr int kTile = F32Smem<C>::kTile;
+  static constexpr int kStage = 4 * kTile;
+  static constexpr int kSl = 2 * kStage;
+  static constexpr int kLse = kSl + 2 * kTile;
+  static constexpr int kP = kLse + 2 * kF32Rows;
+  static constexpr int kBytes = (kP + 2 * kF32Rows * kLdP) * 4;
+};
+
+// dK/dV. Block (slice, 32-key tile, pair) in flash_bwd_dkv_f32's order, the
+// slices of one tile adjacent. Steps t = nc i + c over q tiles i (from the
+// diagonal down) and chunks c: warps 0-1 add the chunk's K_c Q_c^T to S^T,
+// warps 2-3 V_c dO_c^T to dP^T, by sequential FMAs, so q.k and dO.v run
+// over d = 0 .. D - 1 in order as in flash_bwd_dkv_f32. After the last
+// chunk, p^T and ds^T as there, then dV_slice += P^T dO_slice (warps 0-1)
+// and dK_slice += dS^T Q_slice (warps 2-3). Step t + 1's copies (with a
+// tile's last chunk also its Q and dO slices, lse and di: single buffers,
+// written under step t + 1 - 1 >= that tile's first step, after the last
+// tile's sums while nc >= 2) run under step t.
+template <int C>
+__global__ void __launch_bounds__(kF32Threads, 1)
+flash_bwd_dkv_f32_dslice(const Args a, int nc, int group) {
+  using L = F32SliceSmem<C>;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  float* Qsl = sm + L::kSl;
+  float* dOsl = Qsl + L::kTile;
+  float* lse_t = sm + L::kLse;
+  float* di_t = lse_t + kF32Rows;
+  float* Pt = sm + L::kP;             // the exponents, then p^T: [key][query]
+  float* dSt = Pt + kF32Rows * kLdP;  // dP^T, then ds^T
+
+  const int S = a.S, H = a.H;
+  const int64_t D = int64_t(nc) * C;
+  const int sl = blockIdx.x % nc;
+  int bh, rank;
+  f32_block(blockIdx.x / nc, gridDim.x / nc, S / kF32Rows, group, bh, rank);
+  const int h = bh % H, b = bh / H;
+  const int k0 = kF32Rows * rank;
+  const int nq = S / kF32Rows - rank;
+  const int n_steps = nq * nc;
+  const int tid = threadIdx.x;
+  const bool first = tid < kF32Threads / 2;   // S^T and dV; else dP^T, dK
+  const int th = tid % (kF32Threads / 2);
+  const int ty = th / 8, tx = th % 8;
+  const int ky = th / 16, cx = th % 16;
+  constexpr int kRows = kF32Rows * 16 / (kF32Threads / 2);
+  constexpr int kStep = kF32Rows / kRows;
+
+  const float* q = static_cast<const float*>(a.q) + b * a.qsb + h * a.qsh;
+  const float* kp = static_cast<const float*>(a.k) + b * a.ksb +
+                    h * a.ksh + k0 * a.kss;
+  const float* vp = static_cast<const float*>(a.v) + b * a.vsb +
+                    h * a.vsh + k0 * a.vss;
+  const int64_t dos = int64_t(H) * D;
+  const float* dout = static_cast<const float*>(a.dout) +
+                      (int64_t(b) * S * H + h) * D;
+  const float* lse = a.lse + (int64_t(b) * H + h) * S;
+  const float* di = a.di + (int64_t(b) * H + h) * S;
+  auto issue = [&](int t) {
+    const int i = t / nc, c = t % nc;
+    const int q0 = k0 + kF32Rows * i;
+    float* st = sm + (t % 2) * L::kStage;
+    copy_tile<C>(st, kp + c * C, a.kss, tid);
+    copy_tile<C>(st + L::kTile, vp + c * C, a.vss, tid);
+    copy_tile<C>(st + 2 * L::kTile, q + q0 * a.qss + c * C, a.qss, tid);
+    copy_tile<C>(st + 3 * L::kTile, dout + q0 * dos + c * C, dos, tid);
+    if (c == nc - 1) {
+      copy_tile<C>(Qsl, q + q0 * a.qss + sl * C, a.qss, tid);
+      copy_tile<C>(dOsl, dout + q0 * dos + sl * C, dos, tid);
+      if (tid < 16) {   // lse (chunks 0..7), then di
+        const float* src =
+            tid < 8 ? lse + q0 + 4 * tid : di + q0 + 4 * (tid - 8);
+        cp_async16(lse_t + 4 * tid, src);
+      }
+    }
+    cp_async_commit();
+  };
+  issue(0);
+
+  float acc[kRows][C / 16];   // dV (first warps) or dK, of the slice
+#pragma unroll
+  for (int i = 0; i < kRows; ++i)
+#pragma unroll
+    for (int c = 0; c < C / 16; ++c) acc[i][c] = 0.f;
+  float s[kPi][4];
+  const float scale = a.scale;
+
+  for (int t = 0; t < n_steps; ++t) {
+    const int i = t / nc, c = t % nc;
+    cp_async_wait<0>();
+    __syncthreads();   // step t's copies have landed; step t - 1 is done
+    if (t + 1 < n_steps) issue(t + 1);
+    const float* st = sm + (t % 2) * L::kStage;
+    tile_dots<C>(first ? st : st + L::kTile,
+                 first ? st + 2 * L::kTile : st + 3 * L::kTile, ty, tx, s,
+                 c == 0);
+    if (c < nc - 1) continue;
+#pragma unroll
+    for (int ii = 0; ii < kPi; ++ii)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int key = ty + kPy * ii, qry = tx + 8 * j;
+        if (first) {
+          Pt[key * kLdP + qry] = (i == 0 && key > qry)
+                                     ? -INFINITY
+                                     : s[ii][j] * scale - lse_t[qry];
+        } else {
+          dSt[key * kLdP + qry] = s[ii][j];
+        }
+      }
+    __syncthreads();   // the exponents and dP^T are complete
+    p_and_ds<false>(Pt, dSt, di_t, scale, tid);
+    __syncthreads();   // p^T and ds^T are complete
+    tile_accumulate<C, kRows>(first ? Pt : dSt, first ? dOsl : Qsl, ky,
+                              kStep, cx, acc);
+  }
+
+  store_rows<C, kRows>(static_cast<float*>(first ? a.out1 : a.out0) + sl * C,
+                       b, h, S, H, k0 + ky, kStep, cx, acc, D);
+}
+
+// dQ. Block (slice, 32-query tile, pair) in flash_bwd_dq_f32's order.
+// Steps t = nc j + c over k tiles j (up to the diagonal) and chunks c:
+// warps 0-1 add Q_c K_c^T to S, warps 2-3 dO_c V_c^T to dP, in order over
+// d as in flash_bwd_dq_f32; after the last chunk p and ds, then all four
+// warps dQ_slice += dS K_slice.
+template <int C>
+__global__ void __launch_bounds__(kF32Threads, 1)
+flash_bwd_dq_f32_dslice(const Args a, int nc, int group) {
+  using L = F32SliceSmem<C>;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  float* Ksl = sm + L::kSl;
+  float* di_s = sm + L::kLse;
+  float* Ps = sm + L::kP;             // the exponents, then p: [query][key]
+  float* dSs = Ps + kF32Rows * kLdP;  // dP, then ds
+
+  const int S = a.S, H = a.H, n_t = S / kF32Rows;
+  const int64_t D = int64_t(nc) * C;
+  const int sl = blockIdx.x % nc;
+  int bh, rank;
+  f32_block(blockIdx.x / nc, gridDim.x / nc, n_t, group, bh, rank);
+  const int h = bh % H, b = bh / H;
+  const int qt = n_t - 1 - rank;
+  const int q0 = kF32Rows * qt;
+  const int n_steps = (qt + 1) * nc;
+  const int tid = threadIdx.x;
+  const bool first = tid < kF32Threads / 2;   // S; else dP
+  const int th = tid % (kF32Threads / 2);
+  const int ty = th / 8, tx = th % 8;
+  const int qy = tid / 16, cx = tid % 16;
+  constexpr int kRows = kF32Rows * 16 / kF32Threads;
+  constexpr int kStep = kF32Rows / kRows;
+
+  const float* qp = static_cast<const float*>(a.q) + b * a.qsb + h * a.qsh +
+                    q0 * a.qss;
+  const int64_t dos = int64_t(H) * D;
+  const float* dop = static_cast<const float*>(a.dout) +
+                     (int64_t(b) * S * H + h) * D + q0 * dos;
+  const float* k = static_cast<const float*>(a.k) + b * a.ksb + h * a.ksh;
+  const float* v = static_cast<const float*>(a.v) + b * a.vsb + h * a.vsh;
+  auto issue = [&](int t) {
+    const int j = t / nc, c = t % nc;
+    const float* kj = k + kF32Rows * j * a.kss;
+    float* st = sm + (t % 2) * L::kStage;
+    copy_tile<C>(st, qp + c * C, a.qss, tid);
+    copy_tile<C>(st + L::kTile, dop + c * C, dos, tid);
+    copy_tile<C>(st + 2 * L::kTile, kj + c * C, a.kss, tid);
+    copy_tile<C>(st + 3 * L::kTile, v + kF32Rows * j * a.vss + c * C, a.vss,
+                 tid);
+    if (c == nc - 1) copy_tile<C>(Ksl, kj + sl * C, a.kss, tid);
+    cp_async_commit();
+  };
+  issue(0);
+
+  const float* lse = a.lse + (int64_t(b) * H + h) * S + q0;
+  float rv[kPi];
+#pragma unroll
+  for (int ii = 0; ii < kPi; ++ii) rv[ii] = lse[ty + kPy * ii];
+  if (tid < kF32Rows) di_s[tid] = a.di[(int64_t(b) * H + h) * S + q0 + tid];
+  float acc[kRows][C / 16];   // dQ of the slice
+#pragma unroll
+  for (int i = 0; i < kRows; ++i)
+#pragma unroll
+    for (int c = 0; c < C / 16; ++c) acc[i][c] = 0.f;
+  float s[kPi][4];
+  const float scale = a.scale;
+
+  for (int t = 0; t < n_steps; ++t) {
+    const int j = t / nc, c = t % nc;
+    cp_async_wait<0>();
+    __syncthreads();   // step t's copies have landed; step t - 1 is done
+    if (t + 1 < n_steps) issue(t + 1);
+    const float* st = sm + (t % 2) * L::kStage;
+    tile_dots<C>(first ? st : st + L::kTile,
+                 first ? st + 2 * L::kTile : st + 3 * L::kTile, ty, tx, s,
+                 c == 0);
+    if (c < nc - 1) continue;
+#pragma unroll
+    for (int ii = 0; ii < kPi; ++ii)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int qry = ty + kPy * ii, key = tx + 8 * jj;
+        if (first) {
+          Ps[qry * kLdP + key] = (j == qt && key > qry)
+                                     ? -INFINITY
+                                     : s[ii][jj] * scale - rv[ii];
+        } else {
+          dSs[qry * kLdP + key] = s[ii][jj];
+        }
+      }
+    __syncthreads();   // the exponents and dP are complete
+    p_and_ds<true>(Ps, dSs, di_s, scale, tid);
+    __syncthreads();   // ds is complete
+    tile_accumulate<C, kRows>(dSs, Ksl, qy, kStep, cx, acc);   // dS K
+  }
+
+  store_rows<C, kRows>(static_cast<float*>(a.out0) + sl * C, b, h, S, H,
+                       q0 + qy, kStep, cx, acc, D);
+}
+
+cudaError_t launch_f32_dslice(bool dkv, const Args& a, int B, int D,
+                              cudaStream_t stream) {
+  constexpr int C = kChunk;
+  constexpr int kSmem = F32SliceSmem<C>::kBytes;
+  static SmemLimit dkv_limit{
+      reinterpret_cast<const void*>(&flash_bwd_dkv_f32_dslice<C>), kSmem};
+  static SmemLimit dq_limit{
+      reinterpret_cast<const void*>(&flash_bwd_dq_f32_dslice<C>), kSmem};
+  const cudaError_t err = (dkv ? dkv_limit : dq_limit).apply();
+  if (err != cudaSuccess) return err;
+  // launch_f32's groups of pairs whose streamed pair of tensors fits about
+  // 32 MB of L2.
+  const int64_t pair_bytes = int64_t(2) * a.S * D * 4;
+  const int group = static_cast<int>(std::max<int64_t>(
+      1, std::min<int64_t>(int64_t(B) * a.H,
+                           (int64_t(32) << 20) / pair_bytes)));
+  const int nc = D / C;
+  const dim3 grid(B * a.H * (a.S / kF32Rows) * nc);
+  if (dkv) {
+    flash_bwd_dkv_f32_dslice<C><<<grid, kF32Threads, kSmem, stream>>>(
+        a, nc, group);
+  } else {
+    flash_bwd_dq_f32_dslice<C><<<grid, kF32Threads, kSmem, stream>>>(
+        a, nc, group);
+  }
+  return cudaGetLastError();
+}
+
+// Shared memory of both bf16 D-slice kernels: two stages of four 64-row
+// chunks (dK/dV: K, V, Q, dO; dQ: Q, dO, K, V), the slice tiles (dK/dV: Q
+// and dO; dQ: K), the hand-over buffers (p: 64 x 64 float32; dS's A
+// fragments: 64 x 64 bf16, dQ only), 64 floats each of lse and di (dK/dV),
+// then the mbarriers. A chunk or slice is C / 64 slabs of [64][64] bf16,
+// 1024-byte aligned for the swizzle.
+template <int C>
+struct TcSliceSmem {
+  static constexpr int kTile = 64 * C * 2;
+  static constexpr int kStage = 4 * kTile;
+  static constexpr int kSl = 2 * kStage;
+  static constexpr int kP = kSl + 2 * kTile;
+  static constexpr int kDs = kP + 64 * 64 * 4;
+  static constexpr int kLse = kDs + 64 * 64 * 2;
+  static constexpr int kBars = kLse + 2 * 64 * 4;
+  static constexpr int kBytes = 1024 + kBars + 4 * 8;   // + alignment slack
+  static_assert(kBytes <= 232448, "a block's shared memory");
+};
+
+// Step t's four chunks into stage t % 2 (thread 0): chunk c of A0 and A1
+// (rows a_row) and of B0 and B1 (rows b_row), each C / 64 boxes of 64
+// columns, completing on `bar` with `extra` more bytes expected.
+template <int C>
+__device__ __forceinline__ void issue_chunks(
+    uint8_t* st, uint64_t* bar, uint32_t extra, const CUtensorMap* a0,
+    const CUtensorMap* a1, int a_row, const CUtensorMap* b0,
+    const CUtensorMap* b1, int b_row, int c, int h, int b) {
+  constexpr int NS = C / 64, kTile = TcSliceSmem<C>::kTile;
+  mbar_expect(bar, 4 * kTile + extra);
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    const int col = (NS * c + s) * kSlab;
+    tma_load(st + s * 64 * 128, a0, bar, col, h, a_row, b);
+    tma_load(st + kTile + s * 64 * 128, a1, bar, col, h, a_row, b);
+    tma_load(st + 2 * kTile + s * 64 * 128, b0, bar, col, h, b_row, b);
+    tma_load(st + 3 * kTile + s * 64 * 128, b1, bar, col, h, b_row, b);
+  }
+}
+
+// One step's products of both warpgroups: warpgroup 0 adds A0_c B0_c^T to
+// x (S or S^T: one chain over the whole of D, as the kernels above);
+// warpgroup 1 adds A1_c B1_c^T to x (dP or dP^T) as two chains of four
+// k-steps (64 columns), each added to x in float32 in order, x zeroed at
+// chunk 0: the chains of gemm_abt_chained.
+template <int C>
+__device__ __forceinline__ void step_products(float (&x)[32], float (&x2)[32],
+                                              float (&x3)[32],
+                                              const uint8_t* st, int wg,
+                                              int c) {
+  constexpr int kTile = TcSliceSmem<C>::kTile;
+  static_assert(C == 128, "two chains of four k-steps a chunk");
+  wgmma_fence();
+  if (wg == 0) {
+    gemm_abt<C>(x, st, 64, 0, st + 2 * kTile, 64, 0, c > 0);
+  } else {
+    gemm_abt<C, 0, 4>(x2, st + kTile, 64, 0, st + 3 * kTile, 64, 0);
+    gemm_abt<C, 4, 8>(x3, st + kTile, 64, 0, st + 3 * kTile, 64, 0);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  reg_fence(x);
+  reg_fence(x2);
+  reg_fence(x3);
+  if (wg == 1) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      x[i] = (c == 0 ? 0.f : x[i]) + x2[i];
+      x[i] += x3[i];
+    }
+  }
+}
+
+// dK/dV. Block (head and slice, batch, 64-key tile), the most q tiles
+// first; both warpgroups own keys k0 .. k0 + 63. Steps t = nc i + c over q
+// tiles i (0 is diagonal) and chunks c: warpgroup 0 forms S^T = K Q^T,
+// warpgroup 1 dP^T = V dO^T (step_products). After a tile's last chunk
+// warpgroup 0 makes p^T and hands it over, warpgroup 1 makes ds^T, and
+// they accumulate dV_slice += P^T dO_slice and dK_slice += dS^T Q_slice
+// (m64n128k16), as flash_bwd_dkv_tc_wide does at D 256.
+template <int C>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_bwd_dkv_tc_dslice(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tdo,
+                        const TcArgs a) {
+  using L = TcSliceSmem<C>;
+  constexpr int NS = C / 64;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align1024(smem_raw);
+  uint8_t* Qsl = sm + L::kSl;
+  uint8_t* dOsl = Qsl + L::kTile;
+  float* px = reinterpret_cast<float*>(sm + L::kP);
+  const float* lse_t = reinterpret_cast<const float*>(sm + L::kLse);
+  const float* di_t = lse_t + 64;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::kBars);
+  uint64_t* empty = full + 2;
+
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int wg = tid / 128, t_ = tid % 128, warp = t_ / 32;
+  const int nc = a.nc, sl = blockIdx.x % nc, h = blockIdx.x / nc;
+  const int b = blockIdx.y;
+  const int S = a.S, H = a.H;
+  const int k0 = 64 * blockIdx.z;
+  const int nq = (S - k0) / 64;
+  const int n_steps = nq * nc;
+  const float* lse = a.lse + (int64_t(b) * H + h) * S;
+  const float* di = a.di + (int64_t(b) * H + h) * S;
+
+  // With a tile's last chunk also its Q and dO slices, lse and di: single
+  // buffers, as the forward's V slice (step t + 2 is issued once every
+  // warp is done with step t; nc >= 3).
+  auto issue = [&](int t) {
+    const int i = t / nc, c = t % nc, q0 = k0 + 64 * i;
+    const bool last = c == nc - 1;
+    uint64_t* bar = full + t % 2;
+    issue_chunks<C>(sm + (t % 2) * L::kStage, bar,
+                    last ? 2 * L::kTile + 2 * 64 * 4 : 0, &tk, &tv, k0,
+                    &tq, &tdo, q0, c, h, b);
+    if (last) {
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        tma_load(Qsl + s * 64 * 128, &tq, bar, (NS * sl + s) * kSlab, h, q0,
+                 b);
+        tma_load(dOsl + s * 64 * 128, &tdo, bar, (NS * sl + s) * kSlab, h,
+                 q0, b);
+      }
+      bulk_load(sm + L::kLse, lse + q0, 64 * 4, bar);
+      bulk_load(sm + L::kLse + 64 * 4, di + q0, 64 * 4, bar);
+    }
+  };
+
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, kTcThreads / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    issue(0);
+    issue(1);   // n_steps >= nc >= 3
+  }
+  __syncwarp();
+
+  // acc: dV (warpgroup 0) or dK of the slice; x: S^T or dP^T
+  float acc[NS][32], x[32], x2[32], x3[32];
+  zero<C>(acc);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) x[i] = x2[i] = x3[i] = 0.f;
+  const int row0 = 16 * warp + lane / 4;
+  const float scale = a.scale, scale_log2 = a.scale * kLog2e;
+
+  for (int t = 0; t < n_steps; ++t) {
+    const int i = t / nc, c = t % nc;
+    const int parity = (t / 2) % 2;
+    const uint8_t* st = sm + (t % 2) * L::kStage;
+    mbar_wait(full + t % 2, parity);
+    step_products<C>(x, x2, x3, st, wg, c);
+    if (c == nc - 1) {
+      uint32_t frag[4][4];
+      if (wg == 0) {
+        tile_p<true>(x, i == 0, row0, lane,
+                     [&](int e) { return lse_t[acc_col(e, lane)] * kLog2e; },
+                     scale_log2);
+        if (i > 0) bar_sync(kBarPFree);   // warpgroup 1 has read p of i - 1
+#pragma unroll
+        for (int e = 0; e < 32; ++e) px[e * 128 + t_] = x[e];
+        bar_arrive(kBarPReady);
+      } else {
+        bar_sync(kBarPReady);
+#pragma unroll
+        for (int e = 0; e < 32; ++e)
+          x[e] = px[e * 128 + t_] * (x[e] - di_t[acc_col(e, lane)]) * scale;
+        if (i + 1 < nq) bar_arrive(kBarPFree);
+      }
+      to_frags(x, frag);
+      wgmma_fence();
+      gemm_ax_wide<C>(acc, frag, wg == 0 ? dOsl : Qsl, 64, 0);   // dV or dK
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int s = 0; s < NS; ++s) reg_fence(acc[s]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + t % 2);
+    if (tid == 0 && t + 2 < n_steps) {
+      mbar_wait(empty + t % 2, parity);
+      issue(t + 2);
+    }
+    __syncwarp();
+  }
+
+  const int64_t D = int64_t(nc) * C, rs = int64_t(H) * D;
+  const int64_t base = ((int64_t(b) * S + k0) * H + h) * D + sl * C;
+  store_tile<C>((wg == 0 ? a.out1 : a.out0) + base, rs, acc, row0, lane);
+}
+
+// dQ. Block (head and slice, batch, 64-query tile), the last q tile first;
+// both warpgroups own queries q0 .. q0 + 63. Steps t = nc j + c over k
+// tiles j (up to the diagonal) and chunks c: warpgroup 0 forms S = Q K^T,
+// warpgroup 1 dP = dO V^T (step_products). After a tile's last chunk
+// warpgroup 0 makes p and hands it over, warpgroup 1 makes ds and hands
+// its bf16 A fragments back, and each accumulates half of the slice:
+// dQ[:, C sl + C/2 wg ..] += dS K[:, C sl + C/2 wg ..] (m64n64k16), as
+// flash_bwd_dq_tc_wide does at D 256.
+template <int C>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_bwd_dq_tc_dslice(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tdo,
+                       const TcArgs a) {
+  using L = TcSliceSmem<C>;
+  constexpr int NS = C / 64, HALF = C / 2;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align1024(smem_raw);
+  uint8_t* Ksl = sm + L::kSl;
+  float* px = reinterpret_cast<float*>(sm + L::kP);
+  uint32_t* dsx = reinterpret_cast<uint32_t*>(sm + L::kDs);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::kBars);
+  uint64_t* empty = full + 2;
+
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int wg = tid / 128, t_ = tid % 128, warp = t_ / 32;
+  const int nc = a.nc, sl = blockIdx.x % nc, h = blockIdx.x / nc;
+  const int b = blockIdx.y;
+  const int S = a.S, H = a.H;
+  const int q0 = 64 * (gridDim.z - 1 - blockIdx.z);
+  const int nk = q0 / 64 + 1;
+  const int n_steps = nk * nc;
+
+  // With a tile's last chunk also its K slice (a single buffer, as in the
+  // dK/dV kernel).
+  auto issue = [&](int t) {
+    const int j = t / nc, c = t % nc;
+    const bool last = c == nc - 1;
+    uint64_t* bar = full + t % 2;
+    issue_chunks<C>(sm + (t % 2) * L::kStage, bar, last ? L::kTile : 0, &tq,
+                    &tdo, q0, &tk, &tv, 64 * j, c, h, b);
+    if (last) {
+#pragma unroll
+      for (int s = 0; s < NS; ++s)
+        tma_load(Ksl + s * 64 * 128, &tk, bar, (NS * sl + s) * kSlab, h,
+                 64 * j, b);
+    }
+  };
+
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, kTcThreads / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    issue(0);
+    issue(1);   // n_steps >= nc >= 3
+  }
+  __syncwarp();
+
+  const int row0 = 16 * warp + lane / 4;
+  const float* lse = a.lse + (int64_t(b) * H + h) * S + q0;
+  const float* di = a.di + (int64_t(b) * H + h) * S + q0;
+  const float lse2[2] = {lse[row0] * kLog2e, lse[row0 + 8] * kLog2e};
+  const float dir[2] = {di[row0], di[row0 + 8]};
+  float acc[HALF / 64][32], x[32], x2[32], x3[32];   // acc: dQ[:, HALF wg ..]
+  zero<HALF>(acc);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) x[i] = x2[i] = x3[i] = 0.f;
+  const float scale = a.scale, scale_log2 = a.scale * kLog2e;
+
+  for (int t = 0; t < n_steps; ++t) {
+    const int j = t / nc, c = t % nc;
+    const int parity = (t / 2) % 2;
+    const uint8_t* st = sm + (t % 2) * L::kStage;
+    mbar_wait(full + t % 2, parity);
+    step_products<C>(x, x2, x3, st, wg, c);
+    if (c == nc - 1) {
+      uint32_t frag[4][4];
+      if (wg == 0) {
+        tile_p<false>(x, j == nk - 1, row0, lane,
+                      [&](int e) { return lse2[(e / 2) % 2]; }, scale_log2);
+#pragma unroll
+        for (int e = 0; e < 32; ++e) px[e * 128 + t_] = x[e];
+        bar_arrive(kBarPReady);
+        bar_sync(kBarDsReady);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            frag[jj][r] = dsx[(4 * jj + r) * 128 + t_];
+      } else {
+        bar_sync(kBarPReady);
+#pragma unroll
+        for (int e = 0; e < 32; ++e)
+          x[e] = px[e * 128 + t_] * (x[e] - dir[(e / 2) % 2]) * scale;
+        to_frags(x, frag);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            dsx[(4 * jj + r) * 128 + t_] = frag[jj][r];
+        bar_arrive(kBarDsReady);
+      }
+      wgmma_fence();
+      gemm_ax<HALF>(acc, frag, Ksl + wg * (HALF / 64) * 64 * 128, 64,
+                    0);                                            // dS K
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int s = 0; s < HALF / 64; ++s) reg_fence(acc[s]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + t % 2);
+    if (tid == 0 && t + 2 < n_steps) {
+      mbar_wait(empty + t % 2, parity);
+      issue(t + 2);
+    }
+    __syncwarp();
+  }
+
+  const int64_t D = int64_t(nc) * C, rs = int64_t(H) * D;
+  store_tile<HALF>(a.out0 + ((int64_t(b) * S + q0) * H + h) * D + sl * C +
+                       HALF * wg,
+                   rs, acc, row0, lane);
+}
+
+// The bf16 D-slice kernels: every tensor map in 64-row boxes of 64
+// columns.
+cudaError_t launch_tc_dslice(bool dkv, const Args& a, int B, int D,
+                             cudaStream_t stream) {
+  constexpr int C = kChunk;
+  const int S = a.S, H = a.H;
+  const int64_t qs[3] = {a.qsb, a.qss, a.qsh}, ks[3] = {a.ksb, a.kss, a.ksh},
+                vs[3] = {a.vsb, a.vss, a.vsh},
+                ds[3] = {int64_t(S) * H * D, int64_t(H) * D, D};
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err;
+  if ((err = make_map(&tq, a.q, B, S, H, D, qs, 64)) != cudaSuccess ||
+      (err = make_map(&tk, a.k, B, S, H, D, ks, 64)) != cudaSuccess ||
+      (err = make_map(&tv, a.v, B, S, H, D, vs, 64)) != cudaSuccess ||
+      (err = make_map(&tdo, a.dout, B, S, H, D, ds, 64)) != cudaSuccess)
+    return err;
+  TcArgs t;
+  t.lse = a.lse;
+  t.di = a.di;
+  t.out0 = static_cast<bf16*>(a.out0);
+  t.out1 = static_cast<bf16*>(a.out1);
+  t.S = S;
+  t.H = H;
+  t.nc = D / C;
+  t.scale = a.scale;
+  constexpr int kSmem = TcSliceSmem<C>::kBytes;
+  static SmemLimit dkv_limit{
+      reinterpret_cast<const void*>(&flash_bwd_dkv_tc_dslice<C>), kSmem};
+  static SmemLimit dq_limit{
+      reinterpret_cast<const void*>(&flash_bwd_dq_tc_dslice<C>), kSmem};
+  if ((err = (dkv ? dkv_limit : dq_limit).apply()) != cudaSuccess)
+    return err;
+  const auto kernel =
+      dkv ? flash_bwd_dkv_tc_dslice<C> : flash_bwd_dq_tc_dslice<C>;
+  kernel<<<dim3(H * t.nc, B, S / 64), kTcThreads, kSmem, stream>>>(
+      tq, tk, tv, tdo, t);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1288,6 +1953,10 @@ int flash_attn_bwd_dkv(int dtype, const void* q, const void* k, const void* v,
   if (dtype == 1 && D == 128) return launch_tc<128>(true, a, B, st);
   if (dtype == 0 && D == 256) return launch_f32<256>(true, a, B, st);
   if (dtype == 1 && D == 256) return launch_tc<256>(true, a, B, st);
+  if (D > 256 && D % kChunk == 0 && dtype == 0)
+    return launch_f32_dslice(true, a, B, D, st);
+  if (D > 256 && D % kChunk == 0 && dtype == 1)
+    return launch_tc_dslice(true, a, B, D, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1305,6 +1974,10 @@ int flash_attn_bwd_dq(int dtype, const void* q, const void* k, const void* v,
   if (dtype == 1 && D == 128) return launch_tc<128>(false, a, B, st);
   if (dtype == 0 && D == 256) return launch_f32<256>(false, a, B, st);
   if (dtype == 1 && D == 256) return launch_tc<256>(false, a, B, st);
+  if (D > 256 && D % kChunk == 0 && dtype == 0)
+    return launch_f32_dslice(false, a, B, D, st);
+  if (D > 256 && D % kChunk == 0 && dtype == 1)
+    return launch_tc_dslice(false, a, B, D, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

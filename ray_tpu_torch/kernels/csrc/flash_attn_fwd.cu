@@ -81,6 +81,33 @@
 //   every copy runs under a product: V of tile j under S_j = Q K_j^T, and
 //   K of tile j + 1 under P_j V_j. About 91 KB a block at D 128, so two
 //   blocks share an SM.
+//
+// Heads wider than 256 (D 384, 512, 1024: any multiple of 128 that JAX's
+// rule sends to its kernel): flash_fwd_tc_dslice and flash_fwd_f32_dslice.
+// The designs above hold a whole row of Q, K or V in shared memory and a
+// whole row of O in registers, which at D 384 and 512 outgrow both (TcSmem
+// 295,976 and 394,280 B, F32Smem 256,000 and 337,920 B against 232,448;
+// O's sums 192 and 256 registers a thread), and D has to be a template
+// constant. So a block owns one 128-column slice of O (grid: slices x
+// q tiles x pairs, D / 128 slices, one per chunk) and D is a runtime count
+// of 128-column chunks. Per key tile, S = Q K^T is streamed over D chunk
+// by chunk (two stages: chunk t + 1's copies run under chunk t's
+// products); after the last chunk come the online softmax of the kernels
+// above, unchanged (so p is rounded to bf16 where it is there), and
+// O_slice += P V_slice. Every slice's block computes the same S, row max
+// and sum bit for bit; slice 0 writes the logsumexp. The cost: each block
+// computes the whole of S, D / 128 times the S work in all (4x at D
+// 512).
+// - bf16: two warpgroups of 64 queries a block; a stage holds a chunk of
+//   Q (128 rows) and of K (64 rows) as two 64-column TMA boxes each (a
+//   box is at most 256 elements wide), the V slice a buffer of its own
+//   loaded with a tile's last chunk. S is one chain of wgmma k-steps over
+//   the whole of D, as in flash_fwd_tc. 115,744 B of shared memory, 167
+//   registers a thread, no spills (ptxas -v, sm_90a): one block an SM.
+// - float32: flash_fwd_f32's 8 x 16 thread grid and 32-query blocks; q.k
+//   by sequential FMAs over d = 0 .. D - 1 in order, chunk after chunk
+//   into the same sum. 142,848 B of shared memory, 168 registers, no
+//   spills: one block an SM.
 
 #include <math.h>
 
@@ -114,6 +141,121 @@ __device__ __forceinline__ void copy_rows(float* dst, const float* src,
     const int r = i / kChunks;
     const int c = (i % kChunks) * 4;
     cp_async16(dst + r * LD + c, src + r * rs + c);
+  }
+}
+
+// s[i][j] += sum over d < D in order of Q[ty + kTy i][d] K[tx + kTx j][d]
+// by sequential FMAs (rows of Q and K LDQ and LDK floats apart).
+template <int D, int LDQ, int LDK>
+__device__ __forceinline__ void f32_tile_dots(const float* Qs,
+                                              const float* Ks,
+                                              float (&s)[kRT][kCT], int ty,
+                                              int tx) {
+#pragma unroll 4
+  for (int d = 0; d < D; d += 4) {
+    float4 qa[kRT], kb[kCT];
+#pragma unroll
+    for (int i = 0; i < kRT; ++i)
+      qa[i] = *reinterpret_cast<const float4*>(Qs + (ty + kTy * i) * LDQ + d);
+#pragma unroll
+    for (int j = 0; j < kCT; ++j)
+      kb[j] = *reinterpret_cast<const float4*>(Ks + (tx + kTx * j) * LDK + d);
+#pragma unroll
+    for (int i = 0; i < kRT; ++i)
+#pragma unroll
+      for (int j = 0; j < kCT; ++j) {
+        float a = s[i][j];
+        a = fmaf(qa[i].x, kb[j].x, a);
+        a = fmaf(qa[i].y, kb[j].y, a);
+        a = fmaf(qa[i].z, kb[j].z, a);
+        a = fmaf(qa[i].w, kb[j].w, a);
+        s[i][j] = a;
+      }
+  }
+}
+
+// The online softmax of one 64-key tile for this thread's rows ty + kTy i:
+// s (q.k) becomes p = exp(s scale - m_new) in place, -inf (so 0) where key
+// > query on a tile that reaches past the block's first query q0; the
+// running max m and sum l move, and the output sums acc are rescaled.
+template <int NACC>
+__device__ __forceinline__ void f32_tile_softmax(float (&s)[kRT][kCT],
+                                                 float (&m)[kRT],
+                                                 float (&l)[kRT],
+                                                 float (&acc)[kRT][NACC],
+                                                 int q0, int k0, int ty,
+                                                 int tx, float scale) {
+  // Only tiles reaching past the block's first query hold masked keys.
+  const bool masked = k0 + kF32Keys - 1 > q0;
+#pragma unroll
+  for (int i = 0; i < kRT; ++i) {
+    const int row = q0 + ty + kTy * i;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < kCT; ++j) {
+      float x = s[i][j] * scale;
+      if (masked && k0 + tx + kTx * j > row) x = -INFINITY;
+      s[i][j] = x;
+      mx = fmaxf(mx, x);
+    }
+#pragma unroll
+    for (int off = kTx / 2; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    // Tile 0 holds key 0 <= row, so m_new is finite from the first tile
+    // on (a later tile whose keys are all masked leaves it, and alpha
+    // is 1).
+    const float m_new = fmaxf(m[i], mx);
+    const float alpha = expf(m[i] - m_new);
+    m[i] = m_new;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < kCT; ++j) {
+      const float p = expf(s[i][j] - m_new);
+      sum += p;
+      s[i][j] = p;
+    }
+#pragma unroll
+    for (int off = kTx / 2; off > 0; off >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    l[i] = l[i] * alpha + sum;
+#pragma unroll
+    for (int c = 0; c < NACC; ++c) acc[i][c] *= alpha;
+  }
+}
+
+// acc[i][4 g + e] += sum over the tile's 64 keys in order of P[ty + kTy i]
+// [key] V[key][4 kTx g + 4 tx + e]: P of row stride kF32Keys + 4, V of
+// row stride LDV.
+template <int NG, int LDV>
+__device__ __forceinline__ void f32_tile_pv(const float* Ps, const float* Vs,
+                                            float (&acc)[kRT][4 * NG], int ty,
+                                            int tx) {
+  constexpr int kLdP = kF32Keys + 4;
+#pragma unroll 2
+  for (int c = 0; c < kF32Keys; c += 4) {
+    float4 pa[kRT];
+#pragma unroll
+    for (int i = 0; i < kRT; ++i)
+      pa[i] = *reinterpret_cast<const float4*>(Ps + (ty + kTy * i) * kLdP +
+                                               c);
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) {
+#pragma unroll
+      for (int g = 0; g < NG; ++g) {
+        const float4 vb = *reinterpret_cast<const float4*>(
+            Vs + (c + cc) * LDV + 4 * kTx * g + tx * 4);
+#pragma unroll
+        for (int i = 0; i < kRT; ++i) {
+          const float p = cc == 0 ? pa[i].x
+                        : cc == 1 ? pa[i].y
+                        : cc == 2 ? pa[i].z : pa[i].w;
+          acc[i][g * 4 + 0] = fmaf(p, vb.x, acc[i][g * 4 + 0]);
+          acc[i][g * 4 + 1] = fmaf(p, vb.y, acc[i][g * 4 + 1]);
+          acc[i][g * 4 + 2] = fmaf(p, vb.z, acc[i][g * 4 + 2]);
+          acc[i][g * 4 + 3] = fmaf(p, vb.w, acc[i][g * 4 + 3]);
+        }
+      }
+    }
   }
 }
 
@@ -191,66 +333,9 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < kRT; ++i)
 #pragma unroll
       for (int j = 0; j < kCT; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 qa[kRT], kb[kCT];
-#pragma unroll
-      for (int i = 0; i < kRT; ++i)
-        qa[i] = *reinterpret_cast<const float4*>(
-            Qs + (ty + kTy * i) * L::kLdQ + d);
-#pragma unroll
-      for (int j = 0; j < kCT; ++j)
-        kb[j] = *reinterpret_cast<const float4*>(
-            Ks + (tx + kTx * j) * L::kLdK + d);
-#pragma unroll
-      for (int i = 0; i < kRT; ++i)
-#pragma unroll
-        for (int j = 0; j < kCT; ++j) {
-          float a = s[i][j];
-          a = fmaf(qa[i].x, kb[j].x, a);
-          a = fmaf(qa[i].y, kb[j].y, a);
-          a = fmaf(qa[i].z, kb[j].z, a);
-          a = fmaf(qa[i].w, kb[j].w, a);
-          s[i][j] = a;
-        }
-    }
+    f32_tile_dots<D, L::kLdQ, L::kLdK>(Qs, Ks, s, ty, tx);
 
-    // Only tiles reaching past the block's first query hold masked keys.
-    const bool masked = k0 + kF32Keys - 1 > q0;
-#pragma unroll
-    for (int i = 0; i < kRT; ++i) {
-      const int row = q0 + ty + kTy * i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < kCT; ++j) {
-        float x = s[i][j] * scale;
-        if (masked && k0 + tx + kTx * j > row) x = -INFINITY;
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-#pragma unroll
-      for (int off = kTx / 2; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      // Tile 0 holds key 0 <= row, so m_new is finite from the first tile
-      // on (a later tile whose keys are all masked leaves it, and alpha
-      // is 1).
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      m[i] = m_new;
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kCT; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        sum += p;
-        s[i][j] = p;
-      }
-#pragma unroll
-      for (int off = kTx / 2; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l[i] = l[i] * alpha + sum;
-#pragma unroll
-      for (int c = 0; c < 4 * NG; ++c) acc[i][c] *= alpha;
-    }
+    f32_tile_softmax(s, m, l, acc, q0, k0, ty, tx, scale);
 
     __syncthreads();  // every thread is done reading Ks
     if (kt + 1 < nk) {
@@ -265,33 +350,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
         Ps[(ty + kTy * i) * L::kLdP + tx + kTx * j] = s[i][j];
     cp_async_wait<1>();  // this thread's copies of V have landed
     __syncthreads();     // everyone's, and all of P
-
-#pragma unroll 2
-    for (int c = 0; c < kF32Keys; c += 4) {
-      float4 pa[kRT];
-#pragma unroll
-      for (int i = 0; i < kRT; ++i)
-        pa[i] = *reinterpret_cast<const float4*>(
-            Ps + (ty + kTy * i) * L::kLdP + c);
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-#pragma unroll
-        for (int g = 0; g < NG; ++g) {
-          const float4 vb = *reinterpret_cast<const float4*>(
-              Vs + (c + cc) * L::kLdV + 4 * kTx * g + tx * 4);
-#pragma unroll
-          for (int i = 0; i < kRT; ++i) {
-            const float p = cc == 0 ? pa[i].x
-                          : cc == 1 ? pa[i].y
-                          : cc == 2 ? pa[i].z : pa[i].w;
-            acc[i][g * 4 + 0] = fmaf(p, vb.x, acc[i][g * 4 + 0]);
-            acc[i][g * 4 + 1] = fmaf(p, vb.y, acc[i][g * 4 + 1]);
-            acc[i][g * 4 + 2] = fmaf(p, vb.z, acc[i][g * 4 + 2]);
-            acc[i][g * 4 + 3] = fmaf(p, vb.w, acc[i][g * 4 + 3]);
-          }
-        }
-      }
-    }
+    f32_tile_pv<NG, L::kLdV>(Ps, Vs, acc, ty, tx);
   }
 
 #pragma unroll
@@ -565,6 +624,330 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Head dims above 256 (any multiple of 128: 384, 512, 1024): the D-slice
+// kernels, one per type (see the header). D is a runtime count of C-column
+// chunks, nc = D / C >= 3; a block owns output columns C sl .. C sl + C - 1.
+
+constexpr int kChunk = 128;   // columns of a chunk of D and of a slice
+
+// Shared memory of the float32 D-slice kernel, in floats: two stages, each
+// a chunk of Q (32 rows) and of K (64 rows), rows C + 4 floats apart as in
+// F32Smem; the V slice [64][C]; P [32][64 + 4].
+template <int C>
+struct F32SliceSmem {
+  static constexpr int kLd = C + 4;
+  static constexpr int kK = kF32Rows * kLd;
+  static constexpr int kStage = (kF32Rows + kF32Keys) * kLd;
+  static constexpr int kV = 2 * kStage;
+  static constexpr int kP = kV + kF32Keys * C;
+  static constexpr int kLdP = kF32Keys + 4;
+  static constexpr int kBytes = (kP + kF32Rows * kLdP) * 4;
+};
+
+// Block (head and slice, batch, 32-query tile), the last q tiles first.
+// Steps t = nc j + c run over key tiles j and chunks c: S += Q_c K_c^T by
+// sequential FMAs over the chunk's columns, so q.k is summed over d = 0 ..
+// D - 1 in order, as flash_fwd_f32 sums it; after the last chunk the online
+// softmax (flash_fwd_f32's, bitwise the same in every slice's block) and
+// O += P V_slice. Chunk t + 1 (and with a tile's last chunk its V slice)
+// is copied in by cp.async under step t's products.
+template <int C>
+__global__ void __launch_bounds__(kF32Threads, 1)
+flash_fwd_f32_dslice(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     float* __restrict__ lse, int S, int H, int nc,
+                     int64_t qsb, int64_t qss, int64_t qsh,
+                     int64_t ksb, int64_t kss, int64_t ksh,
+                     int64_t vsb, int64_t vss, int64_t vsh, float scale) {
+  using L = F32SliceSmem<C>;
+  constexpr int NG = C / (4 * kTx);   // output float4 groups per thread
+  static_assert(NG * 4 * kTx == C, "the threads of a row split C evenly");
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  float* Vs = sm + L::kV;
+  float* Ps = sm + L::kP;
+
+  const int sl = blockIdx.x % nc, h = blockIdx.x / nc;
+  const int b = blockIdx.y;
+  const int qt = gridDim.z - 1 - blockIdx.z;
+  const int tid = threadIdx.x;
+  const int tx = tid % kTx;
+  const int ty = tid / kTx;
+  const int q0 = qt * kF32Rows;
+  const int nk = (q0 + kF32Rows - 1) / kF32Keys + 1;
+  const int n_steps = nk * nc;
+  const float* qbase = q + b * qsb + h * qsh + q0 * qss;
+  const float* kbase = k + b * ksb + h * ksh;
+  const float* vbase = v + b * vsb + h * vsh + sl * C;
+
+  // Step t's chunks into stage t % 2; V's slice with a tile's last chunk
+  // (a single buffer: step t + 1 is issued under step t, so the slice of
+  // tile j + 1 lands after tile j's P V has read it while nc >= 2).
+  auto issue = [&](int t) {
+    const int j = t / nc, c = t % nc;
+    float* st = sm + (t % 2) * L::kStage;
+    copy_rows<C, L::kLd>(st, qbase + c * C, kF32Rows, qss, tid);
+    copy_rows<C, L::kLd>(st + L::kK, kbase + j * kF32Keys * kss + c * C,
+                         kF32Keys, kss, tid);
+    if (c == nc - 1)
+      copy_rows<C, C>(Vs, vbase + j * kF32Keys * vss, kF32Keys, vss, tid);
+    cp_async_commit();
+  };
+  issue(0);
+
+  float m[kRT], l[kRT], acc[kRT][4 * NG], s[kRT][kCT];
+#pragma unroll
+  for (int i = 0; i < kRT; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 4 * NG; ++c) acc[i][c] = 0.f;
+  }
+
+  for (int t = 0; t < n_steps; ++t) {
+    const int j = t / nc, c = t % nc;
+    const int k0 = j * kF32Keys;
+    cp_async_wait<0>();
+    __syncthreads();   // step t's copies have landed; step t - 1 is done
+    if (t + 1 < n_steps) issue(t + 1);
+    const float* Qs = sm + (t % 2) * L::kStage;
+    const float* Ks = Qs + L::kK;
+    if (c == 0) {
+#pragma unroll
+      for (int i = 0; i < kRT; ++i)
+#pragma unroll
+        for (int jj = 0; jj < kCT; ++jj) s[i][jj] = 0.f;
+    }
+    f32_tile_dots<C, L::kLd, L::kLd>(Qs, Ks, s, ty, tx);
+    if (c < nc - 1) continue;
+
+    // The tile's scores are complete: flash_fwd_f32's online softmax and
+    // P V_slice.
+    f32_tile_softmax(s, m, l, acc, q0, k0, ty, tx, scale);
+#pragma unroll
+    for (int i = 0; i < kRT; ++i)
+#pragma unroll
+      for (int jj = 0; jj < kCT; ++jj)
+        Ps[(ty + kTy * i) * L::kLdP + tx + kTx * jj] = s[i][jj];
+    __syncthreads();   // all of P
+    f32_tile_pv<NG, C>(Ps, Vs, acc, ty, tx);
+  }
+
+  const int64_t D = int64_t(nc) * C;
+#pragma unroll
+  for (int i = 0; i < kRT; ++i) {
+    const int row = q0 + ty + kTy * i;
+    const float inv = l[i] == 0.f ? 1.f : 1.f / l[i];   // K1's guard
+    float* orow = o + ((int64_t(b) * S + row) * H + h) * D + sl * C;
+#pragma unroll
+    for (int g = 0; g < NG; ++g) {
+      *reinterpret_cast<float4*>(orow + 4 * kTx * g + tx * 4) =
+          make_float4(acc[i][g * 4 + 0] * inv, acc[i][g * 4 + 1] * inv,
+                      acc[i][g * 4 + 2] * inv, acc[i][g * 4 + 3] * inv);
+    }
+    if (lse != nullptr && sl == 0 && tx == 0)
+      lse[(int64_t(b) * H + h) * S + row] = m[i] + logf(l[i]);
+  }
+}
+
+cudaError_t launch_f32_dslice(const void* q, const void* k, const void* v,
+                              void* o, float* lse, int B, int S, int H,
+                              int D, const int64_t* qs, const int64_t* ks,
+                              const int64_t* vs, float scale,
+                              cudaStream_t stream) {
+  constexpr int C = kChunk;
+  constexpr int kSmem = F32SliceSmem<C>::kBytes;
+  static SmemLimit limit{
+      reinterpret_cast<const void*>(&flash_fwd_f32_dslice<C>), kSmem};
+  const cudaError_t err = limit.apply();
+  if (err != cudaSuccess) return err;
+  const int nc = D / C;
+  const dim3 grid(H * nc, B, S / kF32Rows);
+  flash_fwd_f32_dslice<C><<<grid, kF32Threads, kSmem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, S, H, nc,
+      qs[0], qs[1], qs[2], ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], scale);
+  return cudaGetLastError();
+}
+
+// Shared memory of the bf16 D-slice kernel: two stages, each a chunk of Q
+// (128 rows) and of K (64 rows), then the V slice (64 rows), then the
+// mbarriers (`full` and `empty` per stage). A chunk or slice is C / 64
+// slabs of [rows][64] bf16 (128-byte rows), 1024-byte aligned.
+template <int C>
+struct TcSliceSmem {
+  static constexpr int kQ = 128 * C * 2;
+  static constexpr int kKV = 64 * C * 2;
+  static constexpr int kStage = kQ + kKV;
+  static constexpr int kV = 2 * kStage;
+  static constexpr int kBars = kV + kKV;
+  static constexpr int kBytes = 1024 + kBars + 4 * 8;
+  static_assert(kBytes <= 232448, "a block's shared memory");
+};
+
+// Block (slice, 128-query tile, (batch, head) pair) in flash_fwd_tc's
+// order, the slices of one tile adjacent; warpgroup wg owns queries q0 +
+// 64 wg .. + 63. Steps t = nc j + c over 64-key tiles j and chunks c: S +=
+// Q_c K_c^T (wgmma m64n64k16 from shared memory, one chain over the whole
+// of D as flash_fwd_tc's), after the last chunk tile_softmax and O_slice +=
+// P V_slice (m64n128k16). Thread 0 keeps two steps in flight by TMA.
+template <int C>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_fwd_tc_dslice(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    bf16* __restrict__ o, float* __restrict__ lse, int S,
+                    int H, int nc, int group, float scale_log2) {
+  using L = TcSliceSmem<C>;
+  constexpr int NS = C / 64;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align1024(smem_raw);
+  uint8_t* Vs = sm + L::kV;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::kBars);
+  uint64_t* empty = full + 2;
+
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int wg = tid / 128, warp = (tid % 128) / 32;
+  const int sl = blockIdx.x % nc, blk = blockIdx.x / nc;
+  const int n_q = S / 128;
+  const int n_bh = gridDim.x / nc / n_q;
+  const int g0 = blk / (group * n_q) * group;
+  const int g_size = min(group, n_bh - g0);
+  const int r = blk - g0 * n_q;
+  const int bh = g0 + r % g_size;
+  const int h = bh % H, b = bh / H;
+  const int q0 = 128 * (n_q - 1 - r / g_size);
+  const int nk = q0 / 64 + 2;
+  const int n_steps = nk * nc;
+
+  // Step t's chunks into stage t % 2, and V's slice with a tile's last
+  // chunk (thread 0). The V buffer is single: step t + 2 is issued once
+  // every warp is done with step t, so the slice of tile j + 1 (issued at
+  // its step nc - 3) lands after tile j's P V while nc >= 3.
+  auto issue = [&](int t) {
+    const int j = t / nc, c = t % nc;
+    const bool last = c == nc - 1;
+    uint8_t* st = sm + (t % 2) * L::kStage;
+    uint64_t* bar = full + t % 2;
+    mbar_expect(bar, L::kStage + (last ? L::kKV : 0));
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      tma_load(st + s * 128 * 128, &tq, bar, (NS * c + s) * kSlab, h, q0, b);
+      tma_load(st + L::kQ + s * 64 * 128, &tk, bar, (NS * c + s) * kSlab, h,
+               64 * j, b);
+      if (last)
+        tma_load(Vs + s * 64 * 128, &tv, bar, (NS * sl + s) * kSlab, h,
+                 64 * j, b);
+    }
+  };
+
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, kTcThreads / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    issue(0);
+    issue(1);   // n_steps >= 2 nc
+  }
+  __syncwarp();
+
+  const int qw0 = q0 + 64 * wg;
+  const int row0 = 16 * warp + lane / 4;
+  const int n_own = qw0 / 64 + 1;
+  float m2[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[NS][32], s_[32];
+  zero<C>(acc);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s_[i] = 0.f;
+
+  for (int t = 0; t < n_steps; ++t) {
+    const int j = t / nc, c = t % nc;
+    const int parity = (t / 2) % 2;
+    const uint8_t* st = sm + (t % 2) * L::kStage;
+    mbar_wait(full + t % 2, parity);   // every warp, every phase
+    if (j < n_own) {
+      wgmma_fence();
+      gemm_abt<C>(s_, st, 128, 64 * wg, st + L::kQ, 64, 0, c > 0);  // Q K^T
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(s_);
+      if (c == nc - 1) {
+        float alpha[2];
+        uint32_t pa[4][4];
+        tile_softmax(s_, 64 * j == qw0, row0, lane, scale_log2, m2, l,
+                     alpha, pa);
+        scale_rows<C>(acc, alpha);
+        wgmma_fence();
+        gemm_ax_wide<C>(acc, pa, Vs, 64, 0);                       // O += P V
+        wgmma_commit();
+        wgmma_wait<0>();
+#pragma unroll
+        for (int u = 0; u < NS; ++u) reg_fence(acc[u]);
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + t % 2);
+    if (tid == 0 && t + 2 < n_steps) {
+      mbar_wait(empty + t % 2, parity);
+      issue(t + 2);
+    }
+    __syncwarp();
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    l[u] += __shfl_xor_sync(0xffffffffu, l[u], 1);
+    l[u] += __shfl_xor_sync(0xffffffffu, l[u], 2);
+    inv[u] = l[u] == 0.f ? 1.f : 1.f / l[u];   // K1's guard
+  }
+  scale_rows<C>(acc, inv);
+  const int64_t D = int64_t(nc) * C, rs = int64_t(H) * D;
+  store_tile<C>(o + ((int64_t(b) * S + qw0) * H + h) * D + sl * C, rs, acc,
+                row0, lane);
+  if (lse != nullptr && sl == 0 && lane % 4 == 0) {
+    float* out = lse + (int64_t(b) * H + h) * S + qw0 + row0;
+    out[0] = kLn2 * m2[0] + logf(l[0]);
+    out[8] = kLn2 * m2[1] + logf(l[1]);
+  }
+}
+
+cudaError_t launch_tc_dslice(const void* q, const void* k, const void* v,
+                             void* o, float* lse, int B, int S, int H, int D,
+                             const int64_t* qs, const int64_t* ks,
+                             const int64_t* vs, float scale,
+                             cudaStream_t stream) {
+  constexpr int C = kChunk;
+  CUtensorMap tq, tk, tv;
+  cudaError_t err;
+  if ((err = make_map(&tq, q, B, S, H, D, qs, 128)) != cudaSuccess ||
+      (err = make_map(&tk, k, B, S, H, D, ks, 64)) != cudaSuccess ||
+      (err = make_map(&tv, v, B, S, H, D, vs, 64)) != cudaSuccess)
+    return err;
+  constexpr int kSmem = TcSliceSmem<C>::kBytes;
+  static SmemLimit limit{
+      reinterpret_cast<const void*>(&flash_fwd_tc_dslice<C>), kSmem};
+  if ((err = limit.apply()) != cudaSuccess) return err;
+  // launch_tc's groups of (batch, head) pairs whose K and V fit about 32
+  // MB of L2.
+  const int64_t kv_bytes = int64_t(4) * S * D;
+  const int group = static_cast<int>(
+      std::max<int64_t>(1, std::min<int64_t>(B * H, (int64_t(32) << 20) /
+                                                         kv_bytes)));
+  const int nc = D / C;
+  flash_fwd_tc_dslice<C>
+      <<<dim3(B * H * (S / 128) * nc), kTcThreads, kSmem, stream>>>(
+          tq, tk, tv, static_cast<bf16*>(o), lse, S, H, nc, group,
+          scale * kLog2e);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -589,6 +972,12 @@ int flash_attn_fwd(int dtype, const void* q, const void* k, const void* v,
     return launch_f32<256>(q, k, v, o, lse, B, S, H, qs, ks, vs, scale, st);
   if (dtype == 1 && D == 256)
     return launch_tc<256>(q, k, v, o, lse, B, S, H, qs, ks, vs, scale, st);
+  if (D > 256 && D % kChunk == 0 && dtype == 0)
+    return launch_f32_dslice(q, k, v, o, lse, B, S, H, D, qs, ks, vs, scale,
+                             st);
+  if (D > 256 && D % kChunk == 0 && dtype == 1)
+    return launch_tc_dslice(q, k, v, o, lse, B, S, H, D, qs, ks, vs, scale,
+                            st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -196,22 +196,22 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// s[64 x 64] = A B^T over columns 16 K0 .. 16 K1 - 1 of D: A is 64 rows
-// of the K-major tile `a` (slabs of `a_rows` rows, starting at row
-// `a_row0`), B the 64 rows of the K-major tile `bt` (slabs of `b_rows`
-// rows, starting at row `b_row0`).
+// s[64 x 64] = A B^T over columns 16 K0 .. 16 K1 - 1 of D (s += A B^T when
+// `add` is nonzero): A is 64 rows of the K-major tile `a` (slabs of
+// `a_rows` rows, starting at row `a_row0`), B the 64 rows of the K-major
+// tile `bt` (slabs of `b_rows` rows, starting at row `b_row0`).
 template <int D, int K0 = 0, int K1 = D / 16>
 __device__ __forceinline__ void gemm_abt(float (&s)[32], const uint8_t* a,
                                          int a_rows, int a_row0,
                                          const uint8_t* bt, int b_rows,
-                                         int b_row0) {
+                                         int b_row0, int add = 0) {
 #pragma unroll
   for (int ks = K0; ks < K1; ++ks) {
     const int slab = ks / 4, byte = (ks % 4) * 32;
     wgmma_ss(s,
              sw128_desc(a + (slab * a_rows + a_row0) * 128 + byte),
              sw128_desc(bt + (slab * b_rows + b_row0) * 128 + byte),
-             ks > K0);
+             ks > K0 || add);
   }
 }
 

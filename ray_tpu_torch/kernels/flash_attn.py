@@ -40,10 +40,10 @@ def _count_launch(counter: str) -> None:
         globals()[counter] += 1
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# The head dims both sources instantiate. JAX's rule also admits 384, 512
-# and other multiples of 128; their tiles outgrow a block's shared memory
-# (ROADMAP B.1).
-HEAD_DIMS = (64, 128, 256)
+# Head dims 64, 128 and 256 run kernels instantiated for each; wider ones
+# (384, 512, 1024, ...) the D-slice kernels, where D is a runtime count of
+# 128-column chunks and a block owns one chunk of the output's columns (the
+# sources' header notes).
 # Keys per tile of the kernel's online softmax (64-key tiles in both routes
 # of the source, at every head dim): the running max, and so the scale at
 # which p is rounded, moves per tile.
@@ -89,11 +89,18 @@ def _bwd_library() -> ctypes.CDLL:
     return _bwd_lib
 
 
+def kernel_head_dim(d: int) -> bool:
+    """JAX's rule for the TPU kernel's head dim: 64, or a positive
+    multiple of 128."""
+    return d == 64 or (d > 0 and d % 128 == 0)
+
+
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     """What the kernels take: q, k, v of one shape [B, S, H, D], one dtype
-    (float32 or bfloat16) and one device; D in HEAD_DIMS; S a multiple of
-    128; the last dimension contiguous and the other strides multiples of
-    16 bytes (4 float32 or 8 bfloat16 elements) on a 16-byte-aligned base,
+    (float32 or bfloat16) and one device; D 64 or a multiple of 128
+    (`kernel_head_dim`); S a multiple of 128; the last dimension
+    contiguous and the other strides multiples of 16 bytes (4 float32 or
+    8 bfloat16 elements) on a 16-byte-aligned base,
     so every row loads as whole 16-byte vectors and the bf16 backward's
     TMA tensor maps take the strides as they are. Contiguous tensors and
     views of a fused [B, S, 3, H, D] projection qualify."""
@@ -108,8 +115,8 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k, v must be on one device")
     b, s, h, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head_dim {d} is not one of {HEAD_DIMS}")
+    if not kernel_head_dim(d):
+        raise ValueError(f"head_dim {d} is neither 64 nor a multiple of 128")
     if s == 0 or s % 128:
         raise ValueError(f"sequence length {s} is not a positive multiple "
                          f"of 128")

@@ -29,8 +29,8 @@ import torch
 from torch.distributed import ProcessGroup
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from ray_tpu_torch.kernels.flash_attn import (_DTYPE_CODE, HEAD_DIMS,
-                                              flash_attn_bwd, flash_attn_fwd)
+from ray_tpu_torch.kernels.flash_attn import (_DTYPE_CODE, flash_attn_bwd,
+                                              flash_attn_fwd)
 from ray_tpu_torch.parallel.collectives import axis_index, axis_size, ppermute
 from ray_tpu_torch.parallel.spmd import from_local, to_local
 
@@ -82,12 +82,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
 
 
 def _flash_eligible(q: torch.Tensor) -> bool:
-    """The JAX rule (a sequence that tiles by 128 and a lane-aligned
-    head_dim: a multiple of 128, or 64) cut to the head dims the kernels
-    take, `HEAD_DIMS` (64, 128 and 256): JAX's 384, 512 and wider go to
-    plain attention here."""
+    """JAX's rule: a sequence that tiles by 128 and a lane-aligned
+    head_dim (a multiple of 128, or 64)."""
     s, d = q.shape[1], q.shape[3]
-    return (d % 128 == 0 or d == 64) and d in HEAD_DIMS and s % 128 == 0
+    return (d % 128 == 0 or d == 64) and s % 128 == 0
 
 
 def _kernel_layout(t: torch.Tensor) -> bool:

@@ -274,6 +274,42 @@ def test_engine_at_head_dim_256_matches_jax_engine(paged, monkeypatch):
         eng.stats()["prefills"] - (eng.stats()["prefix_hit_tokens"] > 0))
 
 
+@pytest.mark.parametrize("head_dim", [384, 512])
+def test_engine_at_head_dims_above_256_matches_jax_engine(head_dim,
+                                                          monkeypatch):
+    """One head of 384 or 512 (the D-slice kernels on the card) through
+    whole paged engines, on the prompts of the head-dim-256 case: the
+    port's tokens are the JAX engine's, and each no-prefix prefill runs K1
+    (its plain version here) once a layer."""
+    widths = dict(WIDE, d_model=head_dim, n_heads=1)
+    jm, tm = _models(widths)
+    assert tm.kv_token_shape[-1] == head_dim
+    calls = []
+    real = torch_attention.flash_attention
+    monkeypatch.setattr(torch_attention, "flash_attention",
+                        lambda *a: calls.append(a[0].shape) or real(*a))
+    first = _prompt(33, 100)
+    prompts = [first, _prompt(34, 130), first[:96] + _prompt(35, 20)]
+
+    def run(eng_mod, model):
+        eng = eng_mod.InferenceEngine(model, eng_mod.EngineConfig(
+            max_batch_size=3, block_size=16, num_blocks=40,
+            paged_decode=True))
+        streams = [eng.submit(p, 6) for p in prompts]
+        _drive(eng)
+        return [s.tokens_so_far() for s in streams], eng
+
+    want, _ = run(jax_engine, jm)
+    got, eng = run(torch_engine, tm)
+    # A stream ends at 6 tokens or at the end-of-sequence token, as JAX's.
+    assert got == want
+    assert all(len(t) == 6 or t[-1] == tm.eos_token for t in got)
+    assert eng.stats()["prefix_hit_tokens"] > 0
+    assert set(calls) == {(1, 128, 1, head_dim), (1, 256, 1, head_dim)}
+    assert len(calls) == widths["n_layers"] * (
+        eng.stats()["prefills"] - (eng.stats()["prefix_hit_tokens"] > 0))
+
+
 def test_engine_on_a_background_thread(tiny_models):
     """start() runs the loop on a thread; the model and its pool share the
     model's device, and streams deliver every token."""

@@ -36,6 +36,13 @@ def card():
     ((1, 128, 4, 64), torch.bfloat16, BF16_TOL),
     ((2, 256, 3, 256), torch.float32, F32_TOL),
     ((2, 256, 3, 256), torch.bfloat16, BF16_TOL),
+    # The D-slice kernels: D a runtime count of 128-column chunks.
+    ((2, 256, 3, 384), torch.float32, F32_TOL),
+    ((2, 256, 3, 384), torch.bfloat16, BF16_TOL),
+    ((1, 384, 2, 512), torch.float32, F32_TOL),
+    ((1, 384, 2, 512), torch.bfloat16, BF16_TOL),
+    ((1, 256, 2, 1024), torch.float32, F32_TOL),
+    ((1, 256, 2, 1024), torch.bfloat16, BF16_TOL),
 ])
 def test_flash_kernel_matches_plain(card, shape, dtype, tol):
     gen = torch.Generator(device=card).manual_seed(0)
@@ -185,6 +192,13 @@ def test_forward_and_engine_prefill_on_card_match_cpu(card):
     ((1, 512, 2, 128), torch.float32, "qkv", 4.0, F32_TOL),
     ((2, 384, 3, 256), torch.bfloat16, "contiguous", 1.0, BF16_TOL),
     ((1, 512, 2, 256), torch.float32, "qkv", 1.0, F32_TOL),
+    # The D-slice kernels.
+    ((2, 384, 3, 384), torch.bfloat16, "contiguous", 1.0, BF16_TOL),
+    ((2, 384, 3, 384), torch.float32, "qkv", 4.0, F32_TOL),
+    ((1, 512, 2, 512), torch.bfloat16, "qkv", 1.0, BF16_TOL),
+    ((1, 512, 2, 512), torch.float32, "qkv", 4.0, F32_TOL),
+    ((1, 256, 2, 1024), torch.bfloat16, "contiguous", 1.0, BF16_TOL),
+    ((1, 256, 2, 1024), torch.float32, "contiguous", 1.0, F32_TOL),
 ])
 def test_flash_bwd_kernels_match_plain(card, shape, dtype, layout, qk_scale,
                                        tol):

@@ -107,6 +107,10 @@ def test_plain_attention_matches_jax(causal, positions):
     ((1, 128, 2, 128), "bfloat16"),
     ((1, 256, 2, 256), "float32"),
     ((1, 256, 2, 256), "bfloat16"),
+    ((1, 256, 2, 384), "float32"),
+    ((1, 256, 2, 384), "bfloat16"),
+    ((1, 256, 2, 512), "float32"),
+    ((1, 256, 2, 512), "bfloat16"),
 ])
 def test_flash_attention_matches_pallas_kernel(shape, dtype):
     """The port's flash function (its plain version, on the CPU) against
@@ -126,7 +130,8 @@ def test_flash_attention_matches_pallas_kernel(shape, dtype):
 
 
 @pytest.mark.parametrize("shape", [(1, 256, 2, 128), (1, 384, 2, 64),
-                                   (1, 256, 2, 256)])
+                                   (1, 256, 2, 256), (1, 256, 2, 384),
+                                   (1, 256, 2, 512)])
 def test_flash_attention_peaked_bf16_matches_pallas_kernel(shape):
     """q and k scaled by 4 (a peaked softmax: the running max moves from
     one 64-key tile to the next and p sits near 1 and 0), bf16, through the
@@ -157,6 +162,10 @@ def test_flash_attention_peaked_bf16_matches_pallas_kernel(shape):
     ((1, 256, 2, 64), "float32"),
     ((1, 256, 2, 256), "float32"),
     ((1, 256, 2, 256), "bfloat16"),
+    ((1, 256, 2, 384), "float32"),
+    ((1, 256, 2, 384), "bfloat16"),
+    ((1, 256, 2, 512), "float32"),
+    ((1, 256, 2, 512), "bfloat16"),
 ])
 def test_flash_attention_grads_match_pallas_kernel(shape, dtype):
     """dq, dk, dv of the port's flash attention (its autograd function,
@@ -226,20 +235,40 @@ def test_flash_plain_logsumexp_at_head_dim_256(dtype):
     assert torch.equal(o, o_plain)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_plain_logsumexp_at_head_dim_384(dtype):
+    """K1's row logsumexp at head_dim 384, which the D-slice kernels
+    take on the card (the plain version, on the CPU), against numpy's on
+    the same inputs, as at head_dim 256."""
+    tdt = getattr(torch, dtype)
+    q, k, v = (_t(a, tdt) for a in _qkv(13, (2, 256, 2, 384)))
+    o, lse = flash_attn.flash_attn_fwd(q, k, v, return_lse=True)
+    qf, kf = (t.float().numpy().astype(np.float64) for t in (q, k))
+    scores = np.einsum("bqhd,bkhd->bhqk", qf, kf) / np.sqrt(384.0)
+    scores = np.where(np.tril(np.ones((256, 256), bool)), scores, -np.inf)
+    mx = scores.max(-1, keepdims=True)
+    want = (mx + np.log(np.exp(scores - mx).sum(-1, keepdims=True)))[..., 0]
+    assert lse.shape == (2, 2, 256) and lse.dtype == torch.float32
+    assert o.dtype == tdt
+    np.testing.assert_allclose(lse.numpy(), want, atol=F32_TOL, rtol=F32_TOL)
+    o_plain, none = flash_attn.flash_attn_fwd(q, k, v)
+    assert none is None
+    assert torch.equal(o, o_plain)
+
+
 @pytest.mark.parametrize("s,d", [
     (128, 64), (128, 128), (256, 256), (384, 128), (128, 96), (100, 128),
     (64, 64), (128, 32), (512, 192), (256, 384), (256, 512)])
 def test_flash_eligible_matches_jax_rule(s, d, monkeypatch):
     """The port's eligibility is the JAX rule on shapes (which also asks
-    for a TPU backend, taken as present here), cut to the head dims the
-    port's kernels take: at (256, 256) both admit their kernels; at
-    (256, 384) and (256, 512) JAX admits its kernel and the port sends the
-    shape to plain attention."""
+    for a TPU backend, taken as present here), with no cut: at (256, 384)
+    and (256, 512) both admit their kernels, which the port runs as its
+    D-slice kernels."""
     monkeypatch.setattr(jax_attention.jax, "default_backend",
                         lambda: "tpu")
     x = np.zeros((1, s, 2, d), np.float32)
-    assert torch_attention._flash_eligible(torch.from_numpy(x)) == (
-        jax_attention._flash_eligible(x) and d in flash_attn.HEAD_DIMS)
+    assert torch_attention._flash_eligible(torch.from_numpy(x)) == \
+        jax_attention._flash_eligible(x)
 
 
 def _count_flash(monkeypatch):
@@ -406,6 +435,22 @@ def test_flash_wrapper_rejects_what_the_kernel_cannot_take():
     o, _ = flash_attn.flash_attn_fwd(qkv[:, :, 0], qkv[:, :, 1],
                                      qkv[:, :, 2])
     assert o.shape == (1, 128, 2, 64) and o.is_contiguous()
+
+
+@pytest.mark.parametrize("d", [0, 32, 64, 96, 128, 192, 256, 320, 384,
+                               448, 512, 640, 768, 1024])
+def test_kernel_head_dims_are_jax_rule(d):
+    """The head dims the wrappers take are JAX's: 64 or a positive
+    multiple of 128 (384, 512 and wider go to the D-slice kernels on the
+    card); any other D, such as 192 or 320, raises."""
+    assert flash_attn.kernel_head_dim(d) == (d > 0 and (d % 128 == 0
+                                                        or d == 64))
+    x = torch.zeros(1, 128, 2, d)
+    if flash_attn.kernel_head_dim(d):
+        flash_attn.check_inputs(x, x, x)
+    else:
+        with pytest.raises(ValueError, match="head_dim"):
+            flash_attn.check_inputs(x, x, x)
 
 
 def test_flash_bwd_wrappers_reject_what_the_kernels_cannot_take():

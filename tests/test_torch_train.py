@@ -47,6 +47,10 @@ WIDE_HEAD = dict(vocab_size=64, d_model=256, n_layers=1, n_heads=1,
                  d_ff=128, max_seq_len=128)
 WIDE = dict(vocab_size=64, d_model=512, n_layers=2, n_heads=2, d_ff=128,
             max_seq_len=256)
+# Heads wider than 256 (the D-slice kernels on the card): one head of D
+# over two layers at S 256.
+WIDER = {d: dict(vocab_size=64, d_model=d, n_layers=2, n_heads=1, d_ff=128,
+                 max_seq_len=256) for d in (384, 512)}
 POLICIES = [None, "dots", "dots_batch", "save_attn", "save_attn_qkv"]
 
 
@@ -264,6 +268,44 @@ def test_head_dim_256_loss_and_grads_match_jax(policy, monkeypatch):
     want, jgrads = jax.jit(jax.value_and_grad(
         lambda p: jax_lm_loss(p, jbatch, jcfg)))(jparams)
     np.testing.assert_allclose(loss, float(want), rtol=REL_TOL)
+    assert_grads_close(grads, jgrads)
+
+
+@pytest.mark.parametrize("head_dim", [384, 512])
+def test_head_dim_above_256_forward_loss_and_grads_match_jax(head_dim,
+                                                             monkeypatch):
+    """Two layers of one head of 384 or 512 at S 256: the forward, then
+    `lm_loss` and its gradients under bench.py's remat policy, against
+    JAX's, through the flash path: the flash function once a layer in the
+    forward and twice in the remat step, K2 and K3 once a layer in the
+    backward."""
+    jparams, jcfg, params, cfg = make_pair(WIDER[head_dim])
+    assert cfg.head_dim == head_dim
+    batch = make_batch(cfg, 2, 256, seed=8)
+    calls = []
+    real = torch_attention.flash_attention
+    monkeypatch.setattr(torch_attention, "flash_attention",
+                        lambda *a: calls.append(a[0].shape) or real(*a))
+    bwd = []
+    real_dq = flash_attn.flash_attn_bwd_dq
+    monkeypatch.setattr(flash_attn, "flash_attn_bwd_dq",
+                        lambda *a: bwd.append(1) or real_dq(*a))
+    tokens = batch["tokens"][:, :-1]
+    got = forward(params, tokens, cfg, device="cpu")[0].detach().numpy()
+    want, _ = jax.jit(jax_forward, static_argnums=2)(
+        jparams, jnp.asarray(tokens), jcfg)
+    want = np.asarray(want)
+    np.testing.assert_allclose(got, want, rtol=REL_TOL,
+                               atol=REL_TOL * np.abs(want).max())
+    assert calls == [(2, 256, 1, head_dim)] * cfg.n_layers
+    cfg = replace(cfg, remat=True, remat_policy="save_attn_qkv")
+    loss, grads = port_grads(params, batch, cfg)
+    assert len(calls) == 3 * cfg.n_layers
+    assert len(bwd) == cfg.n_layers
+    jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+    jloss, jgrads = jax.jit(jax.value_and_grad(
+        lambda p: jax_lm_loss(p, jbatch, jcfg)))(jparams)
+    np.testing.assert_allclose(loss, float(jloss), rtol=REL_TOL)
     assert_grads_close(grads, jgrads)
 
 

@@ -4,12 +4,16 @@
 
 `fn(*args)` runs once in each of N fresh processes (the `spawn` start
 method; a child imports `fn`'s module by name, so keep it free of JAX), after
-`torch.distributed` was initialised there with gloo over
-`tcp://127.0.0.1:<free port>`, a process-group timeout and one thread per
-rank. It returns each rank's result in rank order; the results must pickle
-(numpy arrays, numbers). If a rank raises, `run_ranks` raises with that
-rank's traceback; if the ranks are not all done by the deadline, it kills
-them and raises. Every child is gone when it returns.
+`torch.distributed` was initialised there with gloo, a process-group timeout
+and one thread per rank. The ranks meet at a `TCPStore` that this process
+serves on a port the system picks (bound once, so no other process can take
+it between the pick and the bind). It returns each rank's result in rank
+order; the results must pickle (numpy arrays, numbers). If a rank raises,
+`run_ranks` raises with that rank's traceback. Two deadlines: every rank
+has joined the process group within STARTUP_S (spawning N interpreters
+that import torch, which a loaded machine slows), and all are done within
+`deadline_s` of the last one joining; past either it kills them and
+raises. Every child is gone when it returns.
 """
 
 from __future__ import annotations
@@ -19,7 +23,6 @@ import importlib
 import multiprocessing
 import os
 import queue
-import socket
 import time
 import traceback
 from typing import Any, Callable, List
@@ -27,13 +30,9 @@ from typing import Any, Callable, List
 # A rank that waits on a peer that died fails within this many seconds,
 # and the whole run within the deadline.
 PG_TIMEOUT_S = 60
+STARTUP_S = 300
 DEADLINE_S = 120
-
-
-def free_port() -> int:
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+_READY = "ready"   # a rank's message once it has joined the process group
 
 
 def _rank_main(fn_name, args, rank: int, world: int, port: int,
@@ -46,14 +45,20 @@ def _rank_main(fn_name, args, rank: int, world: int, port: int,
         fn = getattr(importlib.import_module(module), name)
 
         torch.set_num_threads(1)
-        dist.init_process_group(
-            "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
-            world_size=world,
-            timeout=datetime.timedelta(seconds=PG_TIMEOUT_S))
+        timeout = datetime.timedelta(seconds=PG_TIMEOUT_S)
+        store = dist.TCPStore("127.0.0.1", port, world, False, timeout)
+        dist.init_process_group("gloo", store=store, rank=rank,
+                                world_size=world, timeout=timeout)
+        results.put((rank, _READY, None))
         try:
             out = fn(*args)
-        finally:
+        except BaseException:
+            # Reported before the group goes down, so that it reaches the
+            # parent ahead of the peers' errors about the lost connection.
+            results.put((rank, False, traceback.format_exc()))
             dist.destroy_process_group()
+            return
+        dist.destroy_process_group()
         results.put((rank, True, out))
     except BaseException:  # reported to the parent, which raises
         results.put((rank, False, traceback.format_exc()))
@@ -61,9 +66,15 @@ def _rank_main(fn_name, args, rank: int, world: int, port: int,
 
 def run_ranks(fn: Callable, world: int, *args,
               deadline_s: float = DEADLINE_S) -> List[Any]:
+    import torch.distributed as dist
+
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
-    port = free_port()
+    # The ranks' store: port 0 binds a free port and holds it.
+    store = dist.TCPStore("127.0.0.1", 0, None, True,
+                          datetime.timedelta(seconds=PG_TIMEOUT_S),
+                          wait_for_workers=False)
+    port = store.port
     env = {"OMP_NUM_THREADS": "1", "GLOO_SOCKET_IFNAME": "lo"}
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
@@ -86,16 +97,23 @@ def run_ranks(fn: Callable, world: int, *args,
                 os.environ[k] = v
     out, errors = {}, {}     # errors in the order they came: the first
     # is the cause, later ones are peers that lost it.
-    end = time.monotonic() + deadline_s
+    ready = set()
+    start = time.monotonic()
+    end = start + STARTUP_S
     try:
         # Drain the queue before joining: a child blocks on exit until
         # what it put is read.
         while len(out) + len(errors) < world:
             left = end - time.monotonic()
             if left <= 0:
+                if len(ready) < world:
+                    raise TimeoutError(
+                        f"{world - len(ready)} of {world} ranks had not "
+                        f"joined the process group after {STARTUP_S} s")
                 raise TimeoutError(
                     f"{world - len(out) - len(errors)} of {world} ranks "
-                    f"not done after {deadline_s} s")
+                    f"not done {deadline_s} s after the last joined (at "
+                    f"{joined_s:.1f} s)")
             try:
                 rank, ok, val = results.get(timeout=min(left, 1.0))
             except queue.Empty:
@@ -108,6 +126,12 @@ def run_ranks(fn: Callable, world: int, *args,
                     if errors or dead:
                         break
                 continue
+            if ok == _READY:
+                ready.add(rank)
+                if len(ready) == world:
+                    joined_s = time.monotonic() - start
+                    end = time.monotonic() + deadline_s
+                continue
             (out if ok else errors)[rank] = val
         for p in procs:
             p.join(timeout=max(0.0, min(5.0, end - time.monotonic())))
@@ -117,6 +141,7 @@ def run_ranks(fn: Callable, world: int, *args,
                 p.kill()
                 p.join(5)
         results.close()
+        del store
     if errors:
         rank = next(iter(errors))
         raise RuntimeError(f"rank {rank} of {world} failed:\n{errors[rank]}")

@@ -21,7 +21,9 @@ result line:
    kernels of heads wider than 256: the D-384 and D-512 phases' train and
    serving shapes, a peaked float32 softmax at each, and D 1024 in both
    types; each of those rows also names what SDPA ran, since its flash
-   backend stops at 256), with the error
+   backend stops at 256, and K1's rows give the size of the kernel's
+   thread-block clusters and how many the card runs at once,
+   `cudaOccupancyMaxActiveClusters`), with the error
    against the stated tolerance, the kernel's time (CUDA events) and
    achieved TFLOP/s, the plain version's time, one PyTorch library call's
    time as a yardstick, and the least time the card could take (bytes
@@ -703,6 +705,15 @@ def phase_kernels(card: str, power_w: float):
                 qt, kt, vt, is_causal=True), 1)
             rows[(shape, dtype, layout, qk_scale)]["library"] = backend
             note += f"; library: {backend}"
+            # The D-slice kernel's thread-block clusters.
+            info = flash_attn.dslice_info(q.dtype, shape[3])
+            rows[(shape, dtype, layout, qk_scale)].update(
+                cluster=info["cluster"],
+                max_active_clusters=info["max_active_clusters"])
+            note += (f"; cluster {info['cluster']} blocks x "
+                     f"{info['clusters_per_row_block']} a row block, "
+                     f"{info['smem_bytes']} B a block, max active clusters "
+                     f"{info['max_active_clusters']}")
         print(f"kernel flash_attn_fwd {tag}: "
               f"max_abs_err {err:.3e} (tol {atol:g} + {rtol:g}|ref|"
               f"{note}; worst diff/tol {worst:.3f}; bitwise-equal over two "

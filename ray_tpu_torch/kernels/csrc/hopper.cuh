@@ -61,6 +61,84 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
   } while (!done);
 }
 
+// Thread-block clusters. A block's rank in its cluster; the address, in
+// the cluster's shared window, of this block's `p` in the peer block
+// `rank`; 16-byte stores into a peer whose bytes count on the peer's
+// mbarrier `bar` (a cluster address) as they land, so the peer's wait on
+// that barrier sees them; an arrival on a peer's mbarrier (release at CTA
+// scope, as a consumer frees a slot of its own shared memory that a peer
+// fills: it orders this thread's reads of the slot, and does not wait for
+// its stores into peers to land); mbar_wait with acquire at cluster scope
+// (for barriers whose phase peers' bytes complete); and a barrier over
+// every thread of the cluster.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t peer_addr(const void* p, uint32_t rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(a) : "r"(smem_addr(p)), "r"(rank));
+  return a;
+}
+
+__device__ __forceinline__ void st_async16(uint32_t dst, uint32_t bar,
+                                           float4 x) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 "
+      "[%0], {%1, %2, %3, %4}, [%5];"
+      :: "r"(dst), "r"(__float_as_uint(x.x)), "r"(__float_as_uint(x.y)),
+         "r"(__float_as_uint(x.z)), "r"(__float_as_uint(x.w)), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_peer(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];"
+               :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// A bulk copy of `bytes` (a multiple of 16) from this block's shared
+// memory `src` to a peer's (cluster address `dst`), its bytes counted on
+// the peer's mbarrier `bar` as they land; the copy engine moves them while
+// the threads go on. Writes of the threads to `src` must be made visible
+// to it first (fence_proxy_async, then a barrier over the writers).
+__device__ __forceinline__ void bulk_to_peer(uint32_t dst, const void* src,
+                                             uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::"
+      "bytes [%0], [%1], %2, [%3];"
+      :: "r"(dst), "r"(smem_addr(src)), "r"(bytes), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// A barrier over `threads` threads of the block (named barrier `id`, 1-15).
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" :: "r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
 // TMA: the box at (column c, head h, row r, batch b) of a [B, S, H, D]
 // tensor map into shared memory, completing on `bar`.
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
@@ -362,10 +440,13 @@ cudaError_t make_map(CUtensorMap* map, const void* base, int B, int S, int H,
 
 // A kernel's dynamic shared-memory limit, raised with cudaFuncSetAttribute
 // on the first launch on each card and not again: a launch function holds
-// one as a function-local static per kernel instantiation.
+// one as a function-local static per kernel instantiation. With
+// `big_clusters`, clusters of up to 16 blocks are allowed too (8 is the
+// portable limit).
 struct SmemLimit {
   const void* kernel;
   int bytes;
+  bool big_clusters = false;
   std::atomic<uint64_t> cards{0};   // bit n: set on device n (n < 64)
 
   cudaError_t apply() {
@@ -379,6 +460,9 @@ struct SmemLimit {
     err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                bytes);
+    if (err == cudaSuccess && big_clusters)
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err == cudaSuccess && dev < 64) cards.fetch_or(bit);
     return err;
   }

@@ -42,8 +42,9 @@ def _count_launch(counter: str) -> None:
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # Head dims 64, 128 and 256 run kernels instantiated for each; wider ones
 # (384, 512, 1024, ...) the D-slice kernels, where D is a runtime count of
-# 128-column chunks and a block owns one chunk of the output's columns (the
-# sources' header notes).
+# 128-column chunks and a block owns one chunk of the output's columns (in
+# the forward, the blocks of a row block form a thread-block cluster that
+# forms S once; the sources' header notes).
 # Keys per tile of the kernel's online softmax (64-key tiles in both routes
 # of the source, at every head dim): the running max, and so the scale at
 # which p is rounded, moves per tile.
@@ -65,6 +66,9 @@ def _library() -> ctypes.CDLL:
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ptr, ptr, ptr, ctypes.c_float, ptr]
         lib.flash_attn_fwd.restype = ctypes.c_int
+        lib.flash_attn_fwd_dslice_info.argtypes = [ctypes.c_int,
+                                                   ctypes.c_int, ptr]
+        lib.flash_attn_fwd_dslice_info.restype = ctypes.c_int
         lib.flash_attn_error_string.argtypes = [ctypes.c_int]
         lib.flash_attn_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -142,6 +146,23 @@ def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type != "cuda":
         raise ValueError(f"no flash-attention kernel for {q.device}")
     return _launch(q, k, v, return_lse)
+
+
+def dslice_info(dtype: torch.dtype, d: int) -> dict:
+    """How K1's D-slice kernel of `dtype` runs at head dim `d` (above 256)
+    on the current card: `cluster` blocks a cluster, `clusters_per_row_
+    block`, `chunks_per_block` (128-column chunks of S a block forms),
+    `smem_bytes` a block, and `max_active_clusters`
+    (cudaOccupancyMaxActiveClusters)."""
+    lib = _library()
+    out = (ctypes.c_int * 5)()
+    err = lib.flash_attn_fwd_dslice_info(_DTYPE_CODE[dtype], d, out)
+    if err:
+        raise RuntimeError("flash_attn_fwd_dslice_info failed: "
+                           + lib.flash_attn_error_string(err).decode())
+    return dict(zip(("cluster", "clusters_per_row_block",
+                     "chunks_per_block", "smem_bytes",
+                     "max_active_clusters"), out))
 
 
 def _strides(t: torch.Tensor) -> ctypes.Array:

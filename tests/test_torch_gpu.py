@@ -43,21 +43,56 @@ def card():
     ((1, 384, 2, 512), torch.bfloat16, BF16_TOL),
     ((1, 256, 2, 1024), torch.float32, F32_TOL),
     ((1, 256, 2, 1024), torch.bfloat16, BF16_TOL),
+    # Clusters of 5, 6 and 16 blocks (16: beyond a portable cluster), a
+    # ragged block count at D 384, and D 2176, where a cluster of 9 blocks
+    # forms two chunks of S a block and two clusters work each row block.
+    ((1, 256, 2, 640), torch.float32, F32_TOL),
+    ((1, 256, 2, 640), torch.bfloat16, BF16_TOL),
+    ((1, 256, 2, 768), torch.float32, F32_TOL),
+    ((1, 256, 2, 768), torch.bfloat16, BF16_TOL),
+    ((1, 256, 1, 2048), torch.float32, F32_TOL),
+    ((1, 256, 1, 2048), torch.bfloat16, BF16_TOL),
+    ((2, 384, 3, 384), torch.float32, F32_TOL),
+    ((2, 384, 3, 384), torch.bfloat16, BF16_TOL),
+    ((1, 256, 1, 2176), torch.float32, F32_TOL),
+    ((1, 256, 1, 2176), torch.bfloat16, BF16_TOL),
 ])
 def test_flash_kernel_matches_plain(card, shape, dtype, tol):
+    """K1 against its plain version, and bitwise the same over two
+    launches on the same inputs (every block owns the outputs it
+    writes, and the D-slice kernels form S in one fixed order)."""
     gen = torch.Generator(device=card).manual_seed(0)
     q, k, v = (torch.randn(shape, generator=gen, device=card).to(dtype)
                for _ in range(3))
     before = flash_attn.launches
     o, lse = flash_attn.flash_attn_fwd(q, k, v, return_lse=True)
+    o2, lse2 = flash_attn.flash_attn_fwd(q, k, v, return_lse=True)
     torch.cuda.synchronize()
-    assert flash_attn.launches == before + 1
+    assert flash_attn.launches == before + 2
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
     assert o.dtype == dtype and o.is_contiguous()
     o_ref, lse_ref = flash_attn.flash_attn_fwd_plain(q, k, v,
                                                      return_lse=True)
     diff = (o.float() - o_ref.float()).abs()
     assert bool((diff <= tol + tol * o_ref.float().abs()).all())
     assert (lse - lse_ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,cluster,per_row_block,chunks", [
+    (384, 3, 1, 1), (512, 4, 1, 1), (1024, 8, 1, 1), (2048, 16, 1, 1),
+    (2176, 9, 2, 2), (4224, 11, 3, 3)])
+def test_dslice_clusters_fit_the_card(card, dtype, d, cluster,
+                                      per_row_block, chunks):
+    """The D-slice K1 launches one cluster of D / 128 blocks a row block up
+    to D 2048 (16 blocks, the most a cluster may hold), and above that
+    clusters whose blocks each form several 128-column chunks of S; the
+    card runs at least one such cluster at a time."""
+    info = flash_attn.dslice_info(dtype, d)
+    assert (info["cluster"], info["clusters_per_row_block"],
+            info["chunks_per_block"]) == (cluster, per_row_block, chunks)
+    assert info["max_active_clusters"] >= 1
+    assert info["smem_bytes"] <= 232448
 
 
 def test_flash_kernel_reads_qkv_views_through_strides(card):

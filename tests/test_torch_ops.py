@@ -111,6 +111,11 @@ def test_plain_attention_matches_jax(causal, positions):
     ((1, 256, 2, 384), "bfloat16"),
     ((1, 256, 2, 512), "float32"),
     ((1, 256, 2, 512), "bfloat16"),
+    # Clusters of 5 and 8 blocks on the card (one per 128-column chunk).
+    ((1, 256, 1, 640), "float32"),
+    ((1, 256, 1, 640), "bfloat16"),
+    ((1, 128, 1, 1024), "float32"),
+    ((1, 128, 1, 1024), "bfloat16"),
 ])
 def test_flash_attention_matches_pallas_kernel(shape, dtype):
     """The port's flash function (its plain version, on the CPU) against
@@ -166,6 +171,10 @@ def test_flash_attention_peaked_bf16_matches_pallas_kernel(shape):
     ((1, 256, 2, 384), "bfloat16"),
     ((1, 256, 2, 512), "float32"),
     ((1, 256, 2, 512), "bfloat16"),
+    ((1, 256, 1, 640), "float32"),
+    ((1, 256, 1, 640), "bfloat16"),
+    ((1, 128, 1, 1024), "float32"),
+    ((1, 128, 1, 1024), "bfloat16"),
 ])
 def test_flash_attention_grads_match_pallas_kernel(shape, dtype):
     """dq, dk, dv of the port's flash attention (its autograd function,

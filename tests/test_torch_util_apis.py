@@ -164,12 +164,32 @@ def _run_tasks(rt):
         rt.get(g.remote(), timeout=60)
 
 
+def _settled_tasks(list_tasks, deadline_s=TIMEOUT_S):
+    """`list_tasks()` once every `work` and `fail` task it lists has
+    reached its end (FINISHED or FAILED) and at least three `work` tasks
+    read FINISHED and one `fail` task FAILED, polled until `deadline_s`
+    (then the last listing, for the assertions to judge). Both runtimes
+    hand a task's result to `get` before they record its end, so a listing
+    taken straight after `get` may still show the task RUNNING."""
+    deadline = time.monotonic() + deadline_s
+    while True:
+        tasks = list_tasks()
+        mine = [t for t in tasks if t["name"].endswith(("work", "fail"))]
+        done = (all(t["state"] in ("FINISHED", "FAILED") for t in mine)
+                and sum(t["name"].endswith("work")
+                        and t["state"] == "FINISHED" for t in mine) >= 3
+                and any(t["name"].endswith("fail")
+                        and t["state"] == "FAILED" for t in mine))
+        if done or time.monotonic() > deadline:
+            return tasks
+        time.sleep(0.05)
+
+
 def test_list_tasks_and_summary(runtime):
     from ray_tpu_torch.util.state import list_tasks, summarize_tasks
 
     _run_tasks(ray_tpu_torch)
-    time.sleep(FLUSH_S)
-    tasks = list_tasks()
+    tasks = _settled_tasks(list_tasks)
     work = [t for t in tasks if t["name"].endswith("work")]
     failed = [t for t in tasks if t["name"].endswith("fail")]
     assert len([t for t in work if t["state"] == "FINISHED"]) >= 3
@@ -184,7 +204,7 @@ def test_list_tasks_and_summary(runtime):
             from ray_tpu.util.state import list_tasks as ref_list
 
             _run_tasks(rt)
-            return ref_list()
+            return _settled_tasks(ref_list)
 
         want = _reference_local(reference)
         assert {k for t in want for k in t} <= {k for t in tasks for k in t}

@@ -4,7 +4,7 @@ another source of `flash_attn_fwd.cu` (BASE) against the tree's, in one
 process.
 
     python3 tools/fwd_ab.py BASE.cu [--launches 60] [--repeats 3]
-                                    [--dtype bfloat16|float32]
+                                    [--dtype bfloat16|float32] [--wide]
                                               # from the repository root
 
 BASE is built with the tree's nvcc flags (and `kernels/csrc` on the include
@@ -13,7 +13,9 @@ called through the same C entry point; ptxas's register and spill lines
 of both builds are printed. For each case (bf16: the train
 step's shape, D 64 at it, a ragged S 384, a peaked row with q, k scaled by
 4; float32: the engine's prefill buckets S 128-1024; heads of 256: the
-D-256 train step's shape, a peaked row and the float32 serving width) and
+D-256 train step's shape, a peaked row and the float32 serving width;
+heads wider than 256: `chip_smoke.WIDE_SHAPES`, the D-slice kernels' rows
+of chip_smoke's K1 phase on the same inputs, which `--wide` runs alone) and
 each side it prints the worst diff/tol of o under `chip_smoke.py`'s K1
 gate (KERNEL_TOL, plus the flip bound in bf16; above 1 fails) with the
 lse error, and how many of `--launches` further launches on the same
@@ -57,6 +59,12 @@ CASES = [
     ((16, 1024, 6, 256), "bfloat16", "qkv", 1.0, 7),
     ((4, 1024, 6, 256), "bfloat16", "qkv", 4.0, 112),
     ((1, 1024, 6, 256), "float32", "qkv", 1.0, 3),
+] + [
+    # chip_smoke's D-slice K1 rows, each with the seed chip_smoke draws its
+    # inputs from (its place among KERNEL_SHAPES).
+    (shape, dtype, layout, qk,
+     cs.KERNEL_SHAPES.index((shape, dtype, layout, qk)))
+    for shape, dtype, layout, qk in cs.WIDE_SHAPES
 ]
 
 
@@ -111,6 +119,9 @@ def main() -> int:
     parser.add_argument("--repeats", type=int, default=3)
     parser.add_argument("--dtype", choices=("bfloat16", "float32"),
                         help="run only the cases of this type")
+    parser.add_argument("--wide", action="store_true",
+                        help="run only the cases of heads wider than 256 "
+                             "(the D-slice kernels)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("fwd_ab: no CUDA device", file=sys.stderr)
@@ -122,7 +133,8 @@ def main() -> int:
                 .get("log", ""))
     ok = True
     for shape, dtype, layout, qk, seed in CASES:
-        if args.dtype not in (None, dtype):
+        if args.dtype not in (None, dtype) or (args.wide and
+                                               shape[3] <= 256):
             continue
         b, s, h, d = shape
         q, k, v = cs.kernel_inputs(shape, dtype, layout, qk, seed)
